@@ -1,4 +1,4 @@
-"""Carry the JAX package's UNet and Decoder params into the port's modules.
+"""Carry the JAX package's UNet, Encoder and Decoder params into the port.
 
 The port keeps the flax parameter names and shapes, so a flax tree
 (nested dicts of numpy arrays, optionally under a top-level "params")
@@ -17,7 +17,7 @@ from torch import nn
 
 from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
 from ldm_image_generator_tpu_torch.models.unet import UNet
-from ldm_image_generator_tpu_torch.models.vae import Decoder
+from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
@@ -63,3 +63,8 @@ def unet_from_flax(tree: Mapping, cfg: UNetConfig, device="cuda") -> UNet:
 def decoder_from_flax(tree: Mapping, cfg: VAEConfig, device="cuda") -> Decoder:
     """A port Decoder holding the JAX Decoder's params."""
     return load_flax_params(Decoder(cfg, device=device), tree)
+
+
+def encoder_from_flax(tree: Mapping, cfg: VAEConfig, device="cuda") -> Encoder:
+    """A port Encoder holding the JAX Encoder's params."""
+    return load_flax_params(Encoder(cfg, device=device), tree)

@@ -1,10 +1,12 @@
-"""Diffusion schedule and the DDIM sampler, the torch counterpart of
-ldm_image_generator_tpu/diffusion/ddpm.py.
+"""Diffusion schedule, the training loss and the DDIM sampler, the torch
+counterpart of ldm_image_generator_tpu/diffusion/ddpm.py.
 
 The schedule is built in float64 with numpy and stored in float32, as the
 JAX package does. The DDIM reverse process is a Python loop over the
 step pairs (the JAX package's lax.scan); the per-step coefficients are
-float32 host scalars, the latent stays on the device.
+float32 host scalars, the latent stays on the device. The loss draws its
+timesteps and noise from an explicit torch.Generator, or takes them
+injected (the tests inject the JAX package's draws).
 """
 from __future__ import annotations
 
@@ -51,6 +53,70 @@ def make_schedule(cfg: DDPMConfig = DDPMConfig()) -> DiffusionSchedule:
     return DiffusionSchedule(beta=f32(beta), alpha=f32(alpha),
                              alpha_bar=f32(alpha_bar),
                              beta_tilde=f32(beta_tilde), num_timesteps=t)
+
+
+def _bcast(a: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Append singleton dims so a [B] vector broadcasts over [B, ...]."""
+    return a.reshape(a.shape + (1,) * (ndim - a.ndim))
+
+
+def alpha_bar_at(schedule: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """float32 alpha_bar[t] on t's device."""
+    ab = torch.from_numpy(schedule.alpha_bar).to(t.device)
+    return ab[t.long()]
+
+
+def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
+             eps: torch.Tensor) -> torch.Tensor:
+    """Forward process: sqrt(ab_t) x0 + sqrt(1 - ab_t) eps."""
+    ab = _bcast(alpha_bar_at(schedule, t), x0.ndim).to(x0.dtype)
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * eps
+
+
+def ddpm_loss(denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+              schedule: DiffusionSchedule, x: torch.Tensor,
+              loss: str = "l1", prediction: str = "eps",
+              min_snr_gamma: Optional[float] = None,
+              generator: Optional[torch.Generator] = None,
+              t: Optional[torch.Tensor] = None,
+              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Noise-prediction loss (a scalar tensor). t [B] uniform in [1, T)
+    and eps ~ N(0, 1) of x's shape are drawn from `generator` unless
+    given. denoise_fn(x_t, t) -> model output in the parameterization
+    `prediction` ('eps': target eps; 'v': sqrt(ab) eps - sqrt(1-ab) x0).
+    min_snr_gamma: per-sample weight min(SNR, gamma) / SNR (eps) or
+    min(SNR, gamma) / (SNR + 1) (v), arXiv:2303.09556; None: uniform."""
+    b = x.shape[0]
+    if t is None:
+        t = torch.randint(1, schedule.num_timesteps, (b,), generator=generator,
+                          device=x.device)
+    if eps is None:
+        eps = torch.randn(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype)
+    t = t.to(x.device)
+    x_t = q_sample(schedule, x, t, eps)
+    out = denoise_fn(x_t, t).float()
+    if prediction == "eps":
+        target = eps.float()
+    elif prediction == "v":
+        ab = _bcast(alpha_bar_at(schedule, t), x.ndim)
+        target = torch.sqrt(ab) * eps.float() - torch.sqrt(1.0 - ab) * x.float()
+    else:
+        raise ValueError(f"unknown prediction {prediction!r}")
+    err = out - target
+    w = None
+    if min_snr_gamma is not None:
+        ab_t = alpha_bar_at(schedule, t)
+        snr = ab_t / torch.clamp(1.0 - ab_t, min=1e-12)
+        denom = snr + 1.0 if prediction == "v" else torch.clamp(snr, min=1e-12)
+        w = _bcast(torch.clamp(snr, max=float(min_snr_gamma)) / denom, x.ndim)
+    if loss == "l1":
+        e = err.abs()
+    elif loss == "l2":
+        e = err * err
+    else:
+        raise ValueError(f"unknown loss {loss!r}")
+    return (e if w is None else w * e).mean()
 
 
 def pred_to_eps_x0(pred: torch.Tensor, x_t: torch.Tensor, alpha_bar_t,

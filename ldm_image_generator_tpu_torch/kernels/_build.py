@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("block_core", "ffn_block", "window_attention")
+SOURCES = ("block_core", "ffn_block", "ffn_block_bwd", "window_attention")
 # dynamic shared memory one block may use on the H100
 MAX_SMEM_BYTES = 227 * 1024
 
@@ -118,10 +118,19 @@ _SIGNATURES = {
                               + [_I] * 3 + [_P] * 5, _I),
         "ffn_scratch_floats": ([_I] * 3, _LL),
     },
+    "ffn_block_bwd": {
+        "ffn_block_backward": ([_I] + [_P] * 12 + [_I, _P] + [_I] * 3
+                               + [_P] * 5, _I),
+        "ffn_bwd_grad_floats": ([_I] * 2, _LL),
+        "ffn_bwd_scratch_floats": ([_I] * 3, _LL),
+    },
     "window_attention": {
         "window_mha_forward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 5, _I),
         "window_mha_smem_bytes": ([_I] * 2, _LL),
         "window_mha_scratch_floats": ([_I] * 3, _LL),
+        "window_mha_backward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 8, _I),
+        "window_mha_bwd_smem_bytes": ([_I] * 2, _LL),
+        "window_mha_bwd_scratch_floats": ([_I] * 3, _LL),
     },
 }
 

@@ -2,7 +2,7 @@
 
 Replaces ``block_core_pallas`` (ldm_image_generator_tpu/kernels/
 block_core.py:453; both its whole-image ``_kernel`` and its row-band
-``_row_kernel`` schedules), forward only. Returns (out, h), [B, H, W, C]:
+``_row_kernel`` schedules). Returns (out, h), [B, H, W, C]:
 
     h   = channel_norm(x) * film_mul + film_bias
     out = [x +] ReGLU_general(h) + ReGLU_e1(h) + ReGLU_e2(h)
@@ -20,6 +20,12 @@ window of h and the group's 9 x 32 x 32 taps in shared memory, and
 sums the FFN partials, the conv, its bias and the residual there, so
 out is written once. Products are the latency-hiding split-K fp32 FMA
 loop of ffn_block.
+
+Gradients: ``block_core`` is an autograd Function. The TPU kernel had no
+backward of its own (its custom_vjp took the XLA VJP of block_core_xla);
+here the backward is composed from the ported pieces: the FFN towers'
+backward kernel on the saved h (ffn_block.ffn_tower_bwd), PyTorch's own
+gradient of the grouped conv, the residual, and the norm/FiLM backward.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from ldm_image_generator_tpu_torch.kernels import _build
 from ldm_image_generator_tpu_torch.kernels.ffn_block import (
     check_ffn_args,
+    ffn_tower_bwd,
     norm_film,
     reglu_sum_fp32,
 )
@@ -67,11 +74,11 @@ def block_core_plain(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     return out.to(x.dtype), h4
 
 
-def block_core(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
-               wa, ba, wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids,
-               add_residual: bool = True):
-    """(out, h). CPU tensors take the plain version; CUDA tensors launch
-    the kernel chain or raise."""
+def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
+                        gbc, wa, ba, wb, bb, wc, bc, conv_kernel, conv_bias,
+                        expert_ids, add_residual: bool = True):
+    """(out, h): the plain version for CPU tensors, the kernel chain for
+    CUDA tensors (or an exception)."""
     if x.device.type == "cpu":
         return block_core_plain(x, film_mul, film_bias, gwa, gba, gwb, gbb,
                                 gwc, gbc, wa, ba, wb, bb, wc, bc, conv_kernel,
@@ -111,3 +118,54 @@ def block_core(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     global launches
     launches += 1
     return out, h
+
+
+class _BlockCore(torch.autograd.Function):
+    """block_core with a backward composed from the ported pieces (see
+    the module note); the film cotangent of a batch-1 film is summed over
+    the batch."""
+
+    @staticmethod
+    def forward(ctx, x, film_mul, film_bias, *rest):
+        *tensors, add_residual = rest
+        out, h = _block_core_forward(x, film_mul, film_bias, *tensors,
+                                     add_residual=add_residual)
+        ctx.add_residual = add_residual
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, film_mul, film_bias, *tensors, h)
+        return out, h
+
+    @staticmethod
+    def backward(ctx, g, gh):
+        x, film_mul, film_bias, *weights, ck, cb, ids, h = ctx.saved_tensors
+        n_in = len(weights) + 7
+        if g is None and gh is None:
+            return (None,) * n_in
+        c = x.shape[-1]
+        g = torch.zeros_like(x) if g is None else g.to(x.dtype).contiguous()
+        # the grouped conv's gradient, in fp32 as the forward sums it
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in (h, ck, cb)]
+            y = grouped_conv3x3(*leaves)
+            dh_conv, dck, dcb = torch.autograd.grad(y, leaves, g.float())
+        dh_extra = dh_conv if gh is None else dh_conv + gh.float()
+        rows = lambda t: t.reshape(-1, c)
+        dx, dmul, dbias, *dw = ffn_tower_bwd(
+            rows(x), rows(film_mul), rows(film_bias), weights, ids, rows(h),
+            rows(g), rows(dh_extra))
+        dx = dx.reshape(x.shape)
+        if ctx.add_residual:
+            dx = (dx.float() + g.float()).to(x.dtype)
+        return (dx, dmul.reshape(film_mul.shape), dbias.reshape(film_bias.shape),
+                *dw, dck.to(ck.dtype), dcb.to(cb.dtype), None, None)
+
+
+def block_core(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
+               wa, ba, wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids,
+               add_residual: bool = True):
+    """(out, h), differentiable in every input but the ids. CPU tensors
+    take the plain versions; CUDA tensors launch the kernel chains or
+    raise. Grad mode off skips the autograd Function (see ffn_block)."""
+    fn = _BlockCore.apply if torch.is_grad_enabled() else _block_core_forward
+    return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
+              wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids, add_residual)

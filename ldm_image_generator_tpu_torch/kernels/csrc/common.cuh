@@ -90,46 +90,70 @@ inline Split choose_split(int base_blocks, int k_tiles) {
 }
 
 // The k-tiles [k0, k0 + BK) of A rows row0.. and of B columns col0..,
-// zero outside [rows) x [K) and [K) x [cols); A and B row-major.
-template <typename S, typename T>
+// zero outside [rows) x [K) and [K) x [cols). A is [rows, K] row-major,
+// or with AT stored transposed ([K, rows], element (r, k) at A[k * lda +
+// r]); B is [K, cols] row-major, or with BT stored transposed ([cols, K]).
+// Neighbouring threads take neighbouring addresses in either layout. With
+// AT and ones_row >= rows, A's row ones_row reads 1 (a bias gradient's
+// row sum). The row-major paths compile to the forward kernels' loads.
+template <typename S, bool AT = false, typename T>
 __device__ __forceinline__ void fetch_a(float (&ra)[S::A_PER], const T* __restrict__ A, int lda,
-                                        int rows, int K, int row0, int k0) {
+                                        int rows, int K, int row0, int k0, int ones_row = -1) {
 #pragma unroll
   for (int u = 0; u < S::A_PER; ++u) {
     const int idx = threadIdx.x + u * S::THREADS;
-    const int r = idx / BK, k = idx % BK;
-    const int gr = row0 + r, gk = k0 + k;
-    ra[u] = (idx < S::BM * BK && gr < rows && gk < K) ? to_f(A[(size_t)gr * lda + gk]) : 0.f;
+    if constexpr (AT) {
+      const int gr = row0 + idx % S::BM, gk = k0 + idx / S::BM;
+      float v = 0.f;
+      if (idx < S::BM * BK && gk < K) {
+        if (gr < rows) v = to_f(A[(size_t)gk * lda + gr]);
+        else if (gr == ones_row) v = 1.f;
+      }
+      ra[u] = v;
+    } else {
+      const int gr = row0 + idx / BK, gk = k0 + idx % BK;
+      ra[u] = (idx < S::BM * BK && gr < rows && gk < K) ? to_f(A[(size_t)gr * lda + gk]) : 0.f;
+    }
   }
 }
 
-template <typename S, typename T>
+template <typename S, bool BT = false, typename T>
 __device__ __forceinline__ void fetch_b(float (&rb)[S::B_PER], const T* __restrict__ B, int ldb,
                                         int K, int cols, int k0, int col0) {
 #pragma unroll
   for (int u = 0; u < S::B_PER; ++u) {
     const int idx = threadIdx.x + u * S::THREADS;
-    const int k = idx / S::BN, c = idx % S::BN;
-    const int gk = k0 + k, gc = col0 + c;
-    rb[u] = (idx < BK * S::BN && gk < K && gc < cols) ? to_f(B[(size_t)gk * ldb + gc]) : 0.f;
+    if constexpr (BT) {
+      const int gk = k0 + idx % BK, gc = col0 + idx / BK;
+      rb[u] = (idx < BK * S::BN && gk < K && gc < cols) ? to_f(B[(size_t)gc * ldb + gk]) : 0.f;
+    } else {
+      const int gk = k0 + idx / S::BN, gc = col0 + idx % S::BN;
+      rb[u] = (idx < BK * S::BN && gk < K && gc < cols) ? to_f(B[(size_t)gk * ldb + gc]) : 0.f;
+    }
   }
 }
 
-template <typename S>
+template <typename S, bool AT = false>
 __device__ __forceinline__ void store_a(float (*As)[S::BM + 1], const float (&ra)[S::A_PER]) {
 #pragma unroll
   for (int u = 0; u < S::A_PER; ++u) {
     const int idx = threadIdx.x + u * S::THREADS;
-    if (idx < S::BM * BK) As[idx % BK][idx / BK] = ra[u];
+    if (idx < S::BM * BK) {
+      if constexpr (AT) As[idx / S::BM][idx % S::BM] = ra[u];
+      else As[idx % BK][idx / BK] = ra[u];
+    }
   }
 }
 
-template <typename S>
+template <typename S, bool BT = false>
 __device__ __forceinline__ void store_b(float (*Bs)[S::BN], const float (&rb)[S::B_PER]) {
 #pragma unroll
   for (int u = 0; u < S::B_PER; ++u) {
     const int idx = threadIdx.x + u * S::THREADS;
-    if (idx < BK * S::BN) Bs[idx / S::BN][idx % S::BN] = rb[u];
+    if (idx < BK * S::BN) {
+      if constexpr (BT) Bs[idx % BK][idx / BK] = rb[u];
+      else Bs[idx / S::BN][idx % S::BN] = rb[u];
+    }
   }
 }
 
@@ -162,28 +186,28 @@ struct TileSmem {
 // acc[nb] += A[row0.., k_begin:k_end] @ B[nb][k_begin:k_end, col0..] for
 // NB right-hand sides sharing A, with the next k-tile fetched into
 // registers while the current one is multiplied. k_begin is a multiple
-// of BK; loads past K read zero.
-template <typename S, int NB, typename T>
+// of BK; loads past K read zero. AT, BT and ones_row as fetch_a/fetch_b.
+template <typename S, int NB, bool AT = false, bool BT = false, typename T>
 __device__ __forceinline__ void tile_product(const T* __restrict__ A, int lda, int rows, int K,
                                              int row0, const T* const (&B)[NB], int ldb,
                                              int cols, int col0, int k_begin, int k_end,
                                              TileSmem<S, NB>& sm,
-                                             float (&acc)[NB][S::TM][S::TN]) {
+                                             float (&acc)[NB][S::TM][S::TN], int ones_row = -1) {
   if (k_begin >= k_end) return;
   float ra[S::A_PER];
   float rb[NB][S::B_PER];
-  fetch_a<S>(ra, A, lda, rows, K, row0, k_begin);
+  fetch_a<S, AT>(ra, A, lda, rows, K, row0, k_begin, ones_row);
 #pragma unroll
-  for (int n = 0; n < NB; ++n) fetch_b<S>(rb[n], B[n], ldb, K, cols, k_begin, col0);
+  for (int n = 0; n < NB; ++n) fetch_b<S, BT>(rb[n], B[n], ldb, K, cols, k_begin, col0);
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    store_a<S>(sm.a, ra);
+    store_a<S, AT>(sm.a, ra);
 #pragma unroll
-    for (int n = 0; n < NB; ++n) store_b<S>(sm.b[n], rb[n]);
+    for (int n = 0; n < NB; ++n) store_b<S, BT>(sm.b[n], rb[n]);
     __syncthreads();
     if (k0 + BK < k_end) {
-      fetch_a<S>(ra, A, lda, rows, K, row0, k0 + BK);
+      fetch_a<S, AT>(ra, A, lda, rows, K, row0, k0 + BK, ones_row);
 #pragma unroll
-      for (int n = 0; n < NB; ++n) fetch_b<S>(rb[n], B[n], ldb, K, cols, k0 + BK, col0);
+      for (int n = 0; n < NB; ++n) fetch_b<S, BT>(rb[n], B[n], ldb, K, cols, k0 + BK, col0);
     }
 #pragma unroll
     for (int n = 0; n < NB; ++n) fma_tile<S>(sm.a, sm.b[n], acc[n]);

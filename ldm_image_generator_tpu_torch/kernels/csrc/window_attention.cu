@@ -8,8 +8,13 @@
 // The three projection weights are read in place (no concatenated copy);
 // at few rows the projections split k over blocks (common.cuh). qkv, o
 // and the fp32 partial sums live in scratch the Python wrapper allocates.
-// dtype: 0 = float32, 1 = bfloat16.
+//
+// The backward (window_mha_backward, the counterpart of
+// window_mha_bwd_pallas) recomputes qkv, then per (window, head) the
+// probabilities, and emits dx and fp32 weight gradients; see
+// attn_bwd_kernel below. dtype: 0 = float32, 1 = bfloat16.
 #include "common.cuh"
+#include "grad_common.cuh"
 
 namespace ldm {
 
@@ -183,6 +188,162 @@ int window_mha(const void* x, const uint8_t* mask, const void* wq, const void* b
   return (int)cudaGetLastError();
 }
 
+// Backward of one (window, head), grid (heads, N), dynamic shared memory
+// attn_bwd_smem_bytes(L, d). With q, k, v the rounded recompute and dO =
+// T(g @ wo^T) (all [L, d] slices of this head):
+//   P = softmax(q k^T / sqrt(d) + mask) in fp32, Pt = T(P)
+//   o  = T(Pt v)                  (the forward's attention output, for dwo)
+//   dP = dO v^T                   (fp32)
+//   dv = T(Pt^T dO)
+//   dS = T(P * (dP - rowsum(dP * P)) / sqrt(d))
+//   dq = T(dS k),  dk = T(dS^T q)
+// written to o [N, L, C] and dqkv [N, L, 3C] at this head's columns.
+template <typename T>
+__global__ void attn_bwd_kernel(const T* __restrict__ qkv, const uint8_t* __restrict__ mask,
+                                const T* __restrict__ dout, int L, int C, int d, float scale,
+                                T* __restrict__ o, T* __restrict__ dqkv) {
+  extern __shared__ float sm[];
+  float* q = sm;                  // [L][d]
+  float* k = q + L * d;           // [L][d + 1]
+  float* v = k + L * (d + 1);     // [L][d + 1]
+  float* dO = v + L * (d + 1);    // [L][d]
+  float* p = dO + L * d;          // [L][L + 1] fp32 probabilities
+  float* dp = p + L * (L + 1);    // [L][L + 1] dP, then dS
+  const int head = blockIdx.x, n = blockIdx.y;
+  const int C3 = 3 * C;
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int l = idx / d, j = idx % d;
+    const size_t base = ((size_t)n * L + l) * C3 + head * d + j;
+    q[l * d + j] = to_f(qkv[base]);
+    k[l * (d + 1) + j] = to_f(qkv[base + C]);
+    v[l * (d + 1) + j] = to_f(qkv[base + 2 * C]);
+    dO[l * d + j] = to_f(dout[((size_t)n * L + l) * C + head * d + j]);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < L * L; idx += blockDim.x) {
+    const int i = idx / L, j = idx % L;
+    float s = 0.f, t = 0.f;
+    for (int u = 0; u < d; ++u) {
+      s = fmaf(q[i * d + u], k[j * (d + 1) + u], s);
+      t = fmaf(dO[i * d + u], v[j * (d + 1) + u], t);
+    }
+    s *= scale;
+    if (mask != nullptr && mask[(size_t)n * L + j]) s += -1e9f;
+    p[i * (L + 1) + j] = s;
+    dp[i * (L + 1) + j] = t;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int i = warp; i < L; i += nwarps) {
+    float* row = p + i * (L + 1);
+    float m = __int_as_float((int)0xff800000);  // -inf
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < L; j += 32) row[j] = row[j] / sum;
+  }
+  __syncthreads();
+  const size_t row0 = (size_t)n * L;
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int i = idx / d, j = idx % d;
+    float acc_o = 0.f, acc_v = 0.f;
+    for (int t = 0; t < L; ++t) {
+      acc_o = fmaf(to_f(from_f<T>(p[i * (L + 1) + t])), v[t * (d + 1) + j], acc_o);
+      acc_v = fmaf(to_f(from_f<T>(p[t * (L + 1) + i])), dO[t * d + j], acc_v);
+    }
+    o[(row0 + i) * C + head * d + j] = from_f<T>(acc_o);
+    dqkv[(row0 + i) * C3 + 2 * C + head * d + j] = from_f<T>(acc_v);
+  }
+  for (int i = warp; i < L; i += nwarps) {
+    const float* pr = p + i * (L + 1);
+    float* dr = dp + i * (L + 1);
+    float rs = 0.f;
+    for (int j = lane; j < L; j += 32) rs += dr[j] * pr[j];
+    rs = warp_sum(rs);
+    for (int j = lane; j < L; j += 32) dr[j] = to_f(from_f<T>(pr[j] * (dr[j] - rs) * scale));
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < L * d; idx += blockDim.x) {
+    const int i = idx / d, j = idx % d;
+    float acc_q = 0.f, acc_k = 0.f;
+    for (int t = 0; t < L; ++t) {
+      acc_q = fmaf(dp[i * (L + 1) + t], k[t * (d + 1) + j], acc_q);
+      acc_k = fmaf(dp[t * (L + 1) + i], q[t * d + j], acc_k);
+    }
+    dqkv[(row0 + i) * C3 + head * d + j] = from_f<T>(acc_q);
+    dqkv[(row0 + i) * C3 + C + head * d + j] = from_f<T>(acc_k);
+  }
+}
+
+inline size_t attn_bwd_smem_bytes(int L, int d) {
+  return sizeof(float) * ((size_t)2 * L * d + (size_t)2 * L * (d + 1) + (size_t)2 * L * (L + 1));
+}
+
+inline size_t attn_bwd_scratch_floats(int N, int L, int C) {
+  const int rows = N * L;
+  size_t f = proj_plan(rows, C, C, 3).floats;
+  const size_t cand[3] = {abt_plan(1, rows, C, C).floats, abt_plan(3, rows, C, C).floats,
+                          atb_part_floats(4, C, C, rows, 1)};
+  for (size_t c : cand) f = c > f ? c : f;
+  return f;
+}
+
+// grads: [dwq (C x C) | dbq (C)] [dwk | dbk] [dwv | dbv] [dwo | dbo], fp32.
+template <typename T>
+int window_mha_bwd(const void* x, const uint8_t* mask, const void* g, const void* wq,
+                   const void* bq, const void* wk, const void* bk, const void* wv,
+                   const void* bv, const void* wo, int N, int L, int C, int heads, void* dx,
+                   void* qkv, void* o, void* dout, void* dqkv, float* grads, float* scratch,
+                   cudaStream_t st) {
+  const int rows = N * L, d = C / heads;
+  const ProjArgs<T> in{(const T*)x, rows, C, C,
+                       {(const T*)wq, (const T*)wk, (const T*)wv},
+                       {(const T*)bq, (const T*)bk, (const T*)bv},
+                       {0, C, 2 * C}, (T*)qkv, 3 * C, scratch};
+  proj<T>(in, 3, st);
+  // dO = T(g @ wo^T)
+  AbtArgs pd{};
+  pd.nseg = 1; pd.A[0] = g; pd.lda[0] = C; pd.B[0] = WeightRef{wo, -1, 0}; pd.ldb = C;
+  pd.N = rows; pd.K = C; pd.ncol = C; pd.out = dout; pd.part = scratch;
+  abt<T>(pd, st);
+  const size_t smem = attn_bwd_smem_bytes(L, d);
+  cudaError_t e = allow_smem(attn_bwd_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_kernel<T><<<dim3(heads, N), 128, smem, st>>>(
+      (const T*)qkv, mask, (const T*)dout, L, C, d, 1.0f / sqrtf((float)d), (T*)o, (T*)dqkv);
+  // dx = T(dq wq^T + dk wk^T + dv wv^T), one rounding
+  AbtArgs px{};
+  px.nseg = 3;
+  const void* w3[3] = {wq, wk, wv};
+  for (int z = 0; z < 3; ++z) {
+    px.A[z] = (const T*)dqkv + z * C;
+    px.lda[z] = 3 * C;
+    px.B[z] = WeightRef{w3[z], -1, 0};
+  }
+  px.ldb = C; px.N = rows; px.K = C; px.ncol = C; px.out = dx; px.part = scratch;
+  abt<T>(px, st);
+  // weight gradients over the rows: x^T [dq | dk | dv] and o^T g, with
+  // the bias gradients as the ones-row
+  AtbArgs w{};
+  w.nmat = 4;
+  for (int z = 0; z < 4; ++z) {
+    w.A[z] = z < 3 ? x : o;
+    w.lda[z] = C;
+    w.B[z] = z < 3 ? (const void*)((const T*)dqkv + z * C) : g;
+    w.ldb[z] = z < 3 ? 3 * C : C;
+    w.out[z] = grads + (size_t)z * (C + 1) * C;
+  }
+  w.K = rows; w.R = C; w.ncol = C; w.ones = 1; w.part = scratch;
+  atb<T>(w, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace ldm
 
 extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, const void* wq,
@@ -211,4 +372,32 @@ extern "C" long long window_mha_scratch_floats(int N, int L, int C) {
   const size_t a = ldm::proj_plan(N * L, C, C, 3).floats;
   const size_t b = ldm::proj_plan(N * L, C, C, 1).floats;
   return (long long)(a > b ? a : b);
+}
+
+extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, const void* g,
+                                   const void* wq, const void* bq, const void* wk,
+                                   const void* bk, const void* wv, const void* bv,
+                                   const void* wo, int N, int L, int C, int heads, void* dx,
+                                   void* qkv, void* o, void* dout, void* dqkv, void* grads,
+                                   void* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (dtype == 0)
+    return ldm::window_mha_bwd<float>(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx,
+                                      qkv, o, dout, dqkv, (float*)grads, (float*)scratch, st);
+  if (dtype == 1)
+    return ldm::window_mha_bwd<__nv_bfloat16>(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C,
+                                              heads, dx, qkv, o, dout, dqkv, (float*)grads,
+                                              (float*)scratch, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory one backward attention block needs, for the wrapper's check.
+extern "C" long long window_mha_bwd_smem_bytes(int L, int d) {
+  return (long long)ldm::attn_bwd_smem_bytes(L, d);
+}
+
+// fp32 scratch (split partial sums) one backward call needs.
+extern "C" long long window_mha_bwd_scratch_floats(int N, int L, int C) {
+  return (long long)ldm::attn_bwd_scratch_floats(N, L, C);
 }

@@ -1,7 +1,8 @@
 """Fused SwinBlock FFN prologue: norm + FiLM + 3-ReGLU MoE sum, on rows.
 
 Replaces ``ffn_block_pallas`` (ldm_image_generator_tpu/kernels/
-ffn_block.py:221), forward only. Returns (out, h):
+ffn_block.py:221) and, for gradients, ``ffn_block_bwd_pallas`` (:551).
+Returns (out, h):
 
     h   = channel_norm(x) * film_mul + film_bias
     out = ReGLU_general(h) + ReGLU_e1(h) + ReGLU_e2(h)
@@ -24,6 +25,17 @@ pass. h, the gate g and the partials live in scratch this wrapper
 allocates. The product is a shared-memory-tiled fp32 FMA loop on the
 CUDA cores, not yet the tensor cores. Film rows repeat with period
 film_mul.shape[0], so the batch-1 FiLM schedule needs no broadcast copy.
+
+Backward (``ffn_block_bwd``, csrc/ffn_block_bwd.cu): from the saved h
+and the out-cotangent g, the towers' weight and bias gradients (fp32)
+and dh. At the training shapes it is bound by operations (24 products
+of N x C x M, half of them recomputing the forward's a, b and the
+gate's cotangent); the weight gradients contract over the N rows, so
+rows are split over blocks and the fp32 partials meet in a second pass
+(no atomics: reruns are bitwise equal). ``ffn_tower_bwd`` composes it
+with the expert scatter and the norm/FiLM backward, as the JAX
+package's ``_ffn_tower_bwd`` (:681) does, and ``ffn_block`` is an
+autograd Function around both directions.
 """
 from __future__ import annotations
 
@@ -32,8 +44,9 @@ import torch
 from ldm_image_generator_tpu_torch.kernels import _build
 from ldm_image_generator_tpu_torch.ops.norm import channel_norm
 
-# calls of ffn_block that launched the CUDA kernel chain
+# calls of ffn_block and of ffn_block_bwd that launched their CUDA chains
 launches = 0
+bwd_launches = 0
 
 
 def norm_film(x: torch.Tensor, film_mul: torch.Tensor,
@@ -102,10 +115,10 @@ def check_ffn_args(x, film_mul, film_bias, weights, expert_ids):
     return n, c, m, e
 
 
-def ffn_block(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
-              wa, ba, wb, bb, wc, bc, expert_ids):
-    """(out, h), both [N, C]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel chain or raise."""
+def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
+                       wa, ba, wb, bb, wc, bc, expert_ids):
+    """(out, h): the plain version for CPU tensors, the kernel chain for
+    CUDA tensors (or an exception)."""
     if x.device.type == "cpu":
         return ffn_block_plain(x, film_mul, film_bias, gwa, gba, gwb, gbb,
                                gwc, gbc, wa, ba, wb, bb, wc, bc, expert_ids)
@@ -129,3 +142,158 @@ def ffn_block(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     global launches
     launches += 1
     return out, h
+
+
+def ffn_block_bwd_plain(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
+                        expert_ids):
+    """Plain PyTorch version of the towers' backward. h, g: [N, C].
+    Returns (dh [N, C] in h.dtype, then for the general ReGLU and the
+    experts expert_ids[0], expert_ids[1] each: dwa, dba, dwb, dbb, dwc,
+    all fp32). da, db and the gate are rounded to h.dtype; dh is an fp32
+    sum over the three towers, rounded once."""
+    dt = h.dtype
+    ids = expert_ids.long()
+    sel = lambda w: w.index_select(0, ids).float()
+    ea, eba, eb, ebb, ec = sel(wa), sel(ba), sel(wb), sel(bb), sel(wc)
+    hf = h.float()
+    gf = g.to(dt).float()
+    dh = torch.zeros_like(hf)
+    grads = []
+    for wa_, ba_, wb_, bb_, wc_ in (
+        (gwa.float(), gba.float(), gwb.float(), gbb.float(), gwc.float()),
+        (ea[0], eba[0], eb[0], ebb[0], ec[0]),
+        (ea[1], eba[1], eb[1], ebb[1], ec[1]),
+    ):
+        a = hf @ wa_ + ba_
+        b = hf @ wb_ + bb_
+        relu_b = torch.relu(b)
+        dg = gf @ wc_.t()
+        da = (dg * relu_b).to(dt).float()
+        db = (dg * a * (b > 0)).to(dt).float()
+        gate = (a * relu_b).to(dt).float()
+        grads += [hf.t() @ da, da.sum(0), hf.t() @ db, db.sum(0), gate.t() @ gf]
+        dh = dh + da @ wa_.t() + db @ wb_.t()
+    return (dh.to(dt), *grads)
+
+
+def ffn_block_bwd(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
+                  expert_ids):
+    """The towers' backward (see ffn_block_bwd_plain for what it returns).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    chain or raise."""
+    if h.device.type == "cpu":
+        return ffn_block_bwd_plain(h, g, gwa, gba, gwb, gbb, gwc, wa, ba,
+                                   wb, bb, wc, expert_ids)
+    n, c = h.shape
+    e, _, m = wa.shape
+    want = {"g": (g, (n, c)), "gwa": (gwa, (c, m)), "gba": (gba, (m,)),
+            "gwb": (gwb, (c, m)), "gbb": (gbb, (m,)), "gwc": (gwc, (m, c)),
+            "wa": (wa, (e, c, m)), "ba": (ba, (e, m)), "wb": (wb, (e, c, m)),
+            "bb": (bb, (e, m)), "wc": (wc, (e, m, c))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != h.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want "
+                             f"{shape} {h.dtype}")
+    if expert_ids.dtype != torch.int32 or tuple(expert_ids.shape) != (2,):
+        raise TypeError("expert_ids must be int32 [2]")
+    code = _build.dtype_code(h)
+    lib = _build.load("ffn_block_bwd")
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh = torch.empty_like(h)
+    dgate = torch.empty((9, n, m), dtype=h.dtype, device=h.device)
+    grads = torch.empty(lib.ffn_bwd_grad_floats(c, m), **f32)
+    scratch = torch.empty(lib.ffn_bwd_scratch_floats(n, c, m), **f32)
+    p = _build.cuda_ptrs(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
+                         expert_ids, dh, dgate, grads, scratch)
+    rc = lib.ffn_block_backward(code, *p[:12], e, p[12], n, c, m, *p[13:],
+                                _build.current_stream())
+    _build.check(lib, rc, "ffn_block_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    out = [dh]
+    cm, tower = c * m, 2 * (c + 1) * m + m * c
+    for r in range(3):
+        t = grads[r * tower:(r + 1) * tower]
+        out += [t[:cm].view(c, m), t[cm:cm + m],
+                t[cm + m:2 * cm + m].view(c, m), t[2 * cm + m:2 * cm + 2 * m],
+                t[2 * cm + 2 * m:].view(m, c)]
+    return tuple(out)
+
+
+def norm_film_bwd(x, film_mul, film_bias, dh):
+    """(dx, dmul, dbias) of norm_film at (x, film_mul, film_bias) for the
+    cotangent dh of h; the film cotangents are summed over the rows that
+    repeat them."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, film_mul, film_bias)]
+        h = norm_film(*leaves)
+        return torch.autograd.grad(h, leaves, dh)
+
+
+def ffn_tower_bwd(x, film_mul, film_bias, weights, expert_ids, h, g,
+                  dh_extra=None):
+    """Gradients of ffn_block's 15 differentiable inputs (x, film_mul,
+    film_bias, then the 12 weights) from the saved h, the out-cotangent g
+    and an extra fp32 cotangent of h (the h output's, plus any sibling
+    branch's), as the JAX package's _ffn_tower_bwd: the towers' backward,
+    dh = dh_towers + dh_extra in fp32, the expert gradients scattered into
+    the stacked tensors with index_add_ (ids stay on the device; equal ids
+    add), the output biases' gradient the row sum of g, and the norm/FiLM
+    backward of dh rounded to h.dtype. Each gradient in its input's dtype."""
+    gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc = weights
+    (dh_ffn, dgwa, dgba, dgwb, dgbb, dgwc, dwa0, dba0, dwb0, dbb0, dwc0,
+     dwa1, dba1, dwb1, dbb1, dwc1) = ffn_block_bwd(
+        h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, expert_ids)
+    dh = dh_ffn.float()
+    if dh_extra is not None:
+        dh = dh + dh_extra.float()
+    dbc_row = g.float().sum(0)
+    ids = expert_ids.long()
+
+    def scatter(s0, s1, like):
+        z = torch.zeros(like.shape, dtype=torch.float32, device=like.device)
+        return z.index_add_(0, ids, torch.stack([s0, s1]))
+
+    dx, dmul, dbias = norm_film_bwd(x, film_mul, film_bias, dh.to(h.dtype))
+    cast = lambda v, ref: v.to(ref.dtype)
+    return (dx, dmul, dbias,
+            cast(dgwa, gwa), cast(dgba, gba), cast(dgwb, gwb),
+            cast(dgbb, gbb), cast(dgwc, gwc), cast(dbc_row, gbc),
+            cast(scatter(dwa0, dwa1, wa), wa), cast(scatter(dba0, dba1, ba), ba),
+            cast(scatter(dwb0, dwb1, wb), wb), cast(scatter(dbb0, dbb1, bb), bb),
+            cast(scatter(dwc0, dwc1, wc), wc),
+            cast(scatter(dbc_row, dbc_row, bc), bc))
+
+
+class _FfnBlock(torch.autograd.Function):
+    """ffn_block with its backward (the JAX package's custom_vjp around
+    ffn_block_pallas, _ffb_fwd/_ffb_bwd): h, a forward output, is saved;
+    the cotangents of both outputs arrive, either may be None."""
+
+    @staticmethod
+    def forward(ctx, x, film_mul, film_bias, *rest):
+        out, h = _ffn_block_forward(x, film_mul, film_bias, *rest)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, film_mul, film_bias, *rest, h)
+        return out, h
+
+    @staticmethod
+    def backward(ctx, g, gh):
+        x, film_mul, film_bias, *weights, ids, h = ctx.saved_tensors
+        if g is None and gh is None:
+            return (None,) * (len(weights) + 4)
+        g = torch.zeros_like(h) if g is None else g.to(h.dtype).contiguous()
+        grads = ffn_tower_bwd(x, film_mul, film_bias, weights, ids, h, g, gh)
+        return (*grads, None)
+
+
+def ffn_block(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
+              wa, ba, wb, bb, wc, bc, expert_ids):
+    """(out, h), both [N, C], differentiable in every input but the ids.
+    CPU tensors take the plain versions; CUDA tensors launch the kernel
+    chains (forward and backward) or raise. With grad mode off
+    (sampling) the autograd Function is skipped: it would record
+    nothing and costs host time per call."""
+    fn = _FfnBlock.apply if torch.is_grad_enabled() else _ffn_block_forward
+    return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
+              wb, bb, wc, bc, expert_ids)

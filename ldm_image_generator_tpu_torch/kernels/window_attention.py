@@ -1,7 +1,8 @@
 """Windowed multi-head self-attention over [N, L, C] token windows.
 
 Replaces ``window_mha_pallas`` (ldm_image_generator_tpu/kernels/
-window_attention.py:188), forward only:
+window_attention.py:188) and, for gradients, ``window_mha_bwd_pallas``
+(:402):
 
     q, k, v = T(x @ wq + bq), T(x @ wk + bk), T(x @ wv + bv)
     p       = T(softmax(q k^T / sqrt(d) - 1e9 * key_pad))   (fp32 scores)
@@ -17,6 +18,17 @@ L <= 64), and the output projection. At few rows the projections split
 k over blocks (with an elementwise pass summing the fp32 partials), as
 ffn_block does. The TPU kernel's head folding is a
 Mosaic workaround and is not carried over.
+
+Backward (``window_mha_bwd``, window_mha_backward in the same source):
+recompute qkv, dO = T(g @ wo^T), one block per (window, head) that
+recomputes the probabilities and forms dv, dS, dq and dk in shared
+memory (q, k, v, dO, P and dP: 29 KB at L=36, d=32), dx as one product
+over the three projections rounded once, and the four weight gradients
+(bias gradients as their column sums) over the rows, split over blocks
+with a summing pass. At the training shapes it is bound by operations
+(the projections' products). ``window_mha`` is an autograd Function
+around both directions; the JAX package kept C=1024 on its XLA VJP (a
+Mosaic limit), the port has no such cap.
 """
 from __future__ import annotations
 
@@ -26,8 +38,9 @@ from ldm_image_generator_tpu_torch.kernels import _build
 
 NEG_INF = -1e9
 
-# calls of window_mha that launched the CUDA kernel chain
+# calls of window_mha and of window_mha_bwd that launched their CUDA chains
 launches = 0
+bwd_launches = 0
 
 
 def window_mha_plain(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -52,25 +65,30 @@ def window_mha_plain(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     return (o.float() @ wo.float() + bo.float()).to(dt)
 
 
-def window_mha(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads: int):
-    """[N, L, C] attention output. CPU tensors take the plain version;
-    CUDA tensors launch the kernel chain or raise."""
-    if x.device.type == "cpu":
-        return window_mha_plain(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
-                                num_heads)
+def _check_mha_args(x, mask, weights, num_heads):
     n, l, c = x.shape
     if c % num_heads:
         raise ValueError(f"C={c} is not a multiple of {num_heads} heads")
-    for name, t, shape in (("wq", wq, (c, c)), ("wk", wk, (c, c)),
-                           ("wv", wv, (c, c)), ("wo", wo, (c, c)),
-                           ("bq", bq, (c,)), ("bk", bk, (c,)),
-                           ("bv", bv, (c,)), ("bo", bo, (c,))):
+    for name, t in zip(("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"),
+                       weights):
+        shape = (c, c) if name[0] == "w" else (c,)
         if tuple(t.shape) != shape or t.dtype != x.dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, want "
                              f"{shape} {x.dtype}")
     if mask is not None and (mask.dtype != torch.bool
                              or tuple(mask.shape) != (n, l)):
         raise ValueError(f"mask must be bool [{n}, {l}]")
+
+
+def _window_mha_forward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                        num_heads: int):
+    """The plain version for CPU tensors, the kernel chain for CUDA
+    tensors (or an exception)."""
+    if x.device.type == "cpu":
+        return window_mha_plain(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                num_heads)
+    _check_mha_args(x, mask, (wq, bq, wk, bk, wv, bv, wo, bo), num_heads)
+    n, l, c = x.shape
     code = _build.dtype_code(x)
     lib = _build.load("window_attention")
     smem = lib.window_mha_smem_bytes(l, c // num_heads)
@@ -93,3 +111,117 @@ def window_mha(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads: int):
     global launches
     launches += 1
     return out
+
+
+def window_mha_bwd_plain(x, mask, g, wq, bq, wk, bk, wv, bv, wo, bo,
+                         num_heads: int):
+    """Plain PyTorch version of the backward, the per-head math of
+    window_mha_bwd_pallas. g: the out-cotangent [N, L, C]. Returns (dx in
+    x.dtype, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo in fp32). Rounded to
+    x.dtype as the TPU kernel rounds: the qkv recompute, dO, the
+    probabilities used for dv (fp32 ones for dS), dS, dq, dk, dv and dx
+    (one rounding of an fp32 product)."""
+    n, l, c = x.shape
+    h = num_heads
+    d = c // h
+    dt = x.dtype
+    scale = 1.0 / float(d) ** 0.5
+    rnd = lambda t: t.to(dt).float()
+    x2 = x.reshape(n * l, c).float()
+    g2 = g.reshape(n * l, c).to(dt).float()
+    heads = lambda t: t.reshape(n, l, h, d)
+    proj = lambda w, b: heads(rnd(x2 @ w.float() + b.float()))
+    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    dout = heads(rnd(g2 @ wo.float().t()))
+    scores = torch.einsum("nlhd,nshd->nhls", q, k) * scale
+    if mask is not None:
+        scores = scores + torch.where(mask[:, None, None, :], NEG_INF, 0.0)
+    probs32 = torch.softmax(scores, dim=-1)
+    probs = rnd(probs32)
+    out = rnd(torch.einsum("nhls,nshd->nlhd", probs, v)).reshape(n * l, c)
+    dprobs = torch.einsum("nlhd,nshd->nhls", dout, v)
+    dv = rnd(torch.einsum("nhls,nlhd->nshd", probs, dout))
+    ds = probs32 * (dprobs - (dprobs * probs32).sum(-1, keepdim=True))
+    dsb = rnd(ds * scale)
+    dq = rnd(torch.einsum("nhls,nshd->nlhd", dsb, k))
+    dk = rnd(torch.einsum("nhls,nlhd->nshd", dsb, q))
+    dqkv = torch.cat([t.reshape(n * l, c) for t in (dq, dk, dv)], dim=-1)
+    wqkv = torch.cat([wq, wk, wv], dim=1).float()
+    dx = (dqkv @ wqkv.t()).to(dt).reshape(n, l, c)
+    dwqkv = x2.t() @ dqkv
+    dbqkv = dqkv.sum(0)
+    return (dx, dwqkv[:, :c], dbqkv[:c], dwqkv[:, c:2 * c], dbqkv[c:2 * c],
+            dwqkv[:, 2 * c:], dbqkv[2 * c:], out.t() @ g2, g2.sum(0))
+
+
+def window_mha_bwd(x, mask, g, wq, bq, wk, bk, wv, bv, wo, bo,
+                   num_heads: int):
+    """The backward (see window_mha_bwd_plain for what it returns). CPU
+    tensors take the plain version; CUDA tensors launch the kernel chain
+    or raise."""
+    if x.device.type == "cpu":
+        return window_mha_bwd_plain(x, mask, g, wq, bq, wk, bk, wv, bv, wo,
+                                    bo, num_heads)
+    _check_mha_args(x, mask, (wq, bq, wk, bk, wv, bv, wo, bo), num_heads)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"g: {tuple(g.shape)} {g.dtype}, want "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, l, c = x.shape
+    code = _build.dtype_code(x)
+    lib = _build.load("window_attention")
+    smem = lib.window_mha_bwd_smem_bytes(l, c // num_heads)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"L={l}, d={c // num_heads} needs {smem} bytes of "
+                         "shared memory per backward block")
+    like = dict(dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    qkv = torch.empty((n, l, 3 * c), **like)
+    o = torch.empty_like(x)
+    dout = torch.empty_like(x)
+    dqkv = torch.empty((n, l, 3 * c), **like)
+    grads = torch.empty(4 * (c + 1) * c, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(lib.window_mha_bwd_scratch_floats(n, l, c),
+                          dtype=torch.float32, device=x.device)
+    p = _build.cuda_ptrs(x, g, wq, bq, wk, bk, wv, bv, wo, dx, qkv, o, dout,
+                         dqkv, grads, scratch)
+    mask_ptr = None if mask is None else _build.cuda_ptrs(mask)[0]
+    rc = lib.window_mha_backward(code, p[0], mask_ptr, *p[1:9], n, l, c,
+                                 num_heads, *p[9:], _build.current_stream())
+    _build.check(lib, rc, "window_mha_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    out = [dx]
+    cc = c * c
+    for z in range(4):
+        t = grads[z * (cc + c):(z + 1) * (cc + c)]
+        out += [t[:cc].view(c, c), t[cc:]]
+    return tuple(out)
+
+
+class _WindowMHA(torch.autograd.Function):
+    """window_mha with its backward (the JAX package's custom_vjp
+    fused_window_mha with window_mha_bwd_pallas)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo)
+        return _window_mha_forward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                   num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, *weights = ctx.saved_tensors
+        grads = window_mha_bwd(x, mask, g.to(x.dtype).contiguous(), *weights,
+                               num_heads=ctx.num_heads)
+        dw = [gr.to(w.dtype) for gr, w in zip(grads[1:], weights)]
+        return (grads[0], None, *dw, None)
+
+
+def window_mha(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads: int):
+    """[N, L, C] attention output, differentiable in x and the weights.
+    CPU tensors take the plain versions; CUDA tensors launch the kernel
+    chains (forward and backward) or raise. Grad mode off skips the
+    autograd Function (see ffn_block)."""
+    fn = _WindowMHA.apply if torch.is_grad_enabled() else _window_mha_forward
+    return fn(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)

@@ -1,5 +1,6 @@
-"""The kernels' call shapes on the sampling path, random inputs at those
-shapes, and the least work each call needs (for roofline bounds).
+"""The kernels' call shapes on the sampling and training paths, random
+inputs at those shapes, and the least work each call needs (for
+roofline bounds).
 
 Used by chip_smoke.py and the CUDA kernel tests to hold each kernel
 against its plain version at the shapes the UNet gives it.
@@ -22,11 +23,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 class Call:
     """One kernel call shape on the path and its count per denoise step."""
 
-    kernel: str            # block_core | ffn_block | window_mha
+    kernel: str            # block_core | ffn_block | window_mha, or *_bwd
     batch: int
     hw: int                # map side (block kernels) or 0
     c: int
-    per_step: int          # calls per denoise step
+    per_step: int          # calls per denoise (or train) step
     n: int = 0             # window_mha: windows
     l: int = 0             # window_mha: tokens per window
     heads: int = 0
@@ -34,7 +35,7 @@ class Call:
 
     @property
     def label(self) -> str:
-        if self.kernel == "window_mha":
+        if self.kernel.startswith("window_mha"):
             return f"[{self.n},{self.l},{self.c}] h{self.heads}" + (
                 " mask" if self.masked else "")
         return f"[{self.batch},{self.hw},{self.hw},{self.c}]"
@@ -64,6 +65,17 @@ def path_calls(batch: int, latent: int = 32,
     return calls
 
 
+def train_calls(batch: int = 8, latent: int = 32,
+                cfg: UNetConfig = UNetConfig()) -> list:
+    """Every distinct kernel call of one train step at `batch` > 2: the
+    forward's calls (path_calls) and, for each, its backward kernel's
+    call at the same shape and count."""
+    if batch <= 2:
+        raise ValueError("train_calls covers the ffn_block body (batch > 2)")
+    fwd = path_calls(batch, latent, cfg)
+    return fwd + [dataclasses.replace(c, kernel=c.kernel + "_bwd") for c in fwd]
+
+
 def _randn(shape, gen, device, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=gen, device=device) * scale + shift
 
@@ -78,14 +90,17 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
     cast = lambda t: t.to(dtype).contiguous()
     w = lambda *s, fan: cast(_randn(s, gen, device, fan ** -0.5))
     b = lambda *s: cast(_randn(s, gen, device, 0.05))
-    if call.kernel == "window_mha":
+    if call.kernel.startswith("window_mha"):
         x = cast(_randn((call.n, call.l, c), gen, device))
         mask = None
         if call.masked:
             mask = torch.zeros((call.n, call.l), dtype=torch.bool, device=device)
             mask[:, -call.l // 6:] = True  # a padded edge window's keys
-        return (x, mask, w(c, c, fan=c), b(c), w(c, c, fan=c), b(c),
-                w(c, c, fan=c), b(c), w(c, c, fan=c), b(c))
+        ws = (w(c, c, fan=c), b(c), w(c, c, fan=c), b(c),
+              w(c, c, fan=c), b(c), w(c, c, fan=c), b(c))
+        if call.kernel == "window_mha_bwd":
+            return (x, mask, cast(_randn(x.shape, gen, device)), *ws)
+        return (x, mask, *ws)
     hw, bt = call.hw, call.batch
     x = cast(_randn((bt, hw, hw, c), gen, device))
     mul = cast(_randn((1, hw, hw, c), gen, device, 0.2, 1.0))
@@ -94,6 +109,12 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
            w(e, c, m, fan=c), b(e, m), w(e, c, m, fan=c), b(e, m),
            w(e, m, c, fan=m), b(e, c))
     ids = torch.tensor((1, 3), dtype=torch.int32, device=device)
+    if call.kernel == "ffn_block_bwd":
+        # h as the norm/FiLM output (about unit scale), g an out-cotangent
+        h = cast(_randn((bt * hw * hw, c), gen, device))
+        g = cast(_randn((bt * hw * hw, c), gen, device))
+        gwa, gba, gwb, gbb, gwc, _, wa, ba, wb, bb, wc, _ = ffn
+        return (h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids)
     if call.kernel == "ffn_block":
         return (x.reshape(-1, c), mul.reshape(-1, c), bias.reshape(-1, c),
                 *ffn, ids)
@@ -106,6 +127,23 @@ def work(call: Call, dtype: torch.dtype):
     selected experts' weights), each output written once."""
     it = torch.finfo(dtype).bits // 8
     c = m = call.c
+    if call.kernel == "window_mha_bwd":
+        # projections 22 N L C^2 (qkv recompute 6, dO 2, dx 6, dW 8) plus
+        # the six attention products 12 N L^2 C; x, g in, dx out; weights
+        # read, fp32 weight and bias gradients written
+        rows = call.n * call.l
+        nbytes = (it * (3 * rows * c + 4 * c * c + 4 * c)
+                  + 4 * (4 * c * c + 4 * c)
+                  + (call.n * call.l if call.masked else 0))
+        flops = 22 * rows * c * c + 12 * call.n * call.l * call.l * c
+        return nbytes, flops
+    if call.kernel == "ffn_block_bwd":
+        # 8 products of N x C x M per ReGLU, 3 ReGLUs; h, g in, dh out;
+        # the three towers' weights read, their fp32 gradients written
+        rows = call.batch * call.hw * call.hw
+        tower = 3 * (3 * c * m + 2 * m)
+        nbytes = it * (3 * rows * c + tower) + 4 * tower + 8
+        return nbytes, 48 * rows * c * m
     if call.kernel == "window_mha":
         rows = call.n * call.l
         nbytes = it * (2 * rows * c + 4 * c * c + 4 * c) + (
@@ -121,6 +159,24 @@ def work(call: Call, dtype: torch.dtype):
         nbytes += it * (9 * 32 * c + c)
         flops += 2 * rows * c * 9 * 32
     return nbytes, flops
+
+
+# backward kernel vs its plain version: each output's max abs error over
+# max(max |plain|, 1) (bwd_scale_err; the unit floor because dbk vanishes
+# in exact arithmetic, softmax being invariant to a shift of every key,
+# so both sides hold rounding noise there). fp32 (TF32 off): sums over up
+# to 10368 rows in another order. bf16: da, db, the gate, dO, the
+# probabilities and dS round at the same points as the plain version, so
+# a differing sum order moves a rounded value by one bf16 ulp (2**-8),
+# and the rare one-ulp flip of b > 0 at the ReLU boundary moves one row's
+# contribution to a weight gradient
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def bwd_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max(max |want|, 1)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / max(want.float().abs().max().item(), 1.0)
 
 
 def bound_ms(call: Call, dtype: torch.dtype):

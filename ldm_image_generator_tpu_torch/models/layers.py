@@ -4,7 +4,10 @@ ldm_image_generator_tpu/models/layers.py.
 Parameter names and shapes follow the flax tree (Dense kernels [in, out],
 HWIO convs, stacked experts [E, C, M]), so convert.py carries a JAX
 checkpoint across by flattening names. Modules compute in the dtype of
-their parameters; the pipeline casts them once.
+the activations they receive and cast each parameter to it at use, as
+flax's `dtype` field does: training keeps fp32 parameters and computes
+in bf16 (the cast's gradient reaches the fp32 parameter); the sampling
+pipeline casts the modules once, so there the cast is a no-op.
 
 The block body runs through the port's kernel wrappers: block_core at
 batch <= 2, ffn_block plus a plain grouped conv above, and window_mha for
@@ -12,8 +15,10 @@ the attention blocks. Each wrapper takes its plain version for CPU
 tensors and its CUDA kernel for CUDA tensors.
 
 Randomness is explicit: MoE routing arrives as expert ids (from the
-UNet's routing plan, a pair id, or fixed indices). Stochastic depth is a
-training-time gate and is not applied here (sampling is deterministic).
+UNet's routing plan, a pair id, or fixed indices), and the
+stochastic-depth gate of a training forward as a 0/1 tensor per block
+(from the UNet). The gate multiplies the block's branch, as the JAX
+package does, so a skipped block still launches its kernels.
 """
 from __future__ import annotations
 
@@ -49,6 +54,20 @@ from ldm_image_generator_tpu_torch.ops.window import (
 BLOCK_CORE_MAX_BATCH = 2
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in dtype (differentiable); t itself when it already is, without
+    the cost of a .to() call on the sampling path's hot loop."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def cast_all(ts: tuple, dtype: torch.dtype) -> tuple:
+    """The tensors ts, which share one dtype (a module's parameters), in
+    dtype: one comparison per call when they already are (the sampling
+    pipeline casts its modules once), where a cast of each costs ~0.2 us
+    of host time per tensor on a host-bound path."""
+    return ts if ts[0].dtype == dtype else tuple(t.to(dtype) for t in ts)
+
+
 class ParamInit:
     """Creates parameters on one device from one torch.Generator: flax's
     lecun_normal (truncated normal, std sqrt(1/fan_in)) and zeros. On the
@@ -82,7 +101,7 @@ class Dense(nn.Module):
         self.bias = init.zeros(dout)
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        return x @ cast(self.kernel, x.dtype) + cast(self.bias, x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -105,8 +124,8 @@ class MultiHeadAttention(nn.Module):
         self.bo = init.zeros(c)
 
     def forward(self, q_in, kv_in, key_padding_mask=None):
-        w = (self.wq, self.bq, self.wk, self.bk, self.wv, self.bv,
-             self.wo, self.bo)
+        w = cast_all((self.wq, self.bq, self.wk, self.bk, self.wv, self.bv,
+                      self.wo, self.bo), q_in.dtype)
         if q_in is kv_in:
             return window_mha(q_in, key_padding_mask, *w,
                               num_heads=self.num_heads)
@@ -115,17 +134,18 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         d = c // h
         dt = q_in.dtype
+        wq, bq, wk, bk, wv, bv, wo, bo = w
         proj = lambda x, wt, bs: (x.float() @ wt.float() + bs.float()).to(dt)
-        q = proj(q_in, self.wq, self.bq).reshape(b, l, h, d).float()
-        k = proj(kv_in, self.wk, self.bk).reshape(b, s, h, d).float()
-        v = proj(kv_in, self.wv, self.bv).reshape(b, s, h, d).float()
+        q = proj(q_in, wq, bq).reshape(b, l, h, d).float()
+        k = proj(kv_in, wk, bk).reshape(b, s, h, d).float()
+        v = proj(kv_in, wv, bv).reshape(b, s, h, d).float()
         scores = torch.einsum("blhd,bshd->bhls", q, k) * (1.0 / math.sqrt(d))
         if key_padding_mask is not None:
             scores = scores + torch.where(
                 key_padding_mask[:, None, None, :], NEG_INF, 0.0)
         probs = torch.softmax(scores, dim=-1).to(dt).float()
         o = torch.einsum("bhls,bshd->blhd", probs, v).reshape(b, l, c).to(dt)
-        return (o.float() @ self.wo.float() + self.bo.float()).to(dt)
+        return (o.float() @ wo.float() + bo.float()).to(dt)
 
 
 class WindowAttention(nn.Module):
@@ -245,13 +265,19 @@ class RandomMoE(nn.Module):
                 conv_bias=None, add_residual: bool = False, expert_ids=None,
                 pair_id=None):
         """x: raw block input [B, H, W, C]; film [1 or B, H, W, C].
-        Returns (ffn_out, h), or with conv params ([x +] ffn + conv, h)."""
+        Returns (ffn_out, h), or with conv params ([x +] ffn + conv, h).
+        Parameters, film and conv params are cast to x.dtype."""
         ids = self.expert_ids(expert_ids, pair_id)
+        dt = x.dtype
         w = (self.gwa, self.gba, self.gwb, self.gbb, self.gwc, self.gbc,
              self.wa, self.ba, self.wb, self.bb, self.wc, self.bc)
         if conv_kernel is not None:
-            return block_core(x, film_mul, film_bias, *w, conv_kernel,
-                              conv_bias, ids, add_residual=add_residual)
+            w = w + (conv_kernel, conv_bias)
+        w = cast_all(w, dt)
+        film_mul, film_bias = cast_all((film_mul, film_bias), dt)
+        if conv_kernel is not None:
+            return block_core(x, film_mul, film_bias, *w, ids,
+                              add_residual=add_residual)
         c = x.shape[-1]
         out, h = ffn_block(x.reshape(-1, c), film_mul.reshape(-1, c),
                            film_bias.reshape(-1, c), *w, ids)
@@ -269,7 +295,8 @@ class FiLMProj1(nn.Module):
 
     def forward(self, pos, tim):
         c = pos.shape[-1]
-        return pos @ self.kernel[:c] + tim @ self.kernel[c:] + self.bias
+        k = cast(self.kernel, pos.dtype)
+        return pos @ k[:c] + tim @ k[c:] + cast(self.bias, pos.dtype)
 
 
 class Encodings(nn.Module):
@@ -281,10 +308,11 @@ class Encodings(nn.Module):
         self.proj1 = FiLMProj1(channels, 4 * channels, init)
         self.proj2 = Dense(4 * channels, 2 * channels, init)
 
-    def film(self, h: int, w: int, t: torch.Tensor):
-        """(mul, bias), each [t.shape[0], h, w, C] and contiguous."""
+    def film(self, h: int, w: int, t: torch.Tensor, dtype=None):
+        """(mul, bias), each [t.shape[0], h, w, C] and contiguous, in
+        `dtype` (default: the parameters')."""
         c = self.proj2.bias.shape[0] // 2
-        dt = self.proj2.kernel.dtype
+        dt = dtype or self.proj2.kernel.dtype
         pe = positional_encoding_2d(h, w, c, dtype=dt, device=t.device)
         te = time_encoding_2d(t, c, dtype=dt)
         embs = self.proj1(pe[None], te)
@@ -294,7 +322,7 @@ class Encodings(nn.Module):
         return mul.contiguous(), bias.contiguous()
 
     def forward(self, x, t, return_film: bool = False):
-        mul, bias = self.film(x.shape[1], x.shape[2], t)
+        mul, bias = self.film(x.shape[1], x.shape[2], t, dtype=x.dtype)
         if return_film:
             return mul, bias
         return x * mul + bias
@@ -310,14 +338,15 @@ class GroupedConv2d(nn.Module):
         self.bias = init.zeros(channels)
 
     def forward(self, x):
-        return grouped_conv3x3(x, self.kernel, self.bias)
+        return grouped_conv3x3(x, cast(self.kernel, x.dtype), cast(self.bias, x.dtype))
 
 
 class SwinBlock(nn.Module):
     """ChannelNorm -> FiLM -> (MoE FFN + grouped 3x3 conv [+ window
-    attention]) -> + residual. The non-attention body is one block_core
-    call at batch <= 2 (residual folded in), ffn_block plus the plain
-    grouped conv above."""
+    attention]) -> [x stochastic-depth gate] -> + residual. The
+    non-attention body is one block_core call at batch <= 2 (the residual
+    folded in unless a gate applies), ffn_block plus the plain grouped
+    conv above."""
 
     def __init__(self, channels: int, init: ParamInit, head_dim: int = 32,
                  window_size: int = 6, shift: int = 0, attention: bool = True,
@@ -336,24 +365,28 @@ class SwinBlock(nn.Module):
                 c, heads, init, window_size=window_size, shift=shift)
             self.cross_attention = CrossAttention(c, heads, init)
 
-    def forward(self, x, t, film=None, expert_ids=None):
+    def forward(self, x, t, film=None, expert_ids=None, gate=None):
         """film: (mul, bias) replayed from the FiLM schedule, or None to
         run the FiLM tower on t inline; expert_ids: [2] int32 routing, or
-        None for the configured fixed indices."""
+        None for the configured fixed indices; gate: the stochastic-depth
+        keep (a 0/1 or bool scalar tensor) of a training forward, or None
+        (deterministic: the residual folds into block_core)."""
         mul, bias = film if film is not None else self.encodings(
             x, t, return_film=True)
-        # deterministic and unconditioned: the residual always folds
         fused = x.shape[0] <= BLOCK_CORE_MAX_BATCH
+        fold = fused and gate is None
         if fused:
             branch, h = self.ffn(x, mul, bias, conv_kernel=self.conv.kernel,
-                                 conv_bias=self.conv.bias, add_residual=True,
+                                 conv_bias=self.conv.bias, add_residual=fold,
                                  expert_ids=expert_ids)
         else:
             branch, h = self.ffn(x, mul, bias, expert_ids=expert_ids)
             branch = branch + self.conv(h)
         if self.attention:
             branch = branch + self.self_attention(h)
-        return branch if fused else x + branch
+        if gate is not None:
+            branch = branch * gate.to(branch.dtype)
+        return branch if fold else x + branch
 
 
 class SwinStack(nn.Module):
@@ -379,13 +412,15 @@ class SwinStack(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_blocks)]
 
-    def forward(self, x, t, film=None, expert_ids=None):
+    def forward(self, x, t, film=None, expert_ids=None, gates=None):
         """film: {block_i: (mul, bias)} or None; expert_ids: [n, 2] int32
-        routing rows (None: each block's fixed indices)."""
+        routing rows (None: each block's fixed indices); gates: [n]
+        stochastic-depth keeps, or None (deterministic)."""
         for i, block in enumerate(self.blocks()):
             x = block(x, t,
                       film=None if film is None else film[f"block_{i}"],
-                      expert_ids=None if expert_ids is None else expert_ids[i])
+                      expert_ids=None if expert_ids is None else expert_ids[i],
+                      gate=None if gates is None else gates[i])
         return x
 
     def collect_film(self, h: int, w: int, t: torch.Tensor) -> dict:

@@ -10,7 +10,13 @@ decoder stacks only.
 MoE routing: one routing plan per forward, a pair id for every block
 (encoder stages in order, then decoder stages from the deepest), either
 injected or drawn from an explicit torch.Generator; fixed_expert_indices
-pins every block instead.
+pins every block instead. A training forward (deterministic=False) also
+takes one stochastic-depth keep per block in the same layout, injected
+(`sd_gates`) or drawn from the generator as u > p.
+
+Compute dtype: `forward(dtype=...)` casts the input, and every module
+casts its parameters at use to the activations' dtype, so fp32
+parameters train in bf16 compute; by default the parameters' dtype.
 
 FiLM schedule: ``collect_film`` evaluates every block's FiLM tower for a
 batch of timesteps; ``forward(film=...)`` replays one step's slice.
@@ -27,6 +33,7 @@ from ldm_image_generator_tpu_torch.models.layers import (
     Dense,
     ParamInit,
     SwinStack,
+    cast,
     pair_table,
 )
 
@@ -60,7 +67,8 @@ class StrideConv(nn.Module):
         h, w = h // s, w // s
         patches = x[:, : h * s, : w * s].reshape(b, h, s, w, s, c).permute(
             0, 1, 3, 2, 4, 5).reshape(b, h, w, s * s * c)
-        return patches @ self.kernel.reshape(s * s * c, -1) + self.bias
+        k = cast(self.kernel, x.dtype).reshape(s * s * c, -1)
+        return patches @ k + cast(self.bias, x.dtype)
 
 
 class StrideConvTranspose(nn.Module):
@@ -76,9 +84,9 @@ class StrideConvTranspose(nn.Module):
     def forward(self, x):
         s = self.s
         b, h, w, _ = x.shape
-        k = self.kernel.flip(0, 1)  # [a, b, Cin, Cout]
+        k = cast(self.kernel, x.dtype).flip(0, 1)  # [a, b, Cin, Cout]
         y = torch.einsum("nhwi,abio->nhawbo", x, k)
-        return y.reshape(b, h * s, w * s, -1) + self.bias
+        return y.reshape(b, h * s, w * s, -1) + cast(self.bias, x.dtype)
 
 
 class UNet(nn.Module):
@@ -130,6 +138,15 @@ class UNet(nn.Module):
     def plan_length(self) -> int:
         return 2 * sum(self.cfg.stages)
 
+    def _per_stage(self, rows) -> dict:
+        """{stage: rows[off:off + n_blocks]} in routing-plan order."""
+        out, off = {}, 0
+        for name in self.stage_names():
+            nb = getattr(self, name).num_blocks
+            out[name] = rows[off:off + nb]
+            off += nb
+        return out
+
     def routing(self, moe_plan=None, generator=None) -> Optional[dict]:
         """{stage: [n_blocks, 2] int32 expert ids} from an injected plan of
         pair ids or one drawn from `generator`; None when the config pins
@@ -143,13 +160,22 @@ class UNet(nn.Module):
             moe_plan = torch.randint(0, n_pairs, (self.plan_length(),),
                                      generator=generator,
                                      device=self.pairs.device)
-        ids = self.pairs[moe_plan.to(self.pairs.device).long()]
-        out, off = {}, 0
-        for name in self.stage_names():
-            nb = getattr(self, name).num_blocks
-            out[name] = ids[off:off + nb]
-            off += nb
-        return out
+        return self._per_stage(self.pairs[moe_plan.to(self.pairs.device).long()])
+
+    def sd_gates(self, sd_gates=None, generator=None) -> Optional[dict]:
+        """{stage: [n_blocks] bool keeps} of a training forward, injected
+        or drawn from `generator` (u > stochastic_depth, one uniform per
+        block, shared by the batch); None when stochastic_depth is 0."""
+        p = self.cfg.stochastic_depth
+        if p == 0.0:
+            return None
+        if sd_gates is None:
+            if generator is None:
+                raise ValueError("stochastic depth needs sd_gates or a generator")
+            u = torch.rand((self.plan_length(),), generator=generator,
+                           device=self.pairs.device)
+            sd_gates = u > p
+        return self._per_stage(sd_gates.to(self.pairs.device))
 
     def collect_film(self, t: torch.Tensor, latent_hw) -> dict:
         """{stage: {block: (mul, bias)}} of [S, h, w, c] tensors for the
@@ -163,15 +189,22 @@ class UNet(nn.Module):
                 films[name] = getattr(self, name).collect_film(hi, wi, t)
         return films
 
-    def forward(self, x, t, film=None, moe_plan=None, generator=None):
+    def forward(self, x, t, film=None, moe_plan=None, generator=None,
+                sd_gates=None, deterministic: bool = True, dtype=None):
         """x [B, H, W, Cin]; t [1 or B] timesteps; film: one step's
-        {stage: {block: (mul, bias)}} or None for inline FiLM."""
+        {stage: {block: (mul, bias)}} or None for inline FiLM.
+        deterministic=False is a training forward: stochastic-depth gates
+        (`sd_gates` [plan_length] bool, or drawn from `generator`) gate
+        each block's branch. dtype: the compute dtype (default: the
+        parameters'); the output is in it."""
         n = len(self.cfg.channels)
         routes = self.routing(moe_plan, generator)
+        gates = None if deterministic else self.sd_gates(sd_gates, generator)
         run = lambda name, x: getattr(self, name)(
             x, t, film=None if film is None else film[name],
-            expert_ids=None if routes is None else routes[name])
-        x = self.encoder_first(x.to(self.dtype))
+            expert_ids=None if routes is None else routes[name],
+            gates=None if gates is None else gates[name])
+        x = self.encoder_first(x.to(dtype or self.dtype))
         skips = []
         for i in range(n):
             x = run(f"enc_stage_{i}", x)

@@ -1,10 +1,13 @@
-"""VAE decoder (NHWC), the torch counterpart of the Decoder path of
-ldm_image_generator_tpu/models/vae.py.
+"""VAE encoder and decoder (NHWC), the torch counterparts of the Encoder
+and Decoder of ldm_image_generator_tpu/models/vae.py.
 
-Decoder: 1x1 input Dense -> per stage [ConvTranspose(k=2, s=2) upsample
-(stages after the first)] -> ResStack -> 1x1 to_rgb; the output is the
-progressive RGB pyramid sum, each level bilinearly upsampled 2x onto the
-next. The Encoder, the quantizer and the discriminator are not ported yet.
+Encoder: 1x1 input Dense -> per stage ResStack, then (between stages)
+2x2 average pool + 1x1 Dense -> 1x1 to the latent channels (8x down at
+the default config). Decoder: 1x1 input Dense -> per stage
+[ConvTranspose(k=2, s=2) upsample (stages after the first)] -> ResStack
+-> 1x1 to_rgb; the output is the progressive RGB pyramid sum, each level
+bilinearly upsampled 2x onto the next. The quantizer and the
+discriminator are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm_image_generator_tpu_torch.config import VAEConfig, resolve_device
-from ldm_image_generator_tpu_torch.models.layers import Dense, ParamInit
-from ldm_image_generator_tpu_torch.models.unet import StrideConvTranspose
+from ldm_image_generator_tpu_torch.models.layers import Dense, ParamInit, cast
+from ldm_image_generator_tpu_torch.models.unet import (
+    StrideConvTranspose,
+    avg_pool_2x,
+)
 
 
 class Conv3x3(nn.Module):
@@ -28,8 +34,9 @@ class Conv3x3(nn.Module):
         self.bias = init.zeros(cout)
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.kernel.permute(3, 2, 0, 1),
-                     self.bias, padding=1)
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     cast(self.kernel, x.dtype).permute(3, 2, 0, 1),
+                     cast(self.bias, x.dtype), padding=1)
         return y.permute(0, 2, 3, 1)
 
 
@@ -75,6 +82,35 @@ def bilinear_up_2x(x: torch.Tensor) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig = VAEConfig(), device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        init = ParamInit(resolve_device(device), generator)
+        self.cfg = cfg
+        chs = list(cfg.encoder_channels)
+        self.input_layer = Dense(cfg.input_channels, chs[0], init)
+        for i, (c, l) in enumerate(zip(chs, cfg.encoder_stages)):
+            self.add_module(f"stage_{i}", ResStack(c, l, init))
+            if i != len(chs) - 1:
+                self.add_module(f"down_{i}", Dense(c, chs[i + 1], init))
+        self.output_layer = Dense(chs[-1], cfg.latent_channels, init)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.input_layer.kernel.dtype
+
+    def forward(self, x):
+        """RGB in about [-1, 1], [B, H, W, 3] -> latents [B, H/8, W/8, 8]."""
+        x = self.input_layer(x.to(self.dtype))
+        n = len(self.cfg.encoder_channels)
+        for i in range(n):
+            x = getattr(self, f"stage_{i}")(x)
+            if i != n - 1:
+                x = getattr(self, f"down_{i}")(avg_pool_2x(x))
+        return self.output_layer(x)
 
 
 class Decoder(nn.Module):

@@ -13,9 +13,12 @@ from ldm_image_generator_tpu_torch.kernels import block_core as tbc
 from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
 from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
 from ldm_image_generator_tpu_torch.kernels.workloads import (
+    BWD_REL,
     Call,
+    bwd_scale_err,
     make_inputs,
     path_calls,
+    train_calls,
 )
 
 torch.set_num_threads(1)
@@ -25,6 +28,12 @@ WRAPPERS = {
     "ffn_block": (tffn, tffn.ffn_block, tffn.ffn_block_plain),
     "window_mha": (tattn, lambda *a: tattn.window_mha(*a[:-1], num_heads=a[-1]),
                    lambda *a: tattn.window_mha_plain(*a[:-1], num_heads=a[-1])),
+}
+BWD_WRAPPERS = {
+    "ffn_block_bwd": (tffn, tffn.ffn_block_bwd, tffn.ffn_block_bwd_plain),
+    "window_mha_bwd": (
+        tattn, lambda *a: tattn.window_mha_bwd(*a[:-1], num_heads=a[-1]),
+        lambda *a: tattn.window_mha_bwd_plain(*a[:-1], num_heads=a[-1])),
 }
 # fp32 (TF32 off): summation order only. bf16: both versions round at the
 # same points, so a differing sum order can move a value by one bf16 ulp
@@ -67,6 +76,72 @@ def test_kernel_matches_plain(card, call, dtype):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+# backward kernels, each output against the plain version's at
+# workloads.BWD_REL (which says why)
+BWD_CALLS = [c for c in train_calls(8) if c.kernel.endswith("_bwd")] + [
+    Call("ffn_block_bwd", 1, 5, 64, 1),     # ragged N, C below 128
+    Call("window_mha_bwd", 1, 0, 64, 1, n=3, l=36, heads=2, masked=True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", BWD_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
+def test_backward_kernel_matches_plain(card, call, dtype):
+    mod, kernel, plain = BWD_WRAPPERS[call.kernel]
+    gen = torch.Generator(device=card).manual_seed(3)
+    args = make_inputs(call, dtype, card, gen)
+    if call.kernel == "window_mha_bwd":
+        args = args + (call.heads,)
+    before = mod.bwd_launches
+    got = kernel(*args)
+    assert mod.bwd_launches == before + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert torch.isfinite(g).all(), i
+        rel = bwd_scale_err(g, w)
+        print(call.kernel, call.label, dtype, i, rel)
+        assert rel <= BWD_REL[dtype], (i, rel)
+
+
+def _grads(fn, leaves, cotangents):
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cotangents)
+    return [t.grad for t in leaves if t is not None and t.requires_grad]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ffn_block", "block_core", "window_mha"])
+def test_gradients_through_cuda_wrappers_equal_plain_path(card, kernel):
+    """Every input gradient the CPU plain path gives, the CUDA path gives
+    too, and equal (fp32): the wrappers are autograd Functions whose
+    backward launches the backward kernels."""
+    call = {"ffn_block": Call("ffn_block", 4, 8, 128, 1),
+            "block_core": Call("block_core", 1, 8, 128, 1),
+            "window_mha": Call("window_mha", 1, 0, 128, 1, n=6, l=36,
+                               heads=4, masked=True)}[kernel]
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    args = make_inputs(call, torch.float32, "cpu", gen)
+    fn = {"ffn_block": tffn.ffn_block, "block_core": tbc.block_core,
+          "window_mha": lambda *a: tattn.window_mha(*a, num_heads=call.heads)}[kernel]
+    diff = lambda a: a is not None and a.dtype == torch.float32
+    cpu = [a.clone().requires_grad_(diff(a)) if a is not None else None for a in args]
+    dev = [a.detach().to(card).requires_grad_(diff(a)) if a is not None else None
+           for a in args]
+    n_out = 1 if kernel == "window_mha" else 2
+    cot = [torch.randn(args[0].shape, generator=gen) for _ in range(n_out)]
+    want = _grads(fn, cpu, cot)
+    got = _grads(fn, dev, [c.to(card) for c in cot])
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g is not None and w is not None
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

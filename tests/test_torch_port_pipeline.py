@@ -90,7 +90,11 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.config",
     "ldm_image_generator_tpu_torch.convert",
     "ldm_image_generator_tpu_torch.pipelines",
+    "ldm_image_generator_tpu_torch.cli.sample_ab",
     "ldm_image_generator_tpu_torch.cli.sample_ldm",
+    "ldm_image_generator_tpu_torch.cli.train_ldm",
+    "ldm_image_generator_tpu_torch.data.dataset",
+    "ldm_image_generator_tpu_torch.data.loader",
     "ldm_image_generator_tpu_torch.diffusion.ddpm",
     "ldm_image_generator_tpu_torch.kernels._build",
     "ldm_image_generator_tpu_torch.kernels.block_core",
@@ -103,6 +107,7 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.ops.norm",
     "ldm_image_generator_tpu_torch.ops.sinusoidal",
     "ldm_image_generator_tpu_torch.ops.window",
+    "ldm_image_generator_tpu_torch.train.steps",
 ]
 
 
@@ -130,3 +135,25 @@ def test_cuda_request_without_card_raises_in_pipeline_and_cli(monkeypatch):
         LDMPipeline.random(UNetConfig().tiny(), VAEConfig().tiny(), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         sample_ldm.main(["--config", "tiny", "-s", "16", "-t", "2"])
+
+
+def test_sample_ab_summary():
+    """The A/B tool's summary: medians per tree and batch, and each
+    round's ratio of this tree's median to the other's."""
+    from ldm_image_generator_tpu_torch.cli.sample_ab import summarize
+
+    runs = [(0, "other", {"b1": [0.30, 0.20], "b4": [0.5], "b1_device_busy_s": 0.06}),
+            (0, "this", {"b1": [0.10, 0.20], "b4": [0.4]}),
+            (1, "this", {"b1": [0.30, 0.30], "b4": [0.6]}),
+            (1, "other", {"b1": [0.20, 0.20], "b4": [0.5]})]
+    s = summarize(runs)
+    assert s["b1"]["this"]["median_s"] == pytest.approx(0.25)
+    assert s["b1"]["other"]["median_s"] == pytest.approx(0.20)
+    assert s["b1"]["this"]["samples"] == 4 and s["b1"]["this"]["min_s"] == 0.10
+    assert s["b1"]["other"]["device_busy_s"] == 0.06
+    assert s["b1"]["this"]["device_busy_s"] is None
+    assert s["b1"]["this_lower_in_rounds"] == "1/2"
+    assert s["b1"]["round_ratios"] == pytest.approx([0.6, 1.5])
+    assert s["b1"]["median_round_ratio"] == pytest.approx(1.05)
+    assert s["b4"]["other"]["images_per_s"] == pytest.approx(8.0)
+    assert s["b4"]["this_over_other_median"] == pytest.approx(1.0)
