@@ -31,9 +31,26 @@ no result line):
      CPU (plain versions), t, noise, routing and gates injected: the loss
      within 1e-4 relative, each gradient within 1e-3 of its own max abs
      (a ReLU-boundary flip excepted, see FLIP_REL_TOL), and every slice
-     that is zero on the CPU zero on the card.
-The last line is {"ok": true, "device": {...}}; the line before it is
-the kernels' JSON record.
+     that is zero on the CPU zero on the card;
+  8. VAE + discriminator training: the default VAEConfig and
+     DiscriminatorConfig (fp32 parameters, bf16 compute, Adafactor on
+     both nets) on B=8 seeded 512px images cropped to 192: one warm-up
+     step, then 5 timed steps that must launch exactly 1 vq and 0 of
+     every other kernel per step, with finite metrics and parameters and
+     a gradient tensor on every parameter; then steps/s, images/s and a
+     profile of one step;
+  9. one fp32 VAE train step at B=2, crop 192, on the card against the
+     same step on the CPU (plain versions), crop offset and noise
+     injected: the five metrics within 1e-4 relative, each gradient
+     within 1e-3 of its own max abs (the codebook rows the two sides
+     selected differently excepted), and Adafactor on the card over the
+     CPU's gradients within 1e-4 of each element's step (plus 1e-6 of
+     max abs) of the CPU's updated parameters (see VAE_OPT_STEP_REL); the
+     parameters after the two steps are reported.
+Phase 2 also holds the vq kernel against its plain version at the VAE
+step's shape (see workloads.VQ_TIE_REL) and on exact ties. The last
+line is {"ok": true, "device": {...}}; the line before it is the
+kernels' JSON record.
 """
 from __future__ import annotations
 
@@ -81,7 +98,41 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 5
 # launches per train step at B=8 on the default UNet
 TRAIN_LAUNCHES = dict(block_core=0, ffn_block=36, ffn_block_bwd=36,
-                      window_mha=8, window_mha_bwd=8)
+                      window_mha=8, window_mha_bwd=8, vq=0)
+# the VAE train step (the JAX package's: 512px images, crop 192, batch
+# 8) and its launches
+VAE_BATCH = 8
+VAE_IMAGE = 512
+VAE_CROP = 192
+VAE_LAUNCHES = dict(block_core=0, ffn_block=0, ffn_block_bwd=0,
+                    window_mha=0, window_mha_bwd=0, vq=1)
+# fp32 VAE step at B=2, card vs CPU: the metrics' relative error, and
+# each gradient's max abs error over its own max abs (the codebook rows
+# the two sides selected differently excepted)
+VAE_CARD_BATCH = 2
+VAE_METRIC_REL_TOL = 1e-4
+VAE_GRAD_REL_TOL = 1e-3
+# The updated parameters are not held to the gradients' tolerance:
+# Adafactor divides each gradient element by RMS statistics (its own in
+# a tensor it does not factor, its row's and column's in one it does),
+# so a row or column of gradients near the rounding floor of their sums
+# is rescaled to unit steps and its rounding with it (measured on the
+# H100: 6.0e-5 against a max abs of 4.9e-2 in encoder.stage_2.res_0.c1,
+# with every element's gradient within 1e-3 of itself). The card's
+# optimizer is held instead to the CPU's on the same gradients: Adafactor
+# on the card, from the step's starting parameters, applied to the CPU's
+# gradients, gives each of the CPU's updated parameters within
+# VAE_OPT_STEP_REL of that element's step plus VAE_OPT_REL_TOL of the
+# tensor's max abs. Each tensor's steps share one scale, which reads the
+# RMS of its update and of its parameters: on the card
+# torch._foreach_norm sums the squares in fp32 in another order (measured
+# on the H100: every step of encoder.stage_3.res_0.c1, 2.36M elements,
+# 1.0000272 times the CPU's); each element adds the rounding of its own
+# statistics (a few 1e-7). The parameters after the two real steps are
+# reported
+VAE_OPT_STEP_REL = 1e-4
+VAE_OPT_REL_TOL = 1e-6
+VAE_PARAM_REPORT_TOL = 1e-3
 
 
 def log(*a):
@@ -133,14 +184,18 @@ def phase_kernels(dev, reps: int) -> dict:
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels.block_core import grouped_conv3x3
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.kernels import vq as tvq
     from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
     from ldm_image_generator_tpu_torch.kernels.workloads import (
         BWD_REL,
+        VQ_TIE_REL,
         bound_ms,
         bwd_scale_err,
         make_inputs,
         path_calls,
         train_calls,
+        vae_train_calls,
+        vq_mismatches,
     )
 
     def mha_library(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, heads):
@@ -178,6 +233,8 @@ def phase_kernels(dev, reps: int) -> dict:
         "ffn_block_bwd": (tffn.ffn_block_bwd, tffn.ffn_block_bwd_plain, None),
         "window_mha_bwd": (heads_kw(tattn.window_mha_bwd),
                            heads_kw(tattn.window_mha_bwd_plain), mha_library_bwd),
+        "vq": (tvq.nearest_codebook_indices, tvq.nearest_codebook_indices_plain,
+               None),
     }
     sources = {
         "block_core": ("ldm_image_generator_tpu_torch/kernels/csrc/block_core.cu",
@@ -190,6 +247,8 @@ def phase_kernels(dev, reps: int) -> dict:
                           "ldm_image_generator_tpu/kernels/ffn_block.py:551"),
         "window_mha_bwd": ("ldm_image_generator_tpu_torch/kernels/csrc/window_attention.cu",
                            "ldm_image_generator_tpu/kernels/window_attention.py:402"),
+        "vq": ("ldm_image_generator_tpu_torch/kernels/csrc/vq.cu",
+               "ldm_image_generator_tpu/kernels/vq.py:56"),
     }
     b1, b4 = path_calls(1), path_calls(4)
     # the B=1 body shapes through ffn_block and the B=4 ones through
@@ -201,7 +260,8 @@ def phase_kernels(dev, reps: int) -> dict:
     train = [c for c in train_calls(TRAIN_BATCH) if c.kernel.endswith("_bwd")]
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
-        (c, "train") for c in train]
+        (c, "train") for c in train] + [
+        (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -218,7 +278,13 @@ def phase_kernels(dev, reps: int) -> dict:
             err = 0.0  # max |kernel - plain| over the outputs, this dtype
             for g, w in zip(got, want):
                 require(torch.isfinite(g.float()).all(), (call, dtype))
-                if bwd:
+                if call.kernel == "vq":
+                    n_mis, err = vq_mismatches(*args, g, w)
+                    log(f"vq {call.label} {dtype}: {n_mis} indices differ from "
+                        f"the plain version's, largest score gap {err:.3e}")
+                    require(err <= VQ_TIE_REL, ("vq", dtype, n_mis, err))
+                    require(torch.equal(kernel(*args), g), "vq rerun bitwise equal")
+                elif bwd:
                     rel = bwd_scale_err(g, w)
                     require(rel <= BWD_REL[dtype], (call.label, dtype, rel))
                     err = max(err, rel)
@@ -239,6 +305,10 @@ def phase_kernels(dev, reps: int) -> dict:
                        bound_by=by)
             if bwd:
                 row["error_metric"] = "max abs err / max(max |plain|, 1)"
+            if call.kernel == "vq":
+                row["error_metric"] = ("largest exact score gap between the "
+                                       "kernel's and the plain's codes over "
+                                       "the scores' magnitude (0: equal)")
             if call.kernel == "ffn_block":
                 # the grouped conv ffn_block leaves outside (plain
                 # PyTorch, as the SwinBlock runs it), for the batch split
@@ -251,8 +321,12 @@ def phase_kernels(dev, reps: int) -> dict:
             rows.append(row)
             log("kernel", json.dumps(row))
     check_block_core_grads(dev, b1)
+    check_vq_ties(dev)
     main_tag = {"block_core": "b1", "ffn_block": "b4", "window_mha": "b1",
-                "ffn_block_bwd": "train", "window_mha_bwd": "train"}
+                "ffn_block_bwd": "train", "window_mha_bwd": "train",
+                "vq": "vae_train"}
+    step_name = {"train": "train step at B=8",
+                 "vae_train": f"VAE train step at B={VAE_BATCH}"}
     summary = {}
     for name in fns:
         main = [r for r in rows if r["kernel"] == name and r["tag"] == main_tag[name]]
@@ -261,7 +335,7 @@ def phase_kernels(dev, reps: int) -> dict:
         bound = per_step("bound_ms")
         ops_bound = sum(r["bound_ms"] * r["per_step"] for r in main
                         if r["bound_by"] == "operations")
-        step = "train step at B=8" if main_tag[name] == "train" else "denoise step"
+        step = step_name.get(main_tag[name], "denoise step")
         summary[name] = dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=None,
@@ -273,6 +347,25 @@ def phase_kernels(dev, reps: int) -> dict:
             per=f"one {step} of its path: sum over its call shapes of calls "
                 "x cold-L2 ms per call, bf16")
     return summary
+
+
+def check_vq_ties(dev) -> None:
+    """The vq kernel on exact ties: a codebook of two equal halves at the
+    VAE step's K; every index must lie in the first half and equal the
+    kernel's answer on that half alone."""
+    from ldm_image_generator_tpu_torch.kernels import vq as tvq
+    from ldm_image_generator_tpu_torch.kernels.workloads import vae_train_calls
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    (call,) = vae_train_calls(VAE_BATCH, VAE_CROP)
+    half = torch.randn((call.l // 2, call.c), generator=gen, device=dev)
+    x = torch.randn((call.n, call.c), generator=gen, device=dev)
+    got = tvq.nearest_codebook_indices(x, torch.cat([half, half]))
+    alone = tvq.nearest_codebook_indices(x, half)
+    torch.cuda.synchronize()
+    require(bool((got < call.l // 2).all()) and torch.equal(got, alone),
+            "vq: the first index on exact ties")
+    log(f"vq exact ties [{call.n},{call.c}] K={call.l}: first index taken")
 
 
 def check_block_core_grads(dev, calls) -> None:
@@ -328,7 +421,7 @@ def phase_path(dev, profile: bool) -> dict:
     counts = run_path(pipe, 1, gen)
     log("path b1 launches", json.dumps(counts))
     require(counts == dict(block_core=720, ffn_block=0, ffn_block_bwd=0,
-                           window_mha=160, window_mha_bwd=0), counts)
+                           window_mha=160, window_mha_bwd=0, vq=0), counts)
     out = {"launches_b1": counts}
     times = []
     for _ in range(3):
@@ -346,7 +439,7 @@ def phase_path(dev, profile: bool) -> dict:
     counts = run_path(pipe, 4, gen)
     log("path b4 launches", json.dumps(counts))
     require(counts == dict(block_core=0, ffn_block=720, ffn_block_bwd=0,
-                           window_mha=160, window_mha_bwd=0), counts)
+                           window_mha=160, window_mha_bwd=0, vq=0), counts)
     out["launches_b4"] = counts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -393,20 +486,22 @@ def phase_card_vs_cpu(dev) -> float:
 def launch_counts() -> dict:
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.kernels import vq as tvq
     from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
 
     return dict(block_core=tbc.launches, ffn_block=tffn.launches,
                 ffn_block_bwd=tffn.bwd_launches, window_mha=tattn.launches,
-                window_mha_bwd=tattn.bwd_launches)
+                window_mha_bwd=tattn.bwd_launches, vq=tvq.launches)
 
 
 def reset_launch_counts() -> None:
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.kernels import vq as tvq
     from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
 
     tbc.launches = tffn.launches = tffn.bwd_launches = 0
-    tattn.launches = tattn.bwd_launches = 0
+    tattn.launches = tattn.bwd_launches = tvq.launches = 0
 
 
 def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
@@ -659,6 +754,199 @@ def phase_train_card_vs_cpu(dev, cfg=None) -> dict:
                 flip_touched=flipped)
 
 
+def make_vae_trainer(dev, seed: int, dtype):
+    """(state, step) for the default VAE and discriminator on dev: fp32
+    parameters from `seed`, Adafactor on both, crop VAE_CROP, computing
+    in dtype."""
+    from torch import nn
+
+    from ldm_image_generator_tpu_torch.config import DiscriminatorConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.models.vae import (
+        Decoder,
+        Discriminator,
+        Encoder,
+        VectorQuantizer,
+    )
+    from ldm_image_generator_tpu_torch.train.steps import (
+        VAETrainState,
+        make_optimizer,
+        make_vae_train_step,
+    )
+
+    cfg = VAEConfig()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vae = nn.ModuleDict({
+        "encoder": Encoder(cfg, device=dev, generator=gen),
+        "decoder": Decoder(cfg, device=dev, generator=gen),
+        "quantizer": VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim,
+                                     device=dev, generator=gen)})
+    disc = Discriminator(DiscriminatorConfig(), device=dev, generator=gen)
+    tx_vae, tx_disc = make_optimizer("adafactor"), make_optimizer("adafactor")
+    state = VAETrainState(vae_params=vae, disc_params=disc,
+                          opt_state_vae=tx_vae.init(list(vae.parameters())),
+                          opt_state_disc=tx_disc.init(list(disc.parameters())))
+    step = make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
+                               disc, tx_vae, tx_disc, crop_size=VAE_CROP, dtype=dtype)
+    return state, step
+
+
+def vae_named_parameters(state) -> dict:
+    """{name: parameter} over the VAE (prefixed by its part) and the
+    discriminator ("disc.")."""
+    out = dict(state.vae_params.named_parameters())
+    out.update({f"disc.{n}": p for n, p in state.disc_params.named_parameters()})
+    return out
+
+
+def phase_vae_train(dev) -> dict:
+    """VAE + discriminator training at B=8, crop 192, bf16 compute: launch
+    counts, finiteness, steps/s."""
+    t0 = time.perf_counter()
+    state, step = make_vae_trainer(dev, seed=0, dtype=torch.bfloat16)
+    params = vae_named_parameters(state)
+    log(f"vae train: {sum(p.numel() for p in params.values())} fp32 params in "
+        f"{len(params)} tensors, Adafactor state built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    shape = (VAE_BATCH, VAE_IMAGE, VAE_IMAGE, 3)
+    batch = lambda: torch.rand(shape, generator=data, device=dev) * 2 - 1
+    state, m, _ = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m, (y, crop) = step(state, batch(), generator=gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    log("vae train launches", json.dumps(counts), f"over {TRAIN_STEPS} steps")
+    require(counts == {k: v * TRAIN_STEPS for k, v in VAE_LAUNCHES.items()}, counts)
+    require(tuple(y.shape) == tuple(crop.shape) == (VAE_BATCH, VAE_CROP, VAE_CROP, 3),
+            (y.shape, crop.shape))
+    metrics = [{k: v.item() for k, v in mm.items()} for mm in metrics]
+    log("vae train metrics", json.dumps(metrics))
+    require(all(math.isfinite(v) for mm in metrics for v in mm.values()), metrics)
+    missing = [n for n, p in params.items() if p.grad is None]
+    require(not missing, f"parameters without a gradient: {missing[:5]}")
+    require(all(torch.isfinite(p).all() for p in params.values()), "finite parameters")
+    out = dict(launches=counts, metrics=metrics, train_s=dt,
+               steps_per_s=TRAIN_STEPS / dt,
+               images_per_s=TRAIN_STEPS * VAE_BATCH / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"vae train: {TRAIN_STEPS} steps in {dt:.4f} s, {out['steps_per_s']:.4f} "
+        f"steps/s, {out['images_per_s']:.4f} images/s at B={VAE_BATCH}, "
+        f"peak {out['peak_gib']:.3f} GiB")
+    out["profile"] = profile_fn(lambda: step(state, batch(), generator=gen))
+    return out
+
+
+def phase_vae_card_vs_cpu(dev) -> dict:
+    """One fp32 VAE train step at B=2, card kernels vs CPU plain versions,
+    crop offset and latent noise injected (TF32 off, as main sets it)."""
+    from ldm_image_generator_tpu_torch.train.steps import make_optimizer
+
+    cpu_state, cpu_step = make_vae_trainer("cpu", seed=3, dtype=torch.float32)
+    card_state, card_step = make_vae_trainer(dev, seed=3, dtype=torch.float32)
+    card_state.vae_params.load_state_dict(cpu_state.vae_params.state_dict())
+    card_state.disc_params.load_state_dict(cpu_state.disc_params.state_dict())
+    start = {n: p.detach().clone() for n, p in vae_named_parameters(card_state).items()}
+    gen = torch.Generator().manual_seed(4)
+    b, side = VAE_CARD_BATCH, VAE_CROP // 8
+    images = torch.rand((b, VAE_IMAGE, VAE_IMAGE, 3), generator=gen) * 2 - 1
+    offset = tuple(int(v) for v in torch.randint(0, VAE_IMAGE - VAE_CROP + 1, (2,),
+                                                 generator=gen))
+    noise = torch.randn((b, side, side, 8), generator=gen)
+    picked = {}
+    for name, st in (("cpu", cpu_state), ("card", card_state)):
+        q = st.vae_params["quantizer"]
+        orig = q.quantize
+        q.quantize = lambda x, orig=orig, name=name: picked.setdefault(name, orig(x))
+    t0 = time.perf_counter()
+    _, m_cpu, _ = cpu_step(cpu_state, images, crop_offset=offset, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    _, m_card, _ = card_step(card_state, images.to(dev), crop_offset=offset,
+                             noise=noise.to(dev))
+    torch.cuda.synchronize()
+    for st in (cpu_state, card_state):
+        del st.vae_params["quantizer"].quantize
+    idx_cpu, idx_card = picked["cpu"].flatten(), picked["card"].cpu().flatten()
+    differ = idx_cpu != idx_card
+    rows = sorted(set(idx_cpu[differ].tolist()) | set(idx_card[differ].tolist()))
+    log(f"vae card vs cpu: cpu step {cpu_s:.1f} s, {int(differ.sum())} of "
+        f"{differ.numel()} latents picked another code, codebook rows {rows}")
+    metric_rel = {}
+    for k, v in m_cpu.items():
+        want, got = v.item(), m_card[k].item()
+        metric_rel[k] = abs(got - want) / max(abs(want), 1e-30)
+        log(f"vae card vs cpu: {k} {got:.8f} vs {want:.8f} (rel {metric_rel[k]:.3e})")
+        require(metric_rel[k] <= VAE_METRIC_REL_TOL, (k, got, want))
+    cpu_params = vae_named_parameters(cpu_state)
+    card_params = vae_named_parameters(card_state)
+    names = list(cpu_params)
+    # Adafactor on the card over the CPU's gradients from the starting
+    # parameters (per tensor, so one optimizer over both nets is the two)
+    replay = [start[n].clone() for n in names]
+    tx = make_optimizer("adafactor")
+    tx.apply(replay, [cpu_params[n].grad.to(dev) for n in names], tx.init(replay))
+    worst = dict(grad=(0.0, ""), optimizer=(0.0, ""), param=(0.0, ""),
+                 optimizer_bound=(0.0, ""), step_scale=(1.0, ""))
+    beyond = {}
+    for name, r in zip(names, replay):
+        p = cpu_params[name]
+        keep = torch.ones_like(p, dtype=torch.bool)
+        if name == "quantizer.embeddings":
+            keep[rows] = False
+        want = p.detach()
+        step = (want - start[name].cpu()).abs()
+        for what, ref, got in (("grad", p.grad, card_params[name].grad.cpu()),
+                               ("optimizer", want, r.cpu()),
+                               ("param", want, card_params[name].detach().cpu())):
+            diff = (got - ref).abs()[keep]
+            scale = ref.abs().max().item()
+            err = diff.max().item()
+            if what == "grad":
+                require(err <= VAE_GRAD_REL_TOL * scale, (name, what, err, scale))
+            elif what == "optimizer":
+                bound = VAE_OPT_STEP_REL * step[keep] + VAE_OPT_REL_TOL * scale
+                used = torch.where(diff == 0, 0.0, diff / bound).max().item()
+                require(used <= 1.0, (name, what, err, scale, used))
+                if used > worst["optimizer_bound"][0]:
+                    worst["optimizer_bound"] = (used, name)
+                # the tensor's shared step scale, card over CPU
+                moved = (step > 0) & keep
+                if moved.any():
+                    ratio = ((got - start[name].cpu())[moved]
+                             / (want - start[name].cpu())[moved]).median().item()
+                    if abs(ratio - 1) > abs(worst["step_scale"][0] - 1):
+                        worst["step_scale"] = (ratio, name)
+            else:
+                over = int((diff > VAE_PARAM_REPORT_TOL * scale).sum())
+                if over:
+                    beyond[name] = over
+            if scale and err / scale > worst[what][0]:
+                worst[what] = (err / scale, name)
+    fmt = lambda k: f"{worst[k][0]:.3e} of max abs ({worst[k][1]})"
+    top = sorted(beyond.items(), key=lambda kv: -kv[1])[:6]
+    log(f"vae card vs cpu: gradients within {fmt('grad')}; Adafactor on the "
+        f"card over the CPU's gradients within {fmt('optimizer')}, at most "
+        f"{worst['optimizer_bound'][0]:.3f} of its bound "
+        f"({worst['optimizer_bound'][1]}), steps {worst['step_scale'][0]:.7f} "
+        f"times the CPU's (median, {worst['step_scale'][1]}); parameters "
+        f"after the two steps within {fmt('param')}, {sum(beyond.values())} "
+        f"elements beyond {VAE_PARAM_REPORT_TOL} of max abs in {len(beyond)} "
+        f"tensors, most in {top}")
+    return dict(metric_rel=metric_rel, grad_rel=worst["grad"],
+                optimizer_rel=worst["optimizer"],
+                optimizer_bound_used=worst["optimizer_bound"],
+                step_scale=worst["step_scale"], param_rel=worst["param"],
+                params_beyond=beyond, codes_differ=int(differ.sum()),
+                codebook_rows=rows, cpu_step_s=cpu_s)
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     profile = "--profile" in argv
@@ -691,6 +979,10 @@ def main(argv) -> int:
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
     kernels["window_mha_bwd"]["launches"] = train["launches"]["window_mha_bwd"]
     train_vs_cpu = phase_train_card_vs_cpu(dev)
+    log(f"LDM training phases done at {time.perf_counter() - t_start:.1f} s")
+    vae = phase_vae_train(dev)
+    kernels["vq"]["launches"] = vae["launches"]["vq"]
+    vae_vs_cpu = phase_vae_card_vs_cpu(dev)
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -704,7 +996,14 @@ def main(argv) -> int:
         "train_peak_gib": train["peak_gib"],
         "train_device_busy_ms": train["profile"]["device_busy_ms"],
         "train_profiled_wall_ms": train["profile"]["wall_ms"],
-        "train_card_vs_cpu": train_vs_cpu}}))
+        "train_card_vs_cpu": train_vs_cpu,
+        "vae_train_launches": vae["launches"],
+        "vae_train_steps_per_s": vae["steps_per_s"],
+        "vae_train_images_per_s": vae["images_per_s"],
+        "vae_train_peak_gib": vae["peak_gib"],
+        "vae_train_device_busy_ms": vae["profile"]["device_busy_ms"],
+        "vae_train_profiled_wall_ms": vae["profile"]["wall_ms"],
+        "vae_card_vs_cpu": vae_vs_cpu}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ class UNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """VQ autoencoder (only the Decoder is ported so far)."""
+    """VQ autoencoder."""
 
     input_channels: int = 3
     latent_channels: int = 8
@@ -74,6 +74,16 @@ class VAEConfig:
             decoder_stages=(1, 1),
             num_embeddings=64,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Multi-scale conv discriminator of the VAE trainer."""
+
+    input_channels: int = 3
+    channels: Sequence[int] = (32, 48, 48, 96)
+    stages: Sequence[int] = (2, 2, 2, 2)
+    stem_size: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

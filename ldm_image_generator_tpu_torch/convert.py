@@ -1,4 +1,5 @@
-"""Carry the JAX package's UNet, Encoder and Decoder params into the port.
+"""Carry the JAX package's UNet and VAE (Encoder, Decoder, VectorQuantizer,
+Discriminator) params into the port.
 
 The port keeps the flax parameter names and shapes, so a flax tree
 (nested dicts of numpy arrays, optionally under a top-level "params")
@@ -15,9 +16,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
+from ldm_image_generator_tpu_torch.config import (
+    DiscriminatorConfig,
+    UNetConfig,
+    VAEConfig,
+)
 from ldm_image_generator_tpu_torch.models.unet import UNet
-from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
+from ldm_image_generator_tpu_torch.models.vae import (
+    Decoder,
+    Discriminator,
+    Encoder,
+    VectorQuantizer,
+)
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
@@ -68,3 +78,16 @@ def decoder_from_flax(tree: Mapping, cfg: VAEConfig, device="cuda") -> Decoder:
 def encoder_from_flax(tree: Mapping, cfg: VAEConfig, device="cuda") -> Encoder:
     """A port Encoder holding the JAX Encoder's params."""
     return load_flax_params(Encoder(cfg, device=device), tree)
+
+
+def quantizer_from_flax(tree: Mapping, cfg: VAEConfig,
+                        device="cuda") -> VectorQuantizer:
+    """A port VectorQuantizer holding the JAX quantizer's codebook."""
+    return load_flax_params(
+        VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim, device=device), tree)
+
+
+def discriminator_from_flax(tree: Mapping, cfg: DiscriminatorConfig,
+                            device="cuda") -> Discriminator:
+    """A port Discriminator holding the JAX Discriminator's params."""
+    return load_flax_params(Discriminator(cfg, device=device), tree)

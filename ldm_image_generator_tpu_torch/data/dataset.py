@@ -1,14 +1,15 @@
-"""Images encoded once into latents held in memory, the torch counterpart
-of LatentImageDataset in ldm_image_generator_tpu/data/dataset.py.
+"""Images, or their latents encoded once, held in memory: the torch
+counterparts of ImageDataset and LatentImageDataset in
+ldm_image_generator_tpu/data/dataset.py.
 
 The same files are found (`**/*.jpg` recursively and `*.png` at the top
 of each source dir), in the same order, optionally cut to max_len, and
 preprocessed as the JAX package's PIL path does (aspect-preserving
 NEAREST resize, GaussianBlur(1) when downscaling, a centered black
-square pad, x / 127.5 - 1 as float32). The latents are encoded once, in
-batches, by the given encoder and kept in memory as float16, as the JAX
-package's cache stores them. The content-addressed disk cache and the
-native decoder are not ported yet.
+square pad, x / 127.5 - 1 as float32). Images, or the latents the given
+encoder makes of them in batches, are kept in memory as float16, as the
+JAX package's cache stores them. The content-addressed disk cache and
+the native decoder are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +54,32 @@ def preprocess_image(path: str, size: int) -> np.ndarray:
     return np.asarray(canvas, dtype=np.float32) / 127.5 - 1.0
 
 
+class ImageDataset:
+    """The preprocessed images under source_dirs, held in memory as
+    float16 [len, size, size, 3] and served as float16 (the train step
+    casts them to fp32 on its device, as the JAX step does)."""
+
+    def __init__(self, source_dirs: Sequence[str], size: int = 512,
+                 max_len: int = -1):
+        self.paths = _paths(source_dirs, max_len)
+        self.size = size
+        self.images = np.stack([preprocess_image(p, size).astype(np.float16)
+                                for p in self.paths])
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        return self.images[index]
+
+
+def _paths(source_dirs: Sequence[str], max_len: int) -> List[str]:
+    paths = find_images(source_dirs)
+    if not paths:
+        raise ValueError(f"no .jpg/.png images found under {list(source_dirs)}")
+    return paths[:max_len] if max_len and max_len > 0 else paths
+
+
 class LatentImageDataset:
     """Latents of the images under source_dirs, encoded once by encode_fn
     (float32 NHWC images [b, size, size, 3] -> latents) in batches of
@@ -60,11 +87,7 @@ class LatentImageDataset:
 
     def __init__(self, source_dirs: Sequence[str], encode_fn: Callable,
                  size: int = 512, max_len: int = -1):
-        self.paths = find_images(source_dirs)
-        if not self.paths:
-            raise ValueError(f"no .jpg/.png images found under {list(source_dirs)}")
-        if max_len and max_len > 0:
-            self.paths = self.paths[:max_len]
+        self.paths = _paths(source_dirs, max_len)
         chunks = []
         for start in range(0, len(self.paths), ENCODE_BATCH):
             imgs = np.stack([preprocess_image(p, size)

@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("block_core", "ffn_block", "ffn_block_bwd", "window_attention")
+SOURCES = ("block_core", "ffn_block", "ffn_block_bwd", "window_attention", "vq")
 # dynamic shared memory one block may use on the H100
 MAX_SMEM_BYTES = 227 * 1024
 
@@ -131,6 +131,10 @@ _SIGNATURES = {
         "window_mha_backward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 8, _I),
         "window_mha_bwd_smem_bytes": ([_I] * 2, _LL),
         "window_mha_bwd_scratch_floats": ([_I] * 3, _LL),
+    },
+    "vq": {
+        "vq_nearest": ([_I, _P, _P, _I, _I, _I] + [_P] * 4, _I),
+        "vq_splits": ([_I] * 2, _I),
     },
 }
 

@@ -3,7 +3,8 @@ inputs at those shapes, and the least work each call needs (for
 roofline bounds).
 
 Used by chip_smoke.py and the CUDA kernel tests to hold each kernel
-against its plain version at the shapes the UNet gives it.
+against its plain version at the shapes the UNet and the VAE trainer
+give it.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-from ldm_image_generator_tpu_torch.config import UNetConfig
+from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -23,18 +24,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 class Call:
     """One kernel call shape on the path and its count per denoise step."""
 
-    kernel: str            # block_core | ffn_block | window_mha, or *_bwd
+    kernel: str            # block_core | ffn_block | window_mha, or *_bwd; vq
     batch: int
-    hw: int                # map side (block kernels) or 0
-    c: int
+    hw: int                # map side (block kernels; vq: latent side) or 0
+    c: int                 # channels (vq: vector width D)
     per_step: int          # calls per denoise (or train) step
-    n: int = 0             # window_mha: windows
-    l: int = 0             # window_mha: tokens per window
+    n: int = 0             # window_mha: windows; vq: vectors
+    l: int = 0             # window_mha: tokens per window; vq: codes K
     heads: int = 0
     masked: bool = False
 
     @property
     def label(self) -> str:
+        if self.kernel == "vq":
+            return f"[{self.n},{self.c}] K={self.l}"
         if self.kernel.startswith("window_mha"):
             return f"[{self.n},{self.l},{self.c}] h{self.heads}" + (
                 " mask" if self.masked else "")
@@ -76,6 +79,15 @@ def train_calls(batch: int = 8, latent: int = 32,
     return fwd + [dataclasses.replace(c, kernel=c.kernel + "_bwd") for c in fwd]
 
 
+def vae_train_calls(batch: int = 8, crop: int = 192,
+                    cfg: VAEConfig = VAEConfig()) -> list:
+    """The kernel call of one VAE train step: vq over the latents of the
+    batch's crops, once."""
+    side = crop // cfg.downscale
+    return [Call("vq", batch, side, cfg.embedding_dim, 1,
+                 n=batch * side * side, l=cfg.num_embeddings)]
+
+
 def _randn(shape, gen, device, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=gen, device=device) * scale + shift
 
@@ -88,6 +100,10 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
     c = m = call.c
     e = 4
     cast = lambda t: t.to(dtype).contiguous()
+    if call.kernel == "vq":
+        # latents and an N(0, 1) codebook (fp32, as the quantizer keeps it)
+        return (cast(_randn((call.n, c), gen, device)),
+                _randn((call.l, c), gen, device))
     w = lambda *s, fan: cast(_randn(s, gen, device, fan ** -0.5))
     b = lambda *s: cast(_randn(s, gen, device, 0.05))
     if call.kernel.startswith("window_mha"):
@@ -127,6 +143,11 @@ def work(call: Call, dtype: torch.dtype):
     selected experts' weights), each output written once."""
     it = torch.finfo(dtype).bits // 8
     c = m = call.c
+    if call.kernel == "vq":
+        # x in, fp32 codebook in, int32 indices out; per (vector, code) a
+        # D-term dot (2D), the score and the compare (2)
+        nbytes = it * call.n * c + 4 * call.l * c + 4 * call.n
+        return nbytes, call.n * call.l * (2 * c + 2)
     if call.kernel == "window_mha_bwd":
         # projections 22 N L C^2 (qkv recompute 6, dO 2, dx 6, dW 8) plus
         # the six attention products 12 N L^2 C; x, g in, dx out; weights
@@ -180,8 +201,37 @@ def bwd_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def bound_ms(call: Call, dtype: torch.dtype):
-    """(least ms on an H100 at its published peaks, 'bytes'|'operations')."""
+    """(least ms on an H100 at its published peaks, 'bytes'|'operations').
+    vq computes in fp32 whatever the dtype of x."""
     nbytes, flops = work(call, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    peak = PEAK_FLOPS[torch.float32 if call.kernel == "vq" else dtype]
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# vq kernel vs plain: the fp32 score ||e||^2 - 2 x.e of either side is
+# within about (D + 2) * 2**-24 of its terms' magnitude (||e||^2 + 2 sum
+# |x_d e_d|) of the exact one, so where the two pick different codes the
+# exact scores of those codes may differ by up to twice that: 2**-19
+# covers D = 8 with room. A larger gap is a wrong index
+VQ_TIE_REL = 2.0 ** -19
+
+
+def vq_mismatches(x: torch.Tensor, codebook: torch.Tensor, got: torch.Tensor,
+                  want: torch.Tensor):
+    """(rows where the indices differ, the largest gap there between the
+    two codes' exact scores (float64 from the same inputs) over their
+    terms' magnitude; 0.0 when none differ)."""
+    rows = torch.nonzero(got != want).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    xr = x[rows].double()
+    gaps, scales = [], []
+    for idx in (got[rows].long(), want[rows].long()):
+        e = codebook[idx].double()
+        e_sq = (e * e).sum(-1)
+        gaps.append(e_sq - 2.0 * (xr * e).sum(-1))
+        scales.append(e_sq + 2.0 * (xr * e).abs().sum(-1))
+    rel = (gaps[0] - gaps[1]).abs() / torch.maximum(*scales)
+    return int(rows.numel()), float(rel.max())

@@ -70,8 +70,8 @@ def cast_all(ts: tuple, dtype: torch.dtype) -> tuple:
 
 class ParamInit:
     """Creates parameters on one device from one torch.Generator: flax's
-    lecun_normal (truncated normal, std sqrt(1/fan_in)) and zeros. On the
-    meta device it only allocates shapes."""
+    lecun_normal (truncated normal, std sqrt(1/fan_in)), zeros and normal.
+    On the meta device it only allocates shapes."""
 
     # std of a standard normal truncated to [-2, 2]
     _TRUNC_STD = 0.87962566103423978
@@ -90,6 +90,12 @@ class ParamInit:
 
     def zeros(self, *shape: int) -> nn.Parameter:
         return nn.Parameter(torch.zeros(shape, device=self.device))
+
+    def normal(self, *shape: int, std: float = 1.0) -> nn.Parameter:
+        t = torch.empty(shape, device=self.device)
+        if self.device.type != "meta":
+            nn.init.normal_(t, 0.0, std, generator=self.generator)
+        return nn.Parameter(t)
 
 
 class Dense(nn.Module):

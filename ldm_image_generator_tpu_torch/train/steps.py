@@ -1,7 +1,7 @@
-"""The latent diffusion train step and its optimizer, the torch
-counterparts of LDMTrainState, init_ema, make_ldm_train_step,
-make_lr_schedule and make_optimizer in ldm_image_generator_tpu/train/
-steps.py.
+"""The train steps and their optimizers, the torch counterparts of
+VAETrainState, LDMTrainState, init_ema, random_crop_batch,
+make_vae_train_step, make_ldm_train_step, make_lr_schedule and
+make_optimizer in ldm_image_generator_tpu/train/steps.py.
 
 Parameters are fp32 (the UNet module holds them); the forward computes
 in the dtype given to the step (bf16 on the card), each module casting
@@ -18,16 +18,22 @@ optax's order of operations:
     gradients is applied on the k-th step, and the inner count (which
     the learning-rate schedule reads) advances only on updates;
   - schedules are read at the count before the update (warmup starts at
-    lr 0; cosine decay_steps includes the warmup).
+    lr 0; cosine decay_steps includes the warmup);
+  - adafactor: optax.adafactor(learning_rate=relative_step), optax
+    0.2.6's chain scale_by_factored_rms(decay_rate=0.8, eps=1e-30,
+    min_dim_size_to_factor=128) -> clip_by_block_rms(1.0) -> scale by
+    the relative step -> scale by max(rms(param), 1e-3) of the parameter
+    before the update -> scale by -1 (see Adafactor). torch.optim.Adafactor
+    is another algorithm (no block clipping, its own decay and epsilons).
 
-Only adamw is ported in this slice (the VAE's adafactor and the pixel
-DDPM's radam come with those trainers). torch.optim.AdamW (fused or
-not) is not used: it forms the bias corrections 1 - b**t in float64
+The pixel DDPM's radam comes with that trainer. torch.optim.AdamW (fused
+or not) is not used: it forms the bias corrections 1 - b**t in float64
 where optax uses float32 (1 - 0.999 in float32 is off by 1.3e-5
 relative), and leaves optax beyond the optimizer test's tolerance
 (tests/test_torch_port_train.py, test_torch_adamw_leaves_optax).
 Updates run in place with PyTorch's multi-tensor (_foreach) ops over
-groups of CHUNK parameters:
+groups of CHUNK parameters (Adafactor's factored statistics, one mean
+per axis, per tensor):
 a per-tensor loop over the default UNet's ~800 tensors made ~16,000
 small launches per step and held the card idle; a group's temporaries
 stay far below a second copy of the model.
@@ -40,9 +46,11 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ldm_image_generator_tpu_torch.diffusion.ddpm import DiffusionSchedule, ddpm_loss
+from ldm_image_generator_tpu_torch.models.vae import vae_loss
 
 F32 = np.float32
 # parameters per group of multi-tensor ops
@@ -128,6 +136,14 @@ class MultiStepsState:
     acc_grads: List[torch.Tensor]
 
 
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> list:
+    """optax.clip_by_global_norm: g * max_norm / ||g|| when ||g|| >=
+    max_norm (no epsilon), with ||g|| over every tensor."""
+    g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+
+
 class AdamW:
     """[clip_by_global_norm ->] optax.adamw with its defaults, applied in
     place."""
@@ -151,10 +167,7 @@ class AdamW:
               state: AdamWState) -> AdamWState:
         """params += the update for grads; returns the new state."""
         if self.grad_clip > 0.0:
-            g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            keep = g_norm < self.grad_clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip)
-                     for g in grads]
+            grads = clip_by_global_norm(grads, self.grad_clip)
         count = state.count + 1
         bc1 = float(F32(1) - F32(self.b1) ** F32(count))
         bc2 = float(F32(1) - F32(self.b2) ** F32(count))
@@ -181,10 +194,130 @@ class AdamW:
         return AdamWState(count=count, mu=state.mu, nu=state.nu)
 
 
+def relative_step(count: int) -> np.float32:
+    """min(1e-2, 1 / sqrt(count + 1)) in float32, the step size the JAX
+    package gives optax.adafactor. Correctly rounded; XLA's CPU rsqrt is
+    within one ulp of it (equal up to count 9999, where the min holds)."""
+    return min(F32(1e-2), F32(1.0 / math.sqrt(count + 1.0)))
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """(d1, d0), the second largest and the largest axis as np.argsort
+    orders them (ties fall as there), when the second largest has at
+    least min_dim_size_to_factor entries; else None (optax's
+    _factored_dims)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+@dataclasses.dataclass
+class AdafactorState:
+    count: int
+    # per parameter: the row and column statistics of a factored one, or
+    # the full second moment v of the others (None where unused)
+    v_row: List[Optional[torch.Tensor]]
+    v_col: List[Optional[torch.Tensor]]
+    v: List[Optional[torch.Tensor]]
+
+
+class Adafactor:
+    """[clip_by_global_norm ->] optax.adafactor(learning_rate=relative_step)
+    with its defaults, applied in place, in fp32 and in optax's order:
+
+      decay = 1 - (count + 1)^-0.8 (float32; count before the update)
+      g2 = g^2 + eps
+      factored (factored_dims (d1, d0)):
+        v_row = decay v_row + (1 - decay) mean(g2, d0)
+        v_col = decay v_col + (1 - decay) mean(g2, d1)
+        u = g (v_row / mean(v_row over d1))^-1/2 v_col^-1/2
+      else: v = decay v + (1 - decay) g2; u = g v^-1/2
+      u /= max(1, rms(u) / 1.0)                        (clip_by_block_rms)
+      p += -relative_step(count) max(rms(p), 1e-3) u   (p before the update)
+
+    The three scalings of each tensor are folded into one factor."""
+
+    decay_rate, eps, min_dim_size_to_factor = 0.8, 1e-30, 128
+    clipping_threshold, min_scale = 1.0, 1e-3
+
+    def __init__(self, grad_clip: float = 0.0):
+        self.grad_clip = grad_clip
+
+    def _dims(self, p: torch.Tensor):
+        return factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+
+    def init(self, params: List[torch.Tensor]) -> AdafactorState:
+        v_row, v_col, v = [], [], []
+        for p in params:
+            dims = self._dims(p)
+            zeros = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                              device=p.device)
+            if dims is None:
+                v_row.append(None)
+                v_col.append(None)
+                v.append(zeros(p.shape))
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                v_row.append(zeros(shape[:d0] + shape[d0 + 1:]))
+                v_col.append(zeros(shape[:d1] + shape[d1 + 1:]))
+                v.append(None)
+        return AdafactorState(count=0, v_row=v_row, v_col=v_col, v=v)
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: AdafactorState) -> AdafactorState:
+        """params += the update for grads; returns the new state."""
+        if self.grad_clip > 0.0:
+            grads = clip_by_global_norm(grads, self.grad_clip)
+        decay = F32(1) - F32(state.count + 1) ** F32(-self.decay_rate)
+        keep, fresh = float(decay), float(F32(1) - decay)
+        updates: List[Optional[torch.Tensor]] = [None] * len(params)
+        plain = [i for i, v in enumerate(state.v) if v is not None]
+        for idx, in _chunks(plain):
+            g = [grads[i].float() for i in idx]
+            v = [state.v[i] for i in idx]
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_add_(g2, self.eps)
+            torch._foreach_mul_(v, keep)
+            torch._foreach_mul_(g2, fresh)
+            torch._foreach_add_(v, g2)
+            u = torch._foreach_rsqrt(v)
+            torch._foreach_mul_(u, g)
+            for i, t in zip(idx, u):
+                updates[i] = t
+        for i, v_row in enumerate(state.v_row):
+            if v_row is None:
+                continue
+            d1, d0 = self._dims(params[i])
+            g = grads[i].float()
+            g2 = g * g + self.eps
+            v_col = state.v_col[i]
+            v_row.mul_(keep).add_(g2.mean(d0) * fresh)
+            v_col.mul_(keep).add_(g2.mean(d1) * fresh)
+            row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            updates[i] = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
+                          * v_col.rsqrt().unsqueeze(d1))
+        neg_lr = -float(relative_step(state.count))
+        for p, u in _chunks(params, updates):
+            size = torch.tensor([t.numel() for t in p], dtype=torch.float32,
+                                device=p[0].device)
+            rms_u = torch.stack(torch._foreach_norm(u)) / size.sqrt()
+            rms_p = torch.stack(torch._foreach_norm(p)) / size.sqrt()
+            scale = (neg_lr / (rms_u / self.clipping_threshold).clamp_min(1.0)
+                     * rms_p.clamp_min(self.min_scale))
+            torch._foreach_mul_(u, list(scale.unbind()))
+            torch._foreach_add_(p, u)
+        return dataclasses.replace(state, count=state.count + 1)
+
+
 class MultiSteps:
     """optax.MultiSteps(inner, every_k_schedule=k) with the gradient mean."""
 
-    def __init__(self, inner: AdamW, every_k: int):
+    def __init__(self, inner, every_k: int):
         self.inner = inner
         self.every_k = every_k
 
@@ -227,14 +360,19 @@ def make_optimizer(name: str, learning_rate: float = 1e-4,
                    accumulate: int = 1, grad_clip: float = 0.0,
                    lr_schedule: str = "constant", warmup_steps: int = 0,
                    total_steps: int = 0):
-    """adamw [with clipping, an LR schedule and MultiSteps accumulation],
-    each off by default as in the JAX package."""
-    if name != "adamw":
-        raise ValueError(f"optimizer {name!r} is not ported (adamw only; "
-                         "adafactor and radam come with the VAE and DDPM "
-                         "trainers)")
-    lr = make_lr_schedule(learning_rate, lr_schedule, warmup_steps, total_steps)
-    tx = AdamW(lr, grad_clip=grad_clip)
+    """adamw [with an LR schedule] or adafactor (its own relative step;
+    learning_rate and the schedule are not read), either with clipping
+    and MultiSteps accumulation, each off by default as in the JAX
+    package."""
+    if name == "adafactor":
+        tx = Adafactor(grad_clip=grad_clip)
+    elif name == "adamw":
+        lr = make_lr_schedule(learning_rate, lr_schedule, warmup_steps, total_steps)
+        tx = AdamW(lr, grad_clip=grad_clip)
+    else:
+        raise ValueError(f"optimizer {name!r} is not ported (adamw and "
+                         "adafactor; radam comes with the pixel DDPM trainer, "
+                         "ROADMAP A9)")
     return MultiSteps(tx, accumulate) if accumulate > 1 else tx
 
 
@@ -290,3 +428,104 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
         return new_state, {"loss": loss_val.detach()}
 
     return step
+
+
+@dataclasses.dataclass
+class VAETrainState:
+    # {"encoder", "decoder", "quantizer"}: the fp32 master weights
+    vae_params: nn.ModuleDict
+    disc_params: nn.Module        # the Discriminator
+    opt_state_vae: Any
+    opt_state_disc: Any
+    step: int = 0
+
+
+def random_crop_batch(images: torch.Tensor, crop: int,
+                      generator: Optional[torch.Generator] = None,
+                      offset=None) -> torch.Tensor:
+    """The crop x crop window at one offset (top, left) for the whole
+    batch (torchvision RandomCrop on a batched tensor): `offset` (ints or
+    tensors), else drawn uniformly from the generator, top first. The
+    window is gathered on the images' device by index, so a draw on the
+    card costs no host sync."""
+    b, h, w, c = images.shape
+    if offset is None:
+        dev = generator.device if generator is not None else images.device
+        offset = tuple(torch.randint(0, n - crop + 1, (1,), generator=generator,
+                                     device=dev) for n in (h, w))
+    top, left = (torch.as_tensor(o, device=images.device).reshape(1)
+                 for o in offset)
+    ar = torch.arange(crop, device=images.device)
+    return images.index_select(1, top + ar).index_select(2, left + ar)
+
+
+def make_vae_train_step(encoder: nn.Module, decoder: nn.Module,
+                        quantizer: nn.Module, discriminator: nn.Module,
+                        tx_vae, tx_disc, weight_recon: float = 10.0,
+                        weight_reg: float = 1.0, weight_adv: float = 0.1,
+                        crop_size: int = 192, noise_gain: float = 0.1,
+                        dtype: Optional[torch.dtype] = None) -> Callable:
+    """Returns step(state, images, generator=None, crop_offset=None,
+    noise=None) -> (state, metrics, (recon_images, cropped_inputs)).
+
+    state.vae_params must hold encoder, decoder and quantizer, and
+    state.disc_params be discriminator. The images (any float dtype, cast
+    to fp32 on their device) are cropped at one offset for the batch when
+    crop_size is below their size; the generator draws the offset, then
+    the latent noise, unless given. The VAE step: loss = weight_recon *
+    L1 recon + weight_reg * VQ commitment + weight_adv * relu(-D(y)), its
+    gradient over the VAE's parameters only (the discriminator gets none
+    from it), tx_vae in place. Then the discriminator's hinge relu(1 +
+    D(sg(y))) + relu(1 - D(x)) with the discriminator before its update
+    (as the VAE step saw it), tx_disc in place. Every parameter of both
+    then holds its gradient (zeros where the loss does not reach it).
+    Encoder, decoder and discriminator compute in `dtype` (default: their
+    parameters'). Metrics: loss, recon, reg, adv, d_loss. Nothing here
+    waits on the device."""
+
+    def step(state: VAETrainState, images: torch.Tensor,
+             generator: Optional[torch.Generator] = None, crop_offset=None,
+             noise: Optional[torch.Tensor] = None):
+        vae = state.vae_params
+        if (vae["encoder"] is not encoder or vae["decoder"] is not decoder
+                or vae["quantizer"] is not quantizer
+                or state.disc_params is not discriminator):
+            raise ValueError("state holds other modules than this step was made for")
+        images = images.float()
+        if crop_size and crop_size < images.shape[1]:
+            images = random_crop_batch(images, crop_size, generator, crop_offset)
+        recon, reg, y = vae_loss(lambda v: encoder(v, dtype=dtype),
+                                 lambda v: decoder(v, dtype=dtype), quantizer,
+                                 images, noise=noise, generator=generator,
+                                 noise_gain=noise_gain)
+        adv = F.relu(-discriminator(y, dtype=dtype))
+        loss = weight_recon * recon + weight_reg * reg + weight_adv * adv
+        vae_params = list(vae.parameters())
+        opt_vae = tx_vae.apply(vae_params, _grads(loss, vae_params),
+                               state.opt_state_vae)
+
+        y = y.detach()
+        d_loss = (F.relu(1.0 + discriminator(y, dtype=dtype))
+                  + F.relu(1.0 - discriminator(images, dtype=dtype)))
+        disc_params = list(discriminator.parameters())
+        opt_disc = tx_disc.apply(disc_params, _grads(d_loss, disc_params),
+                                 state.opt_state_disc)
+        new_state = dataclasses.replace(state, opt_state_vae=opt_vae,
+                                        opt_state_disc=opt_disc,
+                                        step=state.step + 1)
+        metrics = {"loss": loss, "recon": recon, "reg": reg, "adv": adv,
+                   "d_loss": d_loss}
+        return new_state, {k: v.detach() for k, v in metrics.items()}, (y, images)
+
+    return step
+
+
+def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> list:
+    """d loss / d params (zeros where it does not reach), each also left
+    in its parameter's .grad; no other parameter's .grad is touched."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    out = []
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+        out.append(p.grad)
+    return out

@@ -11,14 +11,18 @@ import torch
 
 from ldm_image_generator_tpu_torch.kernels import block_core as tbc
 from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+from ldm_image_generator_tpu_torch.kernels import vq as tvq
 from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
 from ldm_image_generator_tpu_torch.kernels.workloads import (
     BWD_REL,
+    VQ_TIE_REL,
     Call,
     bwd_scale_err,
     make_inputs,
     path_calls,
     train_calls,
+    vae_train_calls,
+    vq_mismatches,
 )
 
 torch.set_num_threads(1)
@@ -164,3 +168,58 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     args[0] = args[0].t().contiguous().t()  # same shape, not contiguous
     with pytest.raises(ValueError):
         tffn.ffn_block(*args)
+
+
+VQ_CALLS = vae_train_calls() + [
+    Call("vq", 1, 0, 8, 1, n=700, l=300),       # ragged rows, few codes
+    Call("vq", 1, 0, 8, 1, n=37, l=8192),       # one row block, many slices
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", VQ_CALLS, ids=lambda c: c.label)
+def test_vq_kernel_matches_plain(card, call, dtype):
+    """The kernel's indices equal the plain version's, except at a
+    near-tie (workloads.VQ_TIE_REL), and a rerun gives the same bits."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    x, codebook = make_inputs(call, dtype, card, gen)
+    before = tvq.launches
+    got = tvq.nearest_codebook_indices(x, codebook)
+    assert tvq.launches == before + 1
+    want = tvq.nearest_codebook_indices_plain(x, codebook)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (call.n,)
+    assert ((got >= 0) & (got < call.l)).all()
+    n, gap = vq_mismatches(x, codebook, got, want)
+    print(call.label, dtype, "mismatches", n, "largest gap", gap)
+    assert gap <= VQ_TIE_REL, (n, gap)
+    assert torch.equal(tvq.nearest_codebook_indices(x, codebook), got)
+
+
+@pytest.mark.cuda
+def test_vq_kernel_takes_the_first_index_on_exact_ties(card):
+    """A codebook of two equal halves (K = 8192): every index is in the
+    first half and equal to the kernel's answer on that half alone."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    half = torch.randn((4096, 8), generator=gen, device=card)
+    x = torch.randn((4608, 8), generator=gen, device=card)
+    got = tvq.nearest_codebook_indices(x, torch.cat([half, half]))
+    assert (got < 4096).all()
+    assert torch.equal(got, tvq.nearest_codebook_indices(x, half))
+    n, gap = vq_mismatches(x, half, got, tvq.nearest_codebook_indices_plain(x, half))
+    assert gap <= VQ_TIE_REL, (n, gap)
+
+
+@pytest.mark.cuda
+def test_vq_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    x = torch.randn((64, 8), device=card)
+    cb = torch.randn((128, 8), device=card)
+    with pytest.raises(TypeError):
+        tvq.nearest_codebook_indices(x.half(), cb)
+    with pytest.raises(TypeError):
+        tvq.nearest_codebook_indices(x, cb.bfloat16())
+    with pytest.raises(ValueError):
+        tvq.nearest_codebook_indices(x.t().contiguous().t(), cb)  # not contiguous
+    with pytest.raises(ValueError):
+        tvq.nearest_codebook_indices(x[:, :4].contiguous(), cb[:, :4].contiguous())

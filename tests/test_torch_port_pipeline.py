@@ -93,12 +93,14 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.cli.sample_ab",
     "ldm_image_generator_tpu_torch.cli.sample_ldm",
     "ldm_image_generator_tpu_torch.cli.train_ldm",
+    "ldm_image_generator_tpu_torch.cli.train_vae",
     "ldm_image_generator_tpu_torch.data.dataset",
     "ldm_image_generator_tpu_torch.data.loader",
     "ldm_image_generator_tpu_torch.diffusion.ddpm",
     "ldm_image_generator_tpu_torch.kernels._build",
     "ldm_image_generator_tpu_torch.kernels.block_core",
     "ldm_image_generator_tpu_torch.kernels.ffn_block",
+    "ldm_image_generator_tpu_torch.kernels.vq",
     "ldm_image_generator_tpu_torch.kernels.window_attention",
     "ldm_image_generator_tpu_torch.kernels.workloads",
     "ldm_image_generator_tpu_torch.models.layers",

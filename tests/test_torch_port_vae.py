@@ -1,0 +1,478 @@
+"""The port's VAE training slice against the JAX package (CPU, fp32 unless
+stated): the nearest-codebook search (plain version against the XLA
+composition and the Pallas kernel in interpret mode), the quantizer's
+loss and gradients, the discriminator and feature matching, vae_loss,
+Adafactor against optax, two VAE train steps, the converters, the image
+dataset and the trainer CLI."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ldm_image_generator_tpu.config import DiscriminatorConfig as JDiscConfig
+from ldm_image_generator_tpu.config import VAEConfig as JVAEConfig
+from ldm_image_generator_tpu.data import dataset as jdataset
+from ldm_image_generator_tpu.data.dataset import ImageDataset as JImageDataset
+from ldm_image_generator_tpu.kernels.vq import (
+    nearest_codebook_indices_pallas,
+    nearest_codebook_indices_xla,
+)
+from ldm_image_generator_tpu.models import vae as jvae
+from ldm_image_generator_tpu.train import steps as jsteps
+from ldm_image_generator_tpu_torch.config import DiscriminatorConfig, VAEConfig
+from ldm_image_generator_tpu_torch.convert import (
+    decoder_from_flax,
+    discriminator_from_flax,
+    encoder_from_flax,
+    flatten_tree,
+    quantizer_from_flax,
+)
+from ldm_image_generator_tpu_torch.data.dataset import ImageDataset
+from ldm_image_generator_tpu_torch.kernels import vq as tvq
+from ldm_image_generator_tpu_torch.models import vae as tvae
+from ldm_image_generator_tpu_torch.train import steps as tsteps
+
+torch.set_num_threads(1)
+
+# fp32, sums in other orders (the port's other tests' tolerance)
+TOL = dict(rtol=5e-4, atol=5e-5)
+np_tree = lambda p: jax.tree.map(np.asarray, p)
+TINY_DISC = dict(channels=(8, 8), stages=(1, 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vq_plain_matches_xla_and_pallas(dtype):
+    """N = 700 (not a multiple of the Pallas kernel's 512-row tile), K =
+    256, D = 8; x rounded to the dtype the same way on both sides: the
+    indices are equal, exactly."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(700, 8)).astype(np.float32)
+    cb = rng.normal(size=(256, 8)).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    ref = np.asarray(nearest_codebook_indices_xla(jx, jnp.asarray(cb)))
+    pallas = np.asarray(nearest_codebook_indices_pallas(jx, jnp.asarray(cb),
+                                                        interpret=True))
+    got = tvq.nearest_codebook_indices_plain(tx, torch.from_numpy(cb))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(pallas, ref)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # the wrapper takes [..., D] on the CPU through the plain version
+    before = tvq.launches
+    idx = tvq.nearest_codebook_indices(tx.reshape(7, 100, 8), torch.from_numpy(cb))
+    assert tvq.launches == before and idx.shape == (7, 100)
+    np.testing.assert_array_equal(idx.reshape(-1).numpy(), ref)
+
+
+def test_vq_first_index_on_ties():
+    """A codebook of two equal halves: every vector's nearest code is in
+    both, and the first (lower half) wins, as in the JAX package."""
+    rng = np.random.default_rng(1)
+    half = rng.normal(size=(128, 8)).astype(np.float32)
+    cb = np.concatenate([half, half])
+    x = rng.normal(size=(300, 8)).astype(np.float32)
+    got = tvq.nearest_codebook_indices(torch.from_numpy(x), torch.from_numpy(cb))
+    ref = np.asarray(nearest_codebook_indices_xla(jnp.asarray(x), jnp.asarray(cb)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got < 128).all()
+    np.testing.assert_array_equal(
+        got.numpy(), tvq.nearest_codebook_indices(torch.from_numpy(x),
+                                                  torch.from_numpy(half)).numpy())
+
+
+def test_vq_mismatch_rule_names_only_near_ties():
+    from ldm_image_generator_tpu_torch.kernels.workloads import VQ_TIE_REL, vq_mismatches
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(50, 8)).astype(np.float32))
+    cb = torch.from_numpy(rng.normal(size=(64, 8)).astype(np.float32))
+    want = tvq.nearest_codebook_indices_plain(x, cb)
+    assert vq_mismatches(x, cb, want, want) == (0, 0.0)
+    wrong = want.clone()
+    wrong[3] = (wrong[3] + 1) % 64
+    n, gap = vq_mismatches(x, cb, wrong, want)
+    assert n == 1 and gap > VQ_TIE_REL
+    cb2 = torch.cat([cb, cb[want[:1].long()]])  # row 64 ties row want[0]
+    n, gap = vq_mismatches(x, cb2, torch.cat([torch.tensor([64], dtype=torch.int32),
+                                              want[1:]]), want)
+    assert n == 1 and gap == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantizer_loss_and_grads_match_jax(dtype):
+    """The symmetric L1 commitment loss and its gradients with respect to
+    the latents and the codebook (which reach only the selected rows). A
+    bf16 x meets the fp32 codes in fp32 on both sides."""
+    jq = jvae.VectorQuantizer(64, 8)
+    x = np.random.default_rng(3).normal(size=(2, 50, 8)).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    params = jq.init(jax.random.PRNGKey(0), jx)
+    loss, (gp, gx) = jax.value_and_grad(lambda p, v: jq.apply(p, v), (0, 1))(params, jx)
+    port = quantizer_from_flax(np_tree(params), JVAEConfig().tiny(), device="cpu")
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        getattr(torch, dtype)).requires_grad_()
+    got = port(tx)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-6)
+    ge = port.embeddings.grad.numpy()
+    np.testing.assert_allclose(ge, np.asarray(gp["params"]["embeddings"]),
+                               rtol=1e-6, atol=1e-9)
+    idx = port.quantize(tx).reshape(-1).long()
+    assert (np.abs(ge).sum(1)[np.setdiff1d(np.arange(64), idx.numpy())] == 0).all()
+    np.testing.assert_allclose(tx.grad.float().numpy(),
+                               np.asarray(gx.astype(jnp.float32)), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("stem", [1, 2])
+def test_discriminator_and_feature_matching_match_jax(stem):
+    jcfg = JDiscConfig(stem_size=stem, **TINY_DISC)
+    jd = jvae.Discriminator(jcfg)
+    rng = np.random.default_rng(4)
+    real = rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32)
+    fake = rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32)
+    params = jd.init(jax.random.PRNGKey(1), jnp.asarray(real))
+    ref_logit, ref_feats = jd.apply(params, jnp.asarray(real), features=True)
+    ref_fake = jd.apply(params, jnp.asarray(fake), features=True)[1]
+    ref_fm = jvae.feature_matching_loss(ref_fake, ref_feats)
+    port = discriminator_from_flax(np_tree(params),
+                                   DiscriminatorConfig(stem_size=stem, **TINY_DISC),
+                                   device="cpu")
+    logit, feats = port(torch.from_numpy(real), features=True)
+    np.testing.assert_allclose(logit.item(), float(ref_logit), **TOL)
+    assert len(feats) == len(ref_feats) == 2
+    for f, r in zip(feats, ref_feats):
+        assert f.shape == r.shape
+        np.testing.assert_allclose(f.detach().numpy(), np.asarray(r), **TOL)
+    np.testing.assert_allclose(port(torch.from_numpy(real)).item(), float(ref_logit), **TOL)
+    fm = tvae.feature_matching_loss(port(torch.from_numpy(fake), features=True)[1], feats)
+    np.testing.assert_allclose(fm.item(), float(ref_fm), **TOL)
+
+
+def _tiny_vae(key=0, size=16):
+    """JAX tiny encoder, decoder and quantizer with their params."""
+    cfg = JVAEConfig().tiny()
+    enc, dec = jvae.Encoder(cfg), jvae.Decoder(cfg)
+    q = jvae.VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim)
+    k = jax.random.PRNGKey(key)
+    side = size // cfg.downscale
+    z0 = jnp.zeros((1, side, side, cfg.latent_channels))
+    params = {"encoder": enc.init(k, jnp.zeros((1, size, size, 3)))["params"],
+              "decoder": dec.init(k, z0)["params"],
+              "quantizer": q.init(k, z0.reshape(1, -1, cfg.latent_channels))["params"]}
+    return cfg, (enc, dec, q), params
+
+
+def _port_vae(params):
+    cfg = VAEConfig().tiny()
+    return torch.nn.ModuleDict({
+        "encoder": encoder_from_flax(np_tree(params["encoder"]), cfg, device="cpu"),
+        "decoder": decoder_from_flax(np_tree(params["decoder"]), cfg, device="cpu"),
+        "quantizer": quantizer_from_flax(np_tree(params["quantizer"]), cfg, device="cpu")})
+
+
+def test_vae_loss_matches_jax():
+    """vae_loss with the noise JAX drew injected; the VAE wrapper (and its
+    calclate_loss spelling) gives the same."""
+    cfg, (enc, dec, q), params = _tiny_vae()
+    x = np.random.default_rng(5).uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    recon, reg, y = jvae.vae_loss(
+        lambda v: enc.apply({"params": params["encoder"]}, v),
+        lambda v: dec.apply({"params": params["decoder"]}, v),
+        lambda v: q.apply({"params": params["quantizer"]}, v),
+        jnp.asarray(x), key)
+    noise = torch.from_numpy(np.array(jax.random.normal(key, (2, 8, 8, 8))))
+    vae = _port_vae(params)
+    wrapper = tvae.VAE(vae["encoder"], vae["decoder"], vae["quantizer"])
+    for fn in (wrapper.calculate_loss, wrapper.calclate_loss):
+        t_recon, t_reg, t_y = fn(torch.from_numpy(x), noise=noise)
+        np.testing.assert_allclose(t_recon.item(), float(recon), **TOL)
+        np.testing.assert_allclose(t_reg.item(), float(reg), **TOL)
+        np.testing.assert_allclose(t_y.detach().numpy(), np.asarray(y), **TOL)
+    z = wrapper.encode(torch.from_numpy(x))
+    assert z.shape == (2, 8, 8, 8) and wrapper.decode(z).shape == (2, 16, 16, 3)
+
+
+def test_encoder_and_decoder_take_a_compute_dtype():
+    """dtype= at call time computes in bf16 over fp32 parameters (the
+    gradient reaches them in fp32); the default stays the parameters'."""
+    cfg = VAEConfig().tiny()
+    gen = torch.Generator().manual_seed(0)
+    enc = tvae.Encoder(cfg, device="cpu", generator=gen)
+    dec = tvae.Decoder(cfg, device="cpu", generator=gen)
+    x = torch.rand(1, 16, 16, 3) * 2 - 1
+    assert enc(x).dtype == torch.float32
+    z = enc(x, dtype=torch.bfloat16)
+    y = dec(z, dtype=torch.bfloat16)
+    assert z.dtype == y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert enc.input_layer.kernel.grad.dtype == torch.float32
+    torch.testing.assert_close(y.float(), dec(enc(x)).detach(), rtol=0.1, atol=0.1)
+
+
+ADAFACTOR_SHAPES = [(3, 3, 128, 128), (3, 3, 64, 64), (8192, 8), (128, 256),
+                    (128,), (256,), (64,)]
+
+
+def test_factored_dims_follow_argsort():
+    """np.argsort's two largest axes, factored only when the second is >=
+    128: HWIO [3,3,128,128] factors axes (2, 3); [3,3,64,64], [8192, 8],
+    1-D tensors and every default discriminator tensor do not."""
+    dims = [tsteps.factored_dims(s) for s in ADAFACTOR_SHAPES]
+    assert dims == [(2, 3), None, None, (0, 1), None, None, None]
+    assert tsteps.factored_dims((2, 2, 512, 256)) == (3, 2)
+    disc = tvae.Discriminator(DiscriminatorConfig(), device="meta")
+    assert all(tsteps.factored_dims(tuple(p.shape)) is None for p in disc.parameters())
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(grad_clip=0.5), dict(accumulate=2)],
+                         ids=["adafactor", "clip", "multisteps"])
+def test_adafactor_matches_optax(kw):
+    """Seven steps of make_optimizer('adafactor') against the JAX package's
+    (optax.adafactor with the relative step), at the AdamW test's
+    tolerance: params, and the factored and full second moments. The
+    biases start at zero (the 1e-3 floor of the parameter scale) and one
+    never gets a gradient."""
+    rng = np.random.default_rng(6)
+    params = [(rng.normal(size=s) * (0.05 if len(s) > 1 else 0.0)).astype(np.float32)
+              for s in ADAFACTOR_SHAPES]
+    jtx = jsteps.make_optimizer("adafactor", **kw)
+    jp = [jnp.asarray(p) for p in params]
+    jstate = jtx.init(jp)
+    ttx = tsteps.make_optimizer("adafactor", **kw)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    tstate = ttx.init(tp)
+    for _ in range(7):
+        g = [(rng.normal(size=s) * 0.1).astype(np.float32) for s in ADAFACTOR_SHAPES]
+        g[-1][...] = 0.0
+        upd, jstate = jtx.update([jnp.asarray(a) for a in g], jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        tstate = ttx.apply(tp, [torch.from_numpy(a) for a in g], tstate)
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+    inner_t = tstate.inner_opt_state if "accumulate" in kw else tstate
+    factored = _find_state(jstate, "v_row")
+    assert inner_t.count == int(factored.count)
+    # the second moments are means over up to 384 squares, summed in
+    # another order than XLA's: rtol 1e-5
+    for name in ("v_row", "v_col", "v"):
+        for a, b in zip(getattr(inner_t, name), getattr(factored, name)):
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-30)
+
+
+def _find_state(tree, field):
+    """The first state in an optax state tree that has `field`."""
+    if hasattr(tree, field):
+        return tree
+    if isinstance(tree, tuple):
+        for t in tree:
+            found = _find_state(t, field)
+            if found is not None:
+                return found
+    return getattr(tree, "inner_opt_state", None) and _find_state(
+        tree.inner_opt_state, field)
+
+
+def test_relative_step_matches_jax():
+    """min(1e-2, rsqrt(count + 1)) in float32: equal where the min holds
+    (up to count 9999, where rsqrt(10000) rounds to the same float32 as
+    1e-2); beyond, within one float32 ulp of XLA's CPU rsqrt (the port's
+    is correctly rounded)."""
+    jfn = lambda c: float(jnp.minimum(1e-2, jax.lax.rsqrt(jnp.int32(c) + 1.0)))
+    for count in (0, 9998, 9999):
+        assert tsteps.relative_step(count) == jfn(count) == np.float32(1e-2)
+    for count in (10000, 10 ** 6):
+        assert tsteps.relative_step(count) < np.float32(1e-2)
+        np.testing.assert_allclose(tsteps.relative_step(count), jfn(count), rtol=1e-6)
+
+
+def _jax_crop_and_noise(key, images_shape, crop, z_shape):
+    """The crop offset and the latent noise JAX's VAE step draws from key."""
+    k_crop, k_noise = jax.random.split(key)
+    ky, kx = jax.random.split(k_crop)
+    top = int(jax.random.randint(ky, (), 0, images_shape[1] - crop + 1))
+    left = int(jax.random.randint(kx, (), 0, images_shape[2] - crop + 1))
+    noise = np.array(jax.random.normal(k_noise, z_shape))
+    return (top, left), torch.from_numpy(noise)
+
+
+def test_random_crop_batch_matches_jax():
+    images = np.random.default_rng(8).normal(size=(2, 32, 32, 3)).astype(np.float32)
+    for i in range(4):
+        key = jax.random.PRNGKey(i)
+        ref = np.asarray(jsteps.random_crop_batch(jnp.asarray(images), 16, key))
+        ky, kx = jax.random.split(key)
+        offset = (int(jax.random.randint(ky, (), 0, 17)),
+                  int(jax.random.randint(kx, (), 0, 17)))
+        got = tsteps.random_crop_batch(torch.from_numpy(images), 16, offset=offset)
+        np.testing.assert_array_equal(got.numpy(), ref)
+    a = tsteps.random_crop_batch(torch.from_numpy(images), 16,
+                                 torch.Generator().manual_seed(3))
+    b = tsteps.random_crop_batch(torch.from_numpy(images), 16,
+                                 torch.Generator().manual_seed(3))
+    assert a.shape == (2, 16, 16, 3) and torch.equal(a, b)
+
+
+VAE_STEPS = 2
+
+
+def test_two_vae_train_steps_match_jax():
+    """make_vae_train_step at the tiny configs, 32px images cropped to 16,
+    Adafactor on both nets, fp32: for two steps the crop offsets and the
+    latent noise are the ones JAX's step draws from its key, and after
+    each step the five metrics and every parameter of both nets match the
+    JAX step's."""
+    cfg, (enc, dec, q), vae_params = _tiny_vae(key=0)
+    jd = jvae.Discriminator(JDiscConfig(**TINY_DISC))
+    disc_params = jd.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, 16, 3)))["params"]
+    jtx_v, jtx_d = jsteps.make_optimizer("adafactor"), jsteps.make_optimizer("adafactor")
+    jstate = jsteps.VAETrainState(
+        vae_params=vae_params, disc_params=disc_params,
+        opt_state_vae=jtx_v.init(vae_params), opt_state_disc=jtx_d.init(disc_params),
+        step=jnp.zeros((), jnp.int32))
+    jstep = jax.jit(jsteps.make_vae_train_step(enc, dec, q, jd, jtx_v, jtx_d,
+                                               crop_size=16))
+
+    vae = _port_vae(vae_params)
+    disc = discriminator_from_flax(np_tree(disc_params),
+                                   DiscriminatorConfig(**TINY_DISC), device="cpu")
+    ttx_v, ttx_d = tsteps.make_optimizer("adafactor"), tsteps.make_optimizer("adafactor")
+    tstate = tsteps.VAETrainState(
+        vae_params=vae, disc_params=disc,
+        opt_state_vae=ttx_v.init(list(vae.parameters())),
+        opt_state_disc=ttx_d.init(list(disc.parameters())))
+    tstep = tsteps.make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
+                                       disc, ttx_v, ttx_d, crop_size=16)
+    images = np.random.default_rng(9).uniform(-1, 1, size=(2, 32, 32, 3)).astype(np.float16)
+    for i in range(VAE_STEPS):
+        key = jax.random.fold_in(jax.random.PRNGKey(11), i)
+        offset, noise = _jax_crop_and_noise(key, images.shape, 16, (2, 8, 8, 8))
+        jstate, jm, (jy, jcrop) = jstep(jstate, jnp.asarray(images), key)
+        tstate, tm, (ty, tcrop) = tstep(tstate, torch.from_numpy(images),
+                                        crop_offset=offset, noise=noise)
+        assert tstate.step == int(jstate.step) == i + 1
+        np.testing.assert_array_equal(tcrop.numpy(), np.asarray(jcrop))
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+        assert set(tm) == set(jm) == {"loss", "recon", "reg", "adv", "d_loss"}
+        for k in jm:
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]), err_msg=k, **TOL)
+        for mod, ref in (*((vae[n], jstate.vae_params[n]) for n in vae),
+                         (disc, jstate.disc_params)):
+            want = flatten_tree(np_tree(ref))
+            got = dict(mod.named_parameters())
+            assert set(got) == set(want)
+            for n, p in got.items():
+                assert p.grad is not None, n
+                np.testing.assert_allclose(p.detach().numpy(), want[n],
+                                           err_msg=f"step {i} {n}", **TOL)
+
+
+@pytest.mark.parametrize("what", ["quantizer", "discriminator"])
+def test_converters_round_trip_and_raise_on_a_wrong_name(what):
+    if what == "quantizer":
+        mod = jvae.VectorQuantizer(64, 8)
+        params = mod.init(jax.random.PRNGKey(2), jnp.zeros((1, 4, 8)))
+        conv = lambda tree: quantizer_from_flax(tree, VAEConfig().tiny(), device="cpu")
+    else:
+        mod = jvae.Discriminator(JDiscConfig(**TINY_DISC))
+        params = mod.init(jax.random.PRNGKey(2), jnp.zeros((1, 16, 16, 3)))
+        conv = lambda tree: discriminator_from_flax(tree, DiscriminatorConfig(**TINY_DISC),
+                                                    device="cpu")
+    tree = np_tree(params)
+    port = conv(tree)
+    flat = flatten_tree(tree["params"])
+    state = port.state_dict()
+    assert set(state) == set(flat)
+    for n, v in flat.items():
+        np.testing.assert_array_equal(state[n].numpy(), v)
+    bad = dict(tree["params"])
+    first = sorted(bad)[0]
+    bad[first + "_renamed"] = bad.pop(first)
+    with pytest.raises(KeyError):
+        conv({"params": bad})
+
+
+def _images(tmp_path, n=4, size=32):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    d = tmp_path / "imgs"
+    d.mkdir()
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 255, (size, size + 8, 3), dtype=np.uint8)).save(
+            d / f"{i}.png")
+    return str(d)
+
+
+def test_image_dataset_matches_jax(tmp_path):
+    """The same files in the same order as the JAX ImageDataset, each
+    preprocessed as the JAX package's PIL path does (a non-square source,
+    downscaled: resize, blur, pad) and held as float16, as its cache
+    stores them."""
+    imgs = _images(tmp_path)
+    ref = JImageDataset([imgs], cache_dir=str(tmp_path / "cache"), size=24, max_len=3)
+    got = ImageDataset([imgs], size=24, max_len=3)
+    assert len(got) == len(ref) == 3 and got.paths == ref.paths
+    for i, path in enumerate(ref.paths):
+        want = jdataset.preprocess_image(path, 24, use_native=False).astype(np.float16)
+        assert got[i].dtype == np.float16 and got[i].shape == (24, 24, 3)
+        np.testing.assert_array_equal(got[i], want)
+    with pytest.raises(ValueError, match="no .jpg/.png"):
+        ImageDataset([str(tmp_path / "cache")])
+
+
+def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
+    from ldm_image_generator_tpu_torch.cli import train_vae
+
+    monkeypatch.chdir(tmp_path)
+    imgs = _images(tmp_path)
+    state = train_vae.main([imgs, "--config", "tiny", "-d", "cpu", "-s", "32",
+                            "-b", "2", "-e", "1", "-r", "out", "--save-every", "1"])
+    out = capsys.readouterr().out
+    assert "dataset: 4 images at 32px" in out
+    assert "no parameter file is written" in out
+    lines = [line.split() for line in out.splitlines() if line.startswith("step ")]
+    assert len(lines) == 2 and state.step == 2
+    for words in lines:
+        metrics = dict(zip(words[2::2], map(float, words[3::2])))
+        assert set(metrics) == {"loss", "recon", "reg", "adv", "d_loss"}
+        assert np.isfinite(list(metrics.values())).all()
+    for i in range(2):
+        for name in ("reconstructed", "input"):
+            assert (tmp_path / "out" / f"{i}_{name}.jpg").stat().st_size > 0
+    for mod in (state.vae_params, state.disc_params):
+        assert all(torch.isfinite(p).all() for p in mod.parameters())
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--ckpt-dir", "ck"], "A4"), (["-ep", "enc.pt"], "A12"),
+    (["-dp", "enc.pt"], "A12"), (["-qp", "enc.pt"], "A12"),
+    (["-discp", "enc.pt"], "A12")])
+def test_train_vae_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
+    from ldm_image_generator_tpu_torch.cli import train_vae
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "enc.pt").write_bytes(b"")
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        train_vae.main([str(tmp_path), "-d", "cpu", *flags])
+
+
+def test_cuda_request_without_card_raises_in_vae_trainer(tmp_path, monkeypatch):
+    from ldm_image_generator_tpu_torch.cli import train_vae
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_vae.main([_images(tmp_path), "--config", "tiny", "-s", "32"])
+
+
+def test_make_optimizer_refuses_radam_naming_the_roadmap():
+    with pytest.raises(ValueError, match="A9"):
+        tsteps.make_optimizer("radam")
+    assert isinstance(tsteps.make_optimizer("adafactor"), tsteps.Adafactor)
+    assert dataclasses.is_dataclass(tsteps.VAETrainState)
