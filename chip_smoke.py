@@ -9,11 +9,13 @@ no result line):
      parallel); print the build seconds and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version at every call
      shape of the sampling path (batch 1 and 4, plus block_core at latent
-     64) and, for the two backward kernels, of the training path (batch
-     8), in fp32 with TF32 off and in bf16; time kernel, plain version
-     and (window MHA, forward and backward) the one-call PyTorch
-     equivalent with a cold L2; hold block_core's gradients through the
-     card path against autograd through its plain version (B=1 shapes);
+     64) and, for the two backward kernels and the window MHA forward, of
+     the training path (batch 8), in fp32 with TF32 off and in bf16; time
+     kernel, plain version and (window MHA, forward and backward) the
+     one-call PyTorch equivalent with a cold L2, printing kernel/library
+     and bound/kernel per row and per step of each path; hold
+     block_core's gradients through the card path against autograd
+     through its plain version (B=1 shapes);
   3. sample one 256px image with the default UNet and VAE decoder (seeded
      random weights, 20 DDIM steps, bf16): launch counts must be exactly
      720 block_core and 160 window MHA; then images/s;
@@ -257,7 +259,9 @@ def phase_kernels(dev, reps: int) -> dict:
     cross = [swap(c, "ffn_block") for c in b1 if c.kernel == "block_core"] + [
         swap(c, "block_core") for c in b4 if c.kernel == "ffn_block"]
     latent64 = [c for c in path_calls(1, latent=64) if c.kernel == "block_core"]
-    train = [c for c in train_calls(TRAIN_BATCH) if c.kernel.endswith("_bwd")]
+    # the backward kernels and the window MHA forward of a train step
+    train = [c for c in train_calls(TRAIN_BATCH)
+             if c.kernel.endswith("_bwd") or c.kernel == "window_mha"]
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
@@ -303,6 +307,9 @@ def phase_kernels(dev, reps: int) -> dict:
                        max_abs_err_fp32=err_fp32, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                        bound_by=by)
+            if lib_ms is not None:
+                row["kernel_over_library"] = ms / lib_ms
+                row["bound_over_kernel"] = bms / ms
             if bwd:
                 row["error_metric"] = "max abs err / max(max |plain|, 1)"
             if call.kernel == "vq":
@@ -327,6 +334,19 @@ def phase_kernels(dev, reps: int) -> dict:
                 "vq": "vae_train"}
     step_name = {"train": "train step at B=8",
                  "vae_train": f"VAE train step at B={VAE_BATCH}"}
+    # window MHA per step of every path it is on: kernel, library, bound
+    for name in ("window_mha", "window_mha_bwd"):
+        for tag in ("b1", "b4", "train"):
+            rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
+            if not rs:
+                continue
+            step = {k: sum(r[k] * r["per_step"] for r in rs)
+                    for k in ("ms", "library_ms", "bound_ms")}
+            log(f"{name} {tag} per step: kernel {step['ms']:.4f} ms, library "
+                f"{step['library_ms']:.4f} ms (kernel/library "
+                f"{step['ms'] / step['library_ms']:.3f}), bound "
+                f"{step['bound_ms']:.5f} ms (bound/kernel "
+                f"{step['bound_ms'] / step['ms']:.4f})")
     summary = {}
     for name in fns:
         main = [r for r in rows if r["kernel"] == name and r["tag"] == main_tag[name]]

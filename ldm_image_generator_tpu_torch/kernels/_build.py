@@ -125,12 +125,14 @@ _SIGNATURES = {
         "ffn_bwd_scratch_floats": ([_I] * 3, _LL),
     },
     "window_attention": {
-        "window_mha_forward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 5, _I),
-        "window_mha_smem_bytes": ([_I] * 2, _LL),
-        "window_mha_scratch_floats": ([_I] * 3, _LL),
-        "window_mha_backward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 8, _I),
-        "window_mha_bwd_smem_bytes": ([_I] * 2, _LL),
-        "window_mha_bwd_scratch_floats": ([_I] * 3, _LL),
+        "window_mha_tensor_cores": ([_I] * 4, _I),
+        "window_mha_forward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 6, _I),
+        "window_mha_smem_bytes": ([_I] * 4, _LL),
+        "window_mha_scratch_floats": ([_I] * 5, _LL),
+        "window_mha_counter_ints": ([], _LL),
+        "window_mha_backward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 9, _I),
+        "window_mha_bwd_smem_bytes": ([_I] * 4, _LL),
+        "window_mha_bwd_scratch_floats": ([_I] * 5, _LL),
     },
     "vq": {
         "vq_nearest": ([_I, _P, _P, _I, _I, _I] + [_P] * 4, _I),

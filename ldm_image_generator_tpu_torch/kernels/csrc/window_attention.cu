@@ -1,20 +1,56 @@
 // Windowed multi-head self-attention, the Hopper counterpart of
-// window_mha_pallas. On x [N, L, C] (N windows of L tokens), three
-// launches:
-//   1. qkv = T(x @ [wq | wk | wv] + [bq | bk | bv])        -> [N, L, 3C]
-//   2. per (window, head): s = q k^T / sqrt(d) (+ -1e9 on padded keys),
-//      p = T(softmax(s)) in fp32, o = T(p v)              -> [N, L, C]
-//   3. out = T(o @ wo + bo)
-// The three projection weights are read in place (no concatenated copy);
-// at few rows the projections split k over blocks (common.cuh). qkv, o
-// and the fp32 partial sums live in scratch the Python wrapper allocates.
+// window_mha_pallas (ldm_image_generator_tpu/kernels/window_attention.py)
+// and, for gradients, of window_mha_bwd_pallas. On x [N, L, C] (N windows
+// of L tokens, heads of d channels), with T() a rounding to the working
+// type:
+//   q, k, v = T(x @ wq + bq), T(x @ wk + bk), T(x @ wv + bv)
+//   p = T(softmax(q k^T / sqrt(d) + mask)) (fp32 scores), o = T(p v)
+//   out = T(o @ wo + bo)
+// dtype: 0 = float32, 1 = bfloat16.
 //
-// The backward (window_mha_backward, the counterpart of
-// window_mha_bwd_pallas) recomputes qkv, then per (window, head) the
-// probabilities, and emits dx and fp32 weight gradients; see
-// attn_bwd_kernel below. dtype: 0 = float32, 1 = bfloat16.
+// bfloat16 runs on the tensor cores (namespace wtc, mma_common.cuh):
+// every product is mma.sync m16n8k16 with fp32 accumulators, operands by
+// ldmatrix from a ring of cp.async stages.
+//   What bounds a call on the H100: at the batch-1 shapes, latency (the
+//   chain of dependent launches, the weight stream's first bytes, a
+//   window's serial softmax); the four C x C weights are 0.1-8 MB and the
+//   arithmetic a few hundred MFLOP. At the B=8 training shapes, the
+//   projections: 22 N L C^2 FLOP in the backward, about 17 GFLOP per call
+//   set, each (window, head) reading its window and weight columns again.
+//   Forward, two launches: (1) one CTA per (window, head) projects the
+//   window's tokens onto the head's 3d columns of [wq | wk | wv] (weights
+//   read in place, tile by tile) and runs the attention on the result in
+//   shared memory; when that gives fewer CTAs than SMs (batch 1 at
+//   C >= 256), a cluster of 3 CTAs splits the head by projection (q, k,
+//   v), each streaming a third of the weight columns and storing its
+//   rounded result into rank 0's shared memory; (2) the output
+//   projection, in 16 x 32 tiles at few rows with k split over blocks,
+//   the splits summed by the last block to arrive (split_fixup: fixed
+//   order, no second launch). (2) is a programmatic dependent launch: it
+//   streams its first wo tiles while (1) finishes.
+//   Backward, two launches: (1) one CTA per (window, head) recomputes q,
+//   k, v, projects dO = T(g wo^T), and forms o, dv, dS, dq and dk (the
+//   train shapes give 256-1152 such CTAs, so no cluster); (2) one
+//   dependent launch holding both dx = T(dqkv [wq|wk|wv]^T) tiles (k split
+//   at large C) and the four weight gradients x^T [dq|dk|dv], o^T g (bias
+//   gradients as column sums of the same tiles) split over the rows, all
+//   summed with split_fixup, so reruns are bitwise equal.
+//   It takes d = 32 (every head of the UNet) and L <= 64 (windows up to
+//   8 x 8); other bfloat16 shapes take the FMA route below, by shape.
+//
+// float32 keeps the CUDA-core FMA tiles of common.cuh and grad_common.cuh
+// on purpose: TF32 tensor cores would round the operands to 10 mantissa
+// bits and break the fp32 gates (kernel against plain at 1e-4, the card
+// against the CPU). That route is three launches forward (qkv
+// projection, one block per (window, head) holding q, k, v and the
+// scores in fp32 shared memory, output projection; k split over blocks
+// with a summing pass at few rows) and the backward chain of
+// window_mha_bwd below.
 #include "common.cuh"
 #include "grad_common.cuh"
+#include "mma_common.cuh"
+
+#include <cooperative_groups.h>
 
 namespace ldm {
 
@@ -344,15 +380,835 @@ int window_mha_bwd(const void* x, const uint8_t* mask, const void* g, const void
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bfloat16 on the tensor cores
+// ---------------------------------------------------------------------
+namespace wtc {
+
+using tc::bf16;
+
+constexpr int D = 32;        // head width this route takes
+constexpr int LMAX = 64;     // tokens per window it takes
+constexpr int THREADS = 128;
+constexpr int BK = 64;       // k-tile depth
+constexpr int STAGES = 3;
+constexpr int QKV = 3 * D;   // one head's q, k, v columns
+// shared-memory leading dimensions (elements), rows padded by 8
+constexpr int LDX = BK + 8;     // token tile [LMAX][BK]
+constexpr int LDW = QKV + 8;    // weight tile [BK][3d]
+constexpr int LDH = D + 8;      // q, k, v, dO [LMAX][d]
+constexpr int LDP = LMAX + 8;   // P, dS [LMAX][LMAX]
+constexpr int X_EL = LMAX * LDX;
+constexpr int STAGE_EL = X_EL + BK * LDW;
+constexpr int RING_EL = STAGES * STAGE_EL;
+constexpr int HEAD_EL = LMAX * LDH;
+// The forward's q, k, v alias the ring when one CTA computes them and lie
+// past it when a cluster does (other CTAs store into them while this one
+// still streams); the backward keeps q, k, v, dO past the ring (the dO
+// projection reuses it) and puts P, dS in it.
+constexpr size_t FWD_SMEM = 2 * (RING_EL > 3 * HEAD_EL ? RING_EL : 3 * HEAD_EL);
+constexpr size_t FWD_SMEM_CLUSTER = 2 * ((size_t)RING_EL + 3 * HEAD_EL);
+constexpr size_t BWD_SMEM = 2 * ((size_t)RING_EL + 4 * HEAD_EL);
+static_assert(2 * LMAX * LDP <= RING_EL, "P and dS fit in the ring");
+static_assert(D * LDX <= BK * LDW, "the dO weight tile fits in a stage");
+
+inline bool takes(int L, int d) { return d == D && L >= 1 && L <= LMAX; }
+
+struct HeadArgs {
+  const bf16* x;        // [N, L, C]
+  const uint8_t* mask;  // [N, L] (1 = padded key) or null
+  const bf16* w[4];     // wq, wk, wv, wo [C, C] ([in, out])
+  const bf16* b[3];     // bq, bk, bv
+  const bf16* g;        // out-cotangent [N, L, C] (backward)
+  int L, C;
+  int cs;               // forward: CTAs of a cluster splitting one head's projections
+  float scale;
+  bf16* o;              // [N, L, C]
+  bf16* dqkv;           // [N, L, 3C] (backward)
+};
+
+// Bit j set: key j of the window is padded (mask). Every lane loads two
+// flags (issued early, so the load overlaps the projections) and the
+// ballot happens where the bits are needed.
+struct KeyPad {
+  bool lo, hi;
+  __device__ __forceinline__ KeyPad(const HeadArgs& a, int n) {
+    const int lane = threadIdx.x & 31;
+    const uint8_t* m = a.mask ? a.mask + (size_t)n * a.L : nullptr;
+    lo = m != nullptr && lane < a.L && m[lane];
+    hi = m != nullptr && lane + 32 < a.L && m[lane + 32];
+  }
+  __device__ __forceinline__ uint64_t bits() const {
+    return (uint64_t)__ballot_sync(0xffffffffu, lo) | (uint64_t)__ballot_sync(0xffffffffu, hi) << 32;
+  }
+};
+
+__device__ __forceinline__ void store2(bf16* p, uint32_t v) { *reinterpret_cast<uint32_t*>(p) = v; }
+
+// NSEG of the head's q, k, v column segments (d columns each, from
+// segment `first` on) of window n: T(x_n @ w[:, cols] + b), rows >= L
+// zero, into dst[segment] ([LMAX][LDH], local or another CTA's shared
+// memory). Warp w owns columns [8 NSEG w, 8 NSEG (w + 1)) and every 16-row
+// tile of the window.
+template <int NSEG>
+__device__ __forceinline__ void project_qkv(const HeadArgs& a, int n, int head, int mt, bf16* ring,
+                                            int first, bf16* const (&dst)[3]) {
+  constexpr int COLS = NSEG * D, LD = COLS + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = a.L, C = a.C, col0 = head * D;
+  const bf16* xw = a.x + (size_t)n * L * C;
+  float acc[4][NSEG][4];
+  tc::zero<4, NSEG>(acc);
+  auto load = [&](int buf, int kt) {
+    bf16* xs = ring + buf * STAGE_EL;
+    const int k0 = kt * BK;
+    tc::load_tile<LMAX, BK, THREADS>(xs, LDX, 16 * mt, [&](int r, int c) -> const bf16* {
+      return r < L && k0 + c < C ? xw + (size_t)r * C + k0 + c : nullptr;
+    });
+    tc::load_tile<BK, COLS, THREADS>(xs + X_EL, LD, BK, [&](int r, int c) -> const bf16* {
+      return k0 + r < C ? a.w[first + c / D] + (size_t)(k0 + r) * C + col0 + c % D : nullptr;
+    });
+  };
+  auto compute = [&](int buf) {
+    const bf16* xs = ring + buf * STAGE_EL;
+    tc::warp_mma<4, NSEG, false, false>(acc, xs, LDX, xs + X_EL, LD, 0, 8 * NSEG * warp, BK, mt);
+  };
+  tc::pipeline<STAGES>((C + BK - 1) / BK, load, compute);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NSEG; ++j) {
+    const int col = 8 * NSEG * warp + 8 * j + 2 * t, seg = first + col / D, cc = col % D;
+    const float b0 = to_f(a.b[seg][col0 + cc]), b1 = to_f(a.b[seg][col0 + cc + 1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= mt) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        store2(dst[seg] + row * LDH + cc,
+               row < L ? tc::pack_bf16(acc[i][j][2 * h] + b0, acc[i][j][2 * h + 1] + b1) : 0u);
+      }
+    }
+  }
+}
+
+// dO of window n, head `head`: T(g_n @ wo[head rows, :]^T), rows >= L
+// zero, into dos [LMAX][LDH]. Warp w owns the head's columns [8 w, 8 w + 8).
+__device__ __forceinline__ void project_dout(const HeadArgs& a, int n, int head, int mt,
+                                             bf16* ring, bf16* dos) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = a.L, C = a.C;
+  const bf16* gw = a.g + (size_t)n * L * C;
+  const bf16* wrows = a.w[3] + (size_t)head * D * C;
+  float acc[4][1][4];
+  tc::zero<4, 1>(acc);
+  auto load = [&](int buf, int kt) {
+    bf16* gs = ring + buf * STAGE_EL;
+    const int k0 = kt * BK;
+    tc::load_tile<LMAX, BK, THREADS>(gs, LDX, 16 * mt, [&](int r, int c) -> const bf16* {
+      return r < L && k0 + c < C ? gw + (size_t)r * C + k0 + c : nullptr;
+    });
+    tc::load_tile<D, BK, THREADS>(gs + X_EL, LDX, D, [&](int r, int c) -> const bf16* {
+      return k0 + c < C ? wrows + (size_t)r * C + k0 + c : nullptr;
+    });
+  };
+  auto compute = [&](int buf) {
+    const bf16* gs = ring + buf * STAGE_EL;
+    tc::warp_mma<4, 1, false, true>(acc, gs, LDX, gs + X_EL, LDX, 0, 8 * warp, BK, mt);
+  };
+  tc::pipeline<STAGES>((C + BK - 1) / BK, load, compute);
+  const int g = lane >> 2, t = lane & 3, col = 8 * warp + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= mt) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * i + g + 8 * h;
+      store2(dos + row * LDH + col,
+             row < L ? tc::pack_bf16(acc[i][0][2 * h], acc[i][0][2 * h + 1]) : 0u);
+    }
+  }
+}
+
+// The forward's projections of one (window, head): q, k, v into this
+// CTA's qs, ks, vs. With a.cs == 1 this CTA computes them all. Otherwise
+// a cluster of 3 CTAs splits them by columns, rank r computing segment r
+// (q, k or v) over the whole of C and storing it, rounded, into rank 0's
+// shared memory; no partial sums cross CTAs. Returns whether this CTA
+// goes on to the attention (rank 0); its q, k, v are complete then.
+__device__ __forceinline__ bool project_head(const HeadArgs& a, int n, int head, int mt, bf16* ring,
+                                             bf16* qs, bf16* ks, bf16* vs) {
+  if (a.cs == 1) {
+    bf16* const dst[3] = {qs, ks, vs};
+    project_qkv<3>(a, n, head, mt, ring, 0, dst);
+    return true;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  bf16* const dst[3] = {cl.map_shared_rank(qs, 0), cl.map_shared_rank(ks, 0),
+                        cl.map_shared_rank(vs, 0)};
+  project_qkv<1>(a, n, head, mt, ring, rank, dst);
+  cl.sync();  // every segment stored in rank 0
+  return rank == 0;
+}
+
+// Probabilities of query rows [16 w, 16 w + 16) against the 16 mt keys:
+// softmax(q k^T * scale + mask) in fp32 in this warp's accumulator
+// layout (p[j]: keys 8 j..), exactly 0 at keys >= L.
+__device__ __forceinline__ void softmax_rows(float (&p)[8][4], const bf16* qs, const bf16* ks,
+                                             uint64_t padded, int L, int mt, float scale, int w) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    uint32_t a[4];
+    tc::frag_a<false>(a, qs, LDH, 16 * w, k0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (jj >= mt) continue;
+      uint32_t b[4];
+      tc::frag_b2<true>(b, ks, LDH, k0, 16 * jj);
+      tc::mma16816(p[2 * jj], a, b[0], b[1]);
+      tc::mma16816(p[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+  const float ninf = __int_as_float((int)0xff800000);
+  float mx[2] = {ninf, ninf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= 2 * mt) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      float s = p[j][e] * scale;
+      if (col >= L) s = ninf;
+      else if ((padded >> col) & 1) s += -1e9f;
+      p[j][e] = s;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= 2 * mt) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = expf(p[j][e] - mx[e >> 1]);
+      p[j][e] = v;
+      sum[e >> 1] += v;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
+  // one division per row (IEEE division per element takes its slow path
+  // on the many zeros and costs microseconds)
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[j][e] *= inv[e >> 1];
+}
+
+// T(p) as A fragments: key block kk is p[2 kk] and p[2 kk + 1].
+__device__ __forceinline__ void p_frags(uint32_t (&pa)[4][4], const float (&p)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = tc::pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[kk][1] = tc::pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[kk][2] = tc::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[kk][3] = tc::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+}
+
+// o rows [16 w, 16 w + 16) = T(T(p) v), written to a.o at this head's
+// columns for rows < L.
+__device__ __forceinline__ void write_pv(const HeadArgs& a, const uint32_t (&pa)[4][4],
+                                         const bf16* vs, int n, int head, int mt, int w) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= mt) continue;
+#pragma unroll
+    for (int jd = 0; jd < 4; jd += 2) {
+      uint32_t b[4];
+      tc::frag_b2<false>(b, vs, LDH, 16 * kk, 8 * jd);
+      tc::mma16816(acc[jd], pa[kk], b[0], b[1]);
+      tc::mma16816(acc[jd + 1], pa[kk], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * w + g + 8 * h;
+    if (row >= a.L) continue;
+    bf16* dst = a.o + ((size_t)n * a.L + row) * a.C + head * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) store2(dst + 8 * j, tc::pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]));
+  }
+}
+
+// grid (heads * a.cs, N) in clusters of a.cs CTAs; FWD_SMEM bytes of
+// dynamic shared memory alone, FWD_SMEM_CLUSTER in a cluster.
+__global__ void __launch_bounds__(THREADS) fwd_core_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = a.cs == 1 ? ring : ring + RING_EL;  // aliases the drained ring when alone
+  bf16 *ks = qs + HEAD_EL, *vs = ks + HEAD_EL;
+  const int head = blockIdx.x / a.cs, n = blockIdx.y, mt = (a.L + 15) / 16;
+  const int warp = threadIdx.x >> 5;
+  tc::griddep_launch();  // the output projection may start streaming wo
+  const KeyPad pad(a, n);
+  if (!project_head(a, n, head, mt, ring, qs, ks, vs)) return;
+  __syncthreads();
+  if (warp >= mt) return;
+  float p[8][4];
+  softmax_rows(p, qs, ks, pad.bits(), a.L, mt, a.scale, warp);
+  uint32_t pa[4][4];
+  p_frags(pa, p);
+  write_pv(a, pa, vs, n, head, mt, warp);
+}
+
+// grid (heads, N), BWD_SMEM bytes. With P the fp32 probabilities:
+//   o  = T(T(P) v)                       (for dwo)
+//   dP = dO v^T                          (fp32)
+//   dS = T(P (dP - rowsum(dP P)) scale)
+//   dv = T(T(P)^T dO), dq = T(dS k), dk = T(dS^T q)
+// o to a.o, dq | dk | dv to a.dqkv at this head's columns.
+__global__ void __launch_bounds__(THREADS) bwd_core_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16 *qs = ring + RING_EL, *ks = qs + HEAD_EL, *vs = ks + HEAD_EL, *dos = vs + HEAD_EL;
+  bf16 *ps = ring, *dss = ps + LMAX * LDP;  // after both projections
+  const int head = blockIdx.x, n = blockIdx.y, mt = (a.L + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int L = a.L, C = a.C;
+  tc::griddep_launch();  // the tail may start streaming the weights
+  const KeyPad pad(a, n);
+  bf16* const qkv[3] = {qs, ks, vs};
+  project_qkv<3>(a, n, head, mt, ring, 0, qkv);
+  project_dout(a, n, head, mt, ring, dos);  // reuses the drained ring
+  __syncthreads();
+  if (warp < mt) {
+    float p[8][4];
+    softmax_rows(p, qs, ks, pad.bits(), L, mt, a.scale, warp);
+    uint32_t pa[4][4];
+    p_frags(pa, p);
+    write_pv(a, pa, vs, n, head, mt, warp);
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 16) {
+      uint32_t af[4];
+      tc::frag_a<false>(af, dos, LDH, 16 * warp, k0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj >= mt) continue;
+        uint32_t b[4];
+        tc::frag_b2<true>(b, vs, LDH, k0, 16 * jj);
+        tc::mma16816(dp[2 * jj], af, b[0], b[1]);
+        tc::mma16816(dp[2 * jj + 1], af, b[2], b[3]);
+      }
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rs[e >> 1] += dp[j][e] * p[j][e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], o);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+      const bool live = row < L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= 2 * mt) continue;
+        const float d0 = p[j][2 * h] * (dp[j][2 * h] - rs[h]) * a.scale;
+        const float d1 = p[j][2 * h + 1] * (dp[j][2 * h + 1] - rs[h]) * a.scale;
+        store2(ps + row * LDP + 8 * j + 2 * t,
+               live ? tc::pack_bf16(p[j][2 * h], p[j][2 * h + 1]) : 0u);
+        store2(dss + row * LDP + 8 * j + 2 * t, live ? tc::pack_bf16(d0, d1) : 0u);
+      }
+    }
+  }
+  __syncthreads();
+  // dv, dq, dk: (product, 16-row tile) units over the warps
+  for (int u = warp; u < 3 * mt; u += THREADS / 32) {
+    const int prod = u / mt, m0 = 16 * (u % mt);
+    float acc[1][4][4];
+    tc::zero<1, 4>(acc);
+    if (prod == 0) tc::warp_mma<1, 4, true, false>(acc, ps, LDP, dos, LDH, m0, 0, 16 * mt);
+    else if (prod == 1) tc::warp_mma<1, 4, false, false>(acc, dss, LDP, ks, LDH, m0, 0, 16 * mt);
+    else tc::warp_mma<1, 4, true, false>(acc, dss, LDP, qs, LDH, m0, 0, 16 * mt);
+    const int col = (prod == 0 ? 2 * C : prod == 1 ? 0 : C) + head * D + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + g + 8 * h;
+      if (row >= L) continue;
+      bf16* dst = a.dqkv + ((size_t)n * L + row) * 3 * C + col;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store2(dst + 8 * j, tc::pack_bf16(acc[0][j][2 * h], acc[0][j][2 * h + 1]));
+    }
+  }
+}
+
+// A block's tile of a product, BM x BN with 4 warps in WM x WN.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
+struct Gemm {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, NSTAGE = STAGES_;
+  static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
+  static_assert(WM * WN * 32 == THREADS, "four warps");
+  template <bool A_T>
+  __host__ __device__ static constexpr int lda() { return A_T ? BM + 8 : BK + 8; }
+  template <bool B_T>
+  __host__ __device__ static constexpr int ldb() { return B_T ? BK + 8 : BN + 8; }
+  template <bool A_T>
+  __host__ __device__ static constexpr int a_el() { return (A_T ? BK : BM) * lda<A_T>(); }
+  template <bool B_T>
+  __host__ __device__ static constexpr int b_el() { return (B_T ? BN : BK) * ldb<B_T>(); }
+  template <bool A_T, bool B_T>
+  __host__ __device__ static constexpr size_t smem() {
+    return 2 * (size_t)NSTAGE * (a_el<A_T>() + b_el<B_T>());
+  }
+};
+using Wide = Gemm<64, 64, 2, 2, 3>;    // many rows
+using Narrow = Gemm<16, 32, 1, 4, 6>;  // few rows: more blocks, deeper ring
+
+// acc = A[m rows of the tile, k-tiles kt0..kt1) B[.., n cols of the
+// tile]. srcA(r, c, k0) / srcB(r, c, k0) address element (r, c..c+7) of
+// the tile as stored (A_T: [k][m], else [m][k]; B_T: [n][k], else
+// [k][n]) for the k-tile at k0, or return nullptr for zeros. after(Bs,
+// ldb) runs on each landed B tile. gate() runs once the first tiles of
+// one operand (B, or A with A_FIRST) are in flight and before any copy of
+// the other (tc::pipeline).
+template <class G, bool A_T, bool B_T, bool A_FIRST = false, class SrcA, class SrcB, class After,
+          class Gate>
+__device__ __forceinline__ void gemm_tile(float (&acc)[G::MI][G::NI][4], bf16* ring, int kt0,
+                                          int kt1, SrcA srcA, SrcB srcB, After after, Gate gate) {
+  constexpr int LA = G::template lda<A_T>(), LB = G::template ldb<B_T>();
+  constexpr int AE = G::template a_el<A_T>(), SE = AE + G::template b_el<B_T>();
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp / G::WN) * (G::BM / G::WM), n0 = (warp % G::WN) * (G::BN / G::WN);
+  tc::zero<G::MI, G::NI>(acc);
+  auto load_b = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    tc::load_tile<B_T ? G::BN : BK, B_T ? BK : G::BN, THREADS>(ring + buf * SE + AE, LB,
+                                                              B_T ? G::BN : BK,
+                                             [&](int r, int c) { return srcB(r, c, k0); });
+  };
+  auto load_a = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    tc::load_tile<A_T ? BK : G::BM, A_T ? G::BM : BK, THREADS>(ring + buf * SE, LA,
+                                                              A_T ? BK : G::BM,
+                                             [&](int r, int c) { return srcA(r, c, k0); });
+  };
+  auto compute = [&](int buf) {
+    const bf16* as = ring + buf * SE;
+    tc::warp_mma<G::MI, G::NI, A_T, B_T>(acc, as, LA, as + AE, LB, m0, n0, BK);
+    after(as + AE, LB);
+  };
+  if (A_FIRST) tc::pipeline<G::NSTAGE>(kt1 - kt0, load_a, gate, load_b, compute);
+  else tc::pipeline<G::NSTAGE>(kt1 - kt0, load_b, gate, load_a, compute);
+}
+
+// Calls f(row, col, v0, v1) for the accumulator pairs (row, col..col+1)
+// of this thread, in the tile at (mb, nb).
+template <class G, class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[G::MI][G::NI][4], int mb, int nb,
+                                          F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = mb + (warp / G::WN) * (G::BM / G::WM), n0 = nb + (warp % G::WN) * (G::BN / G::WN);
+#pragma unroll
+  for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(m0 + 16 * i + g + 8 * h, n0 + 8 * j + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+}
+
+struct OutArgs {
+  const bf16* o;   // [rows, C]
+  const bf16* wo;  // [C, C]
+  const bf16* bo;
+  bf16* out;
+  int rows, C, splits, per;  // k-tiles split over `splits` blocks, `per` each
+  float* part;               // fp32 split partials
+  int* counters;             // one per output tile, 0 between calls
+};
+
+// out = T(o @ wo + bo); grid (ceil(C / BN), ceil(rows / BM), splits).
+template <class G>
+__global__ void __launch_bounds__(THREADS) out_proj_kernel(OutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int mb = blockIdx.y * G::BM, nb = blockIdx.x * G::BN, s = blockIdx.z;
+  const int kt = (a.C + BK - 1) / BK, kt0 = s * a.per, kt1 = min(kt, kt0 + a.per);
+  const int C = a.C, rows = a.rows;
+  float acc[G::MI][G::NI][4];
+  gemm_tile<G, false, false>(
+      acc, ring, kt0, kt1,
+      [&](int r, int c, int k0) -> const bf16* {
+        return mb + r < rows && k0 + c < C ? a.o + (size_t)(mb + r) * C + k0 + c : nullptr;
+      },
+      [&](int r, int c, int k0) -> const bf16* {
+        return k0 + r < C && nb + c < C ? a.wo + (size_t)(k0 + r) * C + nb + c : nullptr;
+      },
+      [](const bf16*, int) {}, [] { tc::griddep_wait(); });
+  if (a.splits > 1) {
+    float none[1];
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    const size_t per_split = (size_t)G::BM * G::BN;
+    if (!tc::split_fixup<THREADS, G::MI, G::NI, 0>(acc, none, a.part + tile * a.splits * per_split,
+                                                   a.splits, s, a.counters + tile))
+      return;
+  }
+  for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+    if (row < rows && col < C)
+      store2(a.out + (size_t)row * C + col,
+             tc::pack_bf16(v0 + to_f(a.bo[col]), v1 + to_f(a.bo[col + 1])));
+  });
+}
+
+// Streaming multiprocessors of the current device (132 on the H100),
+// read once; the launch plans below fill the card by it.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      n = count;
+  }
+  return n > 0 ? n : 1;
+}
+
+struct OutPlan {
+  bool narrow;
+  dim3 grid;
+  int splits, per;
+  size_t floats;  // fp32 split partials
+  int tiles;      // counters used
+};
+
+inline OutPlan out_plan(int rows, int C) {
+  OutPlan p;
+  const int kt = (C + BK - 1) / BK, sms = sm_count();
+  p.narrow = ((rows + Wide::BM - 1) / Wide::BM) * ((C + Wide::BN - 1) / Wide::BN) < sms;
+  const int bm = p.narrow ? Narrow::BM : Wide::BM, bn = p.narrow ? Narrow::BN : Wide::BN;
+  const int tm = (rows + bm - 1) / bm, tn = (C + bn - 1) / bn;
+  p.tiles = tm * tn;
+  int s = 1;
+  if (p.tiles < sms) {  // k split until the card has a block per SM, >= 4 k-tiles each
+    s = (sms + p.tiles - 1) / p.tiles;
+    s = s < kt / 4 ? s : kt / 4;
+    s = s > 1 ? s : 1;
+  }
+  p.per = (kt + s - 1) / s;
+  p.splits = (kt + p.per - 1) / p.per;
+  p.grid = dim3(tn, tm, p.splits);
+  p.floats = p.splits > 1 ? (size_t)p.tiles * p.splits * bm * bn : 0;
+  return p;
+}
+
+struct TailArgs {
+  const bf16 *x, *g, *o, *dqkv;  // [rows, C] (dqkv [rows, 3C])
+  const bf16* w[3];              // wq, wk, wv
+  bf16* dx;                      // [rows, C]
+  float* grads;                  // 4 x [(C + 1), C]: dW rows, then the bias
+  int rows, C;
+  int tn;                        // 64-wide tiles along C
+  int dx_splits, dx_per, n_dx;   // dx blocks: tiles x splits of k = 3C
+  int splits, per, dw_tiles;     // weight-gradient blocks: tiles x splits of the rows
+  int n_dw, dx_first;            // the kind with more k-tiles a block is scheduled first
+  float *part, *dx_part;         // split partials: dW's, dx's
+  int* counters;                 // dW tiles', then dx tiles'
+};
+
+// n_dx blocks: dx = T(dq wq^T + dk wk^T + dv wv^T) in 64 x 64 tiles,
+// k = 3C split dx_splits ways. n_dw blocks: the weight gradients, z = q,
+// k, v, o: grads_z[:C] = A_z^T B_z, grads_z[C] = column sums of B_z,
+// (A, B) = (x, dq | dk | dv) or (o, g), over the rows split `splits`
+// ways. Splits meet in split_fixup, in a fixed order. The kind whose
+// blocks run more k-tiles comes first in the grid, so that the shorter
+// ones fill the last wave.
+__global__ void __launch_bounds__(THREADS) bwd_tail_kernel(TailArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  using G = Wide;
+  constexpr int TILE = G::BM * G::BN;
+  const int C = a.C, rows = a.rows;
+  float acc[G::MI][G::NI][4];
+  const int id = blockIdx.x;
+  const bool dx = a.dx_first ? id < a.n_dx : id >= a.n_dw;
+  if (dx) {
+    const int b = a.dx_first ? id : id - a.n_dw;
+    const int s = b % a.dx_splits, tile = b / a.dx_splits;
+    const int mb = (tile / a.tn) * G::BM, nb = (tile % a.tn) * G::BN;
+    const int K = 3 * C, kt = (K + BK - 1) / BK;
+    const int kt0 = min(kt, s * a.dx_per), kt1 = min(kt, kt0 + a.dx_per);
+    gemm_tile<G, false, true>(
+        acc, ring, kt0, kt1,
+        [&](int r, int c, int k0) -> const bf16* {
+          return mb + r < rows && k0 + c < K ? a.dqkv + (size_t)(mb + r) * K + k0 + c : nullptr;
+        },
+        [&](int r, int c, int k0) -> const bf16* {
+          const int k = k0 + c;
+          return nb + r < C && k < K ? a.w[k / C] + (size_t)(nb + r) * C + k % C : nullptr;
+        },
+        [](const bf16*, int) {}, [] { tc::griddep_wait(); });
+    if (a.dx_splits > 1) {
+      float none[1];
+      if (!tc::split_fixup<THREADS, G::MI, G::NI, 0>(acc, none,
+                                                     a.dx_part + (size_t)tile * a.dx_splits * TILE,
+                                                     a.dx_splits, s, a.counters + a.dw_tiles + tile))
+        return;
+    }
+    for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+      if (row < rows && col < C) store2(a.dx + (size_t)row * C + col, tc::pack_bf16(v0, v1));
+    });
+    return;
+  }
+  const int b = a.dx_first ? id - a.n_dx : id, s = b % a.splits, tile = b / a.splits;
+  const int per_z = a.tn * a.tn, z = tile / per_z;
+  const int mb = ((tile % per_z) / a.tn) * G::BM, nb = (tile % a.tn) * G::BN;
+  const bf16* A = z < 3 ? a.x : a.o;
+  const bf16* B = z < 3 ? a.dqkv + z * C : a.g;
+  const int ldb = z < 3 ? 3 * C : C;
+  const int kt = (rows + BK - 1) / BK, kt0 = min(kt, s * a.per), kt1 = min(kt, kt0 + a.per);
+  // bias gradient: the tiles of the first row block also sum B's columns;
+  // thread t takes column t % 64 over half the k-tile's rows
+  const bool bias = mb == 0;
+  float cs[2] = {0.f, 0.f};
+  // B (dq | dk | dv, or g) and o come from the core kernel: x streams in
+  // before the wait, o after it
+  if (z == 3) tc::griddep_wait();
+  gemm_tile<G, true, false, true>(
+      acc, ring, kt0, kt1,
+      [&](int r, int c, int k0) -> const bf16* {
+        return k0 + r < rows && mb + c < C ? A + (size_t)(k0 + r) * C + mb + c : nullptr;
+      },
+      [&](int r, int c, int k0) -> const bf16* {
+        return k0 + r < rows && nb + c < C ? B + (size_t)(k0 + r) * ldb + nb + c : nullptr;
+      },
+      [&](const bf16* bs, int ld) {
+        if (!bias) return;
+        const int col = threadIdx.x % G::BN, r0 = (threadIdx.x / G::BN) * (BK / 2);
+#pragma unroll 8
+        for (int r = 0; r < BK / 2; ++r) cs[0] += to_f(bs[(r0 + r) * ld + col]);
+      },
+      [] { tc::griddep_wait(); });
+  if (a.splits > 1 &&
+      !tc::split_fixup<THREADS, G::MI, G::NI, 1>(
+          acc, cs, a.part + (size_t)tile * a.splits * (TILE + THREADS), a.splits, s,
+          a.counters + tile))
+    return;
+  float* out = a.grads + (size_t)z * (C + 1) * C;
+  for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+    if (row < C && col < C)
+      *reinterpret_cast<float2*>(out + (size_t)row * C + col) = make_float2(v0, v1);
+  });
+  if (bias) {
+    __shared__ float half[G::BN];
+    if (threadIdx.x >= G::BN) half[threadIdx.x - G::BN] = cs[0];
+    __syncthreads();
+    if (threadIdx.x < G::BN && nb + threadIdx.x < C)
+      out[(size_t)C * C + nb + threadIdx.x] = cs[0] + half[threadIdx.x];
+  }
+}
+
+struct TailPlan {
+  int tn, dw_tiles, splits, per, n_dw;
+  int dx_tiles, dx_splits, dx_per, n_dx;
+  size_t dw_floats, floats;  // split partials: dW's, then dx's
+};
+
+inline TailPlan tail_plan(int rows, int C) {
+  constexpr int TILE = Wide::BM * Wide::BN;
+  TailPlan p;
+  p.tn = (C + Wide::BN - 1) / Wide::BN;
+  p.dw_tiles = 4 * p.tn * p.tn;
+  const int kt = (rows + BK - 1) / BK, sms = sm_count();
+  int s = 1;
+  if (p.dw_tiles < 2 * sms) {  // two blocks per SM, >= 4 k-tiles each
+    s = (2 * sms + p.dw_tiles - 1) / p.dw_tiles;
+    s = s < kt / 4 ? s : kt / 4;
+    s = s > 1 ? s : 1;
+  }
+  p.per = (kt + s - 1) / s;
+  p.splits = (kt + p.per - 1) / p.per;
+  p.n_dw = p.dw_tiles * p.splits;
+  // dx: k = 3C in shares of at most 8 k-tiles, so no dx block outlasts
+  // the weight-gradient blocks by much
+  const int dx_kt = (3 * C + BK - 1) / BK;
+  p.dx_tiles = ((rows + Wide::BM - 1) / Wide::BM) * p.tn;
+  p.dx_per = dx_kt < 8 ? dx_kt : 8;
+  p.dx_splits = (dx_kt + p.dx_per - 1) / p.dx_per;
+  p.n_dx = p.dx_tiles * p.dx_splits;
+  p.dw_floats = p.splits > 1 ? (size_t)p.dw_tiles * p.splits * (TILE + THREADS) : 0;
+  p.floats = p.dw_floats + (p.dx_splits > 1 ? (size_t)p.dx_tiles * p.dx_splits * TILE : 0);
+  return p;
+}
+
+// split-K counters the wrapper keeps zeroed (the kernels leave them 0)
+constexpr int kCounters = 4096;
+
+// CTAs per cluster splitting each (window, head)'s forward projections
+// by columns: one per projection (q, k, v) when the grid would have fewer
+// (window, head) blocks than the card has SMs (batch 1 at C >= 256: one
+// SM alone issues a head's weight stream at a fraction of the memory's
+// rate), else 1.
+inline int cluster_size(int blocks) { return blocks < sm_count() ? 3 : 1; }
+
+// One launch of THREADS-thread blocks with one launch attribute: a
+// cluster shape, or programmatic dependent launch (the kernel may start
+// while the one before it on the stream finishes, and gates on
+// tc::griddep_wait).
+template <typename Kernel, typename Args>
+inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+                          cudaLaunchAttribute attr, const Args& args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
+inline cudaLaunchAttribute cluster_of(int cs) {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = cs;
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = 1;
+  return a;
+}
+
+inline cudaLaunchAttribute after_previous() {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = 1;
+  return a;
+}
+
+inline HeadArgs head_args(const void* x, const uint8_t* mask, const void* wq, const void* bq,
+                          const void* wk, const void* bk, const void* wv, const void* bv,
+                          const void* wo, const void* g, int L, int C, int heads) {
+  HeadArgs h{};
+  h.x = (const bf16*)x;
+  h.mask = mask;
+  h.w[0] = (const bf16*)wq; h.w[1] = (const bf16*)wk; h.w[2] = (const bf16*)wv;
+  h.w[3] = (const bf16*)wo;
+  h.b[0] = (const bf16*)bq; h.b[1] = (const bf16*)bk; h.b[2] = (const bf16*)bv;
+  h.g = (const bf16*)g;
+  h.L = L; h.C = C;
+  h.scale = 1.0f / sqrtf((float)(C / heads));
+  return h;
+}
+
+inline int forward(const void* x, const uint8_t* mask, const void* wq, const void* bq,
+                   const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
+                   const void* bo, int N, int L, int C, int heads, void* o, void* out,
+                   float* scratch, int* counters, cudaStream_t st) {
+  if (!takes(L, C / heads) || C % heads) return (int)cudaErrorInvalidValue;
+  HeadArgs h = head_args(x, mask, wq, bq, wk, bk, wv, bv, wo, nullptr, L, C, heads);
+  h.o = (bf16*)o;
+  h.cs = cluster_size(heads * N);
+  cudaError_t e = launch(fwd_core_kernel, dim3(heads * h.cs, N),
+                         h.cs == 1 ? FWD_SMEM : FWD_SMEM_CLUSTER, st, cluster_of(h.cs), h);
+  if (e != cudaSuccess) return (int)e;
+  const OutPlan p = out_plan(N * L, C);
+  if (p.splits > 1 && p.tiles > kCounters) return (int)cudaErrorInvalidValue;
+  const OutArgs oa{(const bf16*)o, (const bf16*)wo, (const bf16*)bo, (bf16*)out, N * L, C,
+                   p.splits, p.per, scratch, counters};
+  e = p.narrow ? launch(out_proj_kernel<Narrow>, p.grid, Narrow::smem<false, false>(), st,
+                        after_previous(), oa)
+               : launch(out_proj_kernel<Wide>, p.grid, Wide::smem<false, false>(), st,
+                        after_previous(), oa);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+inline int backward(const void* x, const uint8_t* mask, const void* g, const void* wq,
+                    const void* bq, const void* wk, const void* bk, const void* wv,
+                    const void* bv, const void* wo, int N, int L, int C, int heads, void* dx,
+                    void* o, void* dqkv, float* grads, float* scratch, int* counters,
+                    cudaStream_t st) {
+  if (!takes(L, C / heads) || C % heads) return (int)cudaErrorInvalidValue;
+  HeadArgs h = head_args(x, mask, wq, bq, wk, bk, wv, bv, wo, g, L, C, heads);
+  h.o = (bf16*)o;
+  h.dqkv = (bf16*)dqkv;
+  h.cs = 1;
+  cudaError_t e = launch(bwd_core_kernel, dim3(heads, N), BWD_SMEM, st, cluster_of(1), h);
+  if (e != cudaSuccess) return (int)e;
+  const TailPlan p = tail_plan(N * L, C);
+  if (p.dw_tiles + (p.dx_splits > 1 ? p.dx_tiles : 0) > kCounters)
+    return (int)cudaErrorInvalidValue;
+  TailArgs ta{};
+  ta.x = (const bf16*)x; ta.g = (const bf16*)g; ta.o = (const bf16*)o;
+  ta.dqkv = (const bf16*)dqkv;
+  ta.w[0] = (const bf16*)wq; ta.w[1] = (const bf16*)wk; ta.w[2] = (const bf16*)wv;
+  ta.dx = (bf16*)dx; ta.grads = grads; ta.rows = N * L; ta.C = C; ta.tn = p.tn;
+  ta.dx_splits = p.dx_splits; ta.dx_per = p.dx_per; ta.n_dx = p.n_dx;
+  ta.splits = p.splits; ta.per = p.per; ta.dw_tiles = p.dw_tiles;
+  ta.n_dw = p.n_dw; ta.dx_first = p.dx_per > p.per;
+  ta.part = scratch; ta.dx_part = scratch + p.dw_floats;
+  ta.counters = counters;
+  constexpr size_t sm = Wide::smem<true, false>() > Wide::smem<false, true>()
+                            ? Wide::smem<true, false>() : Wide::smem<false, true>();
+  e = launch(bwd_tail_kernel, dim3(p.n_dw + p.n_dx), sm, st, after_previous(), ta);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace wtc
+
 }  // namespace ldm
+
+// The route of a call: bfloat16 at head dim 32 and L <= 64 (every shape
+// of the UNet) runs on the tensor cores; float32, and bfloat16 at any
+// other shape, on the FMA tiles. It depends on the shape alone.
+static bool on_tensor_cores(int dtype, int L, int C, int heads) {
+  return dtype == 1 && heads > 0 && C % heads == 0 && ldm::wtc::takes(L, C / heads);
+}
+
+extern "C" int window_mha_tensor_cores(int dtype, int L, int C, int heads) {
+  return on_tensor_cores(dtype, L, C, heads);
+}
 
 extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, const void* wq,
                                   const void* bq, const void* wk, const void* bk,
                                   const void* wv, const void* bv, const void* wo,
                                   const void* bo, int N, int L, int C, int heads, void* qkv,
-                                  void* o, void* out, void* scratch, void* stream) {
+                                  void* o, void* out, void* scratch, void* counters,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (on_tensor_cores(dtype, L, C, heads))
+    return ldm::wtc::forward(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads, o, out,
+                             (float*)scratch, (int*)counters, st);
   if (dtype == 0)
     return ldm::window_mha<float>(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads, qkv, o,
                                   out, (float*)scratch, st);
@@ -363,25 +1219,34 @@ extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, co
 }
 
 // Shared memory one attention block needs, for the wrapper's check.
-extern "C" long long window_mha_smem_bytes(int L, int d) {
-  return (long long)ldm::attn_smem_bytes(L, d);
+extern "C" long long window_mha_smem_bytes(int dtype, int L, int C, int heads) {
+  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::FWD_SMEM_CLUSTER;
+  return (long long)ldm::attn_smem_bytes(L, C / heads);
 }
 
 // fp32 scratch (split partial sums) one call needs, for the wrapper.
-extern "C" long long window_mha_scratch_floats(int N, int L, int C) {
+extern "C" long long window_mha_scratch_floats(int dtype, int N, int L, int C, int heads) {
+  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::out_plan(N * L, C).floats;
   const size_t a = ldm::proj_plan(N * L, C, C, 3).floats;
   const size_t b = ldm::proj_plan(N * L, C, C, 1).floats;
   return (long long)(a > b ? a : b);
 }
+
+// int32 split counters the tensor-core route needs zeroed before its
+// first call; every call leaves them zero.
+extern "C" long long window_mha_counter_ints() { return ldm::wtc::kCounters; }
 
 extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, const void* g,
                                    const void* wq, const void* bq, const void* wk,
                                    const void* bk, const void* wv, const void* bv,
                                    const void* wo, int N, int L, int C, int heads, void* dx,
                                    void* qkv, void* o, void* dout, void* dqkv, void* grads,
-                                   void* scratch, void* stream) {
+                                   void* scratch, void* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (on_tensor_cores(dtype, L, C, heads))
+    return ldm::wtc::backward(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx, o, dqkv,
+                              (float*)grads, (float*)scratch, (int*)counters, st);
   if (dtype == 0)
     return ldm::window_mha_bwd<float>(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx,
                                       qkv, o, dout, dqkv, (float*)grads, (float*)scratch, st);
@@ -393,11 +1258,13 @@ extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, c
 }
 
 // Shared memory one backward attention block needs, for the wrapper's check.
-extern "C" long long window_mha_bwd_smem_bytes(int L, int d) {
-  return (long long)ldm::attn_bwd_smem_bytes(L, d);
+extern "C" long long window_mha_bwd_smem_bytes(int dtype, int L, int C, int heads) {
+  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::BWD_SMEM;
+  return (long long)ldm::attn_bwd_smem_bytes(L, C / heads);
 }
 
 // fp32 scratch (split partial sums) one backward call needs.
-extern "C" long long window_mha_bwd_scratch_floats(int N, int L, int C) {
+extern "C" long long window_mha_bwd_scratch_floats(int dtype, int N, int L, int C, int heads) {
+  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::tail_plan(N * L, C).floats;
   return (long long)ldm::attn_bwd_scratch_floats(N, L, C);
 }

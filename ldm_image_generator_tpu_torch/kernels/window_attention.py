@@ -8,27 +8,40 @@ window_attention.py:188) and, for gradients, ``window_mha_bwd_pallas``
     p       = T(softmax(q k^T / sqrt(d) - 1e9 * key_pad))   (fp32 scores)
     out     = T(T(p v) @ wo + bo)
 
-On the H100 (csrc/window_attention.cu): at the sampling shapes (36-token
-windows, or one 16-token map at C=1024) the call is bound by bytes, the
-four C x C projection weights; the scores are tiny (L x L per head). The
-design is three steps: one projection pass reading wq, wk and wv in
-place, one block per (window, head) that keeps q, k, v, the scores and
-the probabilities in shared memory (no online softmax is needed at
-L <= 64), and the output projection. At few rows the projections split
-k over blocks (with an elementwise pass summing the fp32 partials), as
-ffn_block does. The TPU kernel's head folding is a
-Mosaic workaround and is not carried over.
+On the H100 (csrc/window_attention.cu). What bounds a call: at the
+sampling shapes (36-token windows, or one 16-token map at C=1024),
+latency: the chain of dependent launches, the first bytes of the four
+C x C weights (0.1-8 MB) and a window's serial softmax; the scores are
+tiny (L x L per head, no online softmax needed at L <= 64). At the B=8
+training shapes, the projections' products.
 
-Backward (``window_mha_bwd``, window_mha_backward in the same source):
-recompute qkv, dO = T(g @ wo^T), one block per (window, head) that
-recomputes the probabilities and forms dv, dS, dq and dk in shared
-memory (q, k, v, dO, P and dP: 29 KB at L=36, d=32), dx as one product
-over the three projections rounded once, and the four weight gradients
-(bias gradients as their column sums) over the rows, split over blocks
-with a summing pass. At the training shapes it is bound by operations
-(the projections' products). ``window_mha`` is an autograd Function
-around both directions; the JAX package kept C=1024 on its XLA VJP (a
-Mosaic limit), the port has no such cap.
+bfloat16 runs every product on the tensor cores (mma.sync m16n8k16,
+fp32 accumulators, csrc/mma_common.cuh) in two launches each way:
+  forward: one CTA per (window, head) projects the window onto the
+    head's q, k, v columns (weights read in place through a ring of
+    cp.async stages) and runs the attention in shared memory; at batch 1
+    and C >= 256, where that gives fewer CTAs than SMs, a cluster of
+    three CTAs splits each head by projection. Then the output
+    projection, launched to overlap the first kernel's end, with k split
+    over blocks at few rows and the splits summed by the last block to
+    arrive, in a fixed order;
+  backward: one CTA per (window, head) recomputes q, k, v, projects
+    dO = T(g wo^T) for its head and forms o, dv, dS, dq, dk; then one
+    launch holding dx = T(dqkv [wq|wk|wv]^T) (rounded once) and the four
+    fp32 weight gradients (bias gradients as column sums), split over
+    the rows and summed in a fixed order, so reruns are bitwise equal.
+  It takes head dim 32 and L <= 64 (every shape of the UNet); other
+  bfloat16 shapes take the FMA path below, chosen by shape alone.
+float32 keeps the CUDA-core FMA path on purpose: TF32 tensor cores would
+break the fp32 gates (kernel vs plain at 1e-4, card vs CPU). It runs a
+qkv projection, one block per (window, head) holding q, k, v and the
+scores in fp32 shared memory, and the output projection (k split over
+blocks at few rows, with a summing pass); its backward recomputes qkv,
+dO, the per-head gradients, dx and the weight gradients in a chain of
+such passes. The TPU kernel's head folding is a Mosaic workaround and is
+not carried over. ``window_mha`` is an autograd Function around both
+directions; the JAX package kept C=1024 on its XLA VJP (a Mosaic
+limit), the port has no such cap.
 """
 from __future__ import annotations
 
@@ -80,6 +93,27 @@ def _check_mha_args(x, mask, weights, num_heads):
         raise ValueError(f"mask must be bool [{n}, {l}]")
 
 
+def _check_smem(smem: int, l: int, d: int, what: str) -> None:
+    """Raise when a block of the kernel cannot take (L, d)."""
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"L={l}, d={d} needs {smem} bytes of shared memory "
+                         f"per{what} block")
+
+
+# {device index: int32 split-K counters}: zero before a tensor-core call,
+# left zero by it (the last block of each split tile resets its counter)
+_counters: dict = {}
+
+
+def _split_counters(lib, device) -> torch.Tensor:
+    t = _counters.get(device.index)
+    if t is None:
+        t = torch.zeros(lib.window_mha_counter_ints(), dtype=torch.int32,
+                        device=device)
+        _counters[device.index] = t
+    return t
+
+
 def _window_mha_forward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
                         num_heads: int):
     """The plain version for CPU tensors, the kernel chain for CUDA
@@ -91,21 +125,24 @@ def _window_mha_forward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     n, l, c = x.shape
     code = _build.dtype_code(x)
     lib = _build.load("window_attention")
-    smem = lib.window_mha_smem_bytes(l, c // num_heads)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"L={l}, d={c // num_heads} needs {smem} bytes of "
-                         "shared memory per block")
-    qkv = torch.empty((n, l, 3 * c), dtype=x.dtype, device=x.device)
+    _check_smem(lib.window_mha_smem_bytes(code, l, c, num_heads), l,
+                c // num_heads, "")
+    # qkv: the FMA route's projection output (the tensor-core route keeps
+    # q, k, v of a head in shared memory)
+    tc = lib.window_mha_tensor_cores(code, l, c, num_heads)
+    qkv = torch.empty((0,) if tc else (n, l, 3 * c), dtype=x.dtype,
+                      device=x.device)
     o = torch.empty_like(x)
     out = torch.empty_like(x)
-    scratch = torch.empty(lib.window_mha_scratch_floats(n, l, c),
+    scratch = torch.empty(lib.window_mha_scratch_floats(code, n, l, c,
+                                                        num_heads),
                           dtype=torch.float32, device=x.device)
     p = _build.cuda_ptrs(x, wq, bq, wk, bk, wv, bv, wo, bo, qkv, o, out,
-                         scratch)
+                         scratch, _split_counters(lib, x.device))
     mask_ptr = None if mask is None else _build.cuda_ptrs(mask)[0]
     rc = lib.window_mha_forward(
-        code, p[0], mask_ptr, *p[1:9], n, l, c, num_heads, p[9], p[10],
-        p[11], p[12], _build.current_stream(),
+        code, p[0], mask_ptr, *p[1:9], n, l, c, num_heads, *p[9:],
+        _build.current_stream(),
     )
     _build.check(lib, rc, "window_mha")
     global launches
@@ -169,21 +206,23 @@ def window_mha_bwd(x, mask, g, wq, bq, wk, bk, wv, bv, wo, bo,
     n, l, c = x.shape
     code = _build.dtype_code(x)
     lib = _build.load("window_attention")
-    smem = lib.window_mha_bwd_smem_bytes(l, c // num_heads)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"L={l}, d={c // num_heads} needs {smem} bytes of "
-                         "shared memory per backward block")
+    _check_smem(lib.window_mha_bwd_smem_bytes(code, l, c, num_heads), l,
+                c // num_heads, " backward")
     like = dict(dtype=x.dtype, device=x.device)
+    # qkv and dO: the FMA route's intermediates (the tensor-core route
+    # keeps a head's q, k, v and dO in shared memory)
+    tc = lib.window_mha_tensor_cores(code, l, c, num_heads)
     dx = torch.empty_like(x)
-    qkv = torch.empty((n, l, 3 * c), **like)
+    qkv = torch.empty((0,) if tc else (n, l, 3 * c), **like)
     o = torch.empty_like(x)
-    dout = torch.empty_like(x)
+    dout = torch.empty((0,) if tc else tuple(x.shape), **like)
     dqkv = torch.empty((n, l, 3 * c), **like)
     grads = torch.empty(4 * (c + 1) * c, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(lib.window_mha_bwd_scratch_floats(n, l, c),
+    scratch = torch.empty(lib.window_mha_bwd_scratch_floats(code, n, l, c,
+                                                            num_heads),
                           dtype=torch.float32, device=x.device)
     p = _build.cuda_ptrs(x, g, wq, bq, wk, bk, wv, bv, wo, dx, qkv, o, dout,
-                         dqkv, grads, scratch)
+                         dqkv, grads, scratch, _split_counters(lib, x.device))
     mask_ptr = None if mask is None else _build.cuda_ptrs(mask)[0]
     rc = lib.window_mha_backward(code, p[0], mask_ptr, *p[1:9], n, l, c,
                                  num_heads, *p[9:], _build.current_stream())

@@ -6,9 +6,13 @@ without the repo's conftest:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_port_cuda.py
 """
+import dataclasses
+import math
+
 import pytest
 import torch
 
+from ldm_image_generator_tpu_torch.kernels import _build
 from ldm_image_generator_tpu_torch.kernels import block_core as tbc
 from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
 from ldm_image_generator_tpu_torch.kernels import vq as tvq
@@ -55,10 +59,26 @@ def card():
     return torch.device("cuda")
 
 
+# window MHA tiling edges: rows (n L) 108 and 16, neither a multiple of
+# 64 (108 not of 16); C=64 with 2 heads; masked and unmasked; C=1024 with
+# 32 heads at L=16 comes from path_calls. Then shapes the bf16
+# tensor-core route does not take, which run the FMA route in both
+# types: head dim 64, L=80, head dim 16 (C=16, one head).
+MHA_EDGES = [
+    Call("window_mha", 1, 0, 64, 1, n=3, l=36, heads=2, masked=True),
+    Call("window_mha", 1, 0, 64, 1, n=3, l=36, heads=2),
+    Call("window_mha", 1, 0, 64, 1, n=1, l=16, heads=2),
+    Call("window_mha", 1, 0, 1024, 1, n=3, l=36, heads=32, masked=True),
+]
+MHA_FMA_ONLY = [
+    Call("window_mha", 1, 0, 128, 1, n=2, l=36, heads=2, masked=True),
+    Call("window_mha", 1, 0, 64, 1, n=2, l=80, heads=2),
+    Call("window_mha", 1, 0, 16, 1, n=3, l=36, heads=1, masked=True),
+]
+MHA_EDGES += MHA_FMA_ONLY
 CALLS = [c for c in path_calls(1) + path_calls(4)] + [
     Call("block_core", 2, 5, 64, 1),        # odd map, C below 128, 2 images
-    Call("window_mha", 1, 0, 64, 1, n=3, l=36, heads=2, masked=True),
-]
+] + MHA_EDGES
 
 
 @pytest.mark.cuda
@@ -86,8 +106,8 @@ def test_kernel_matches_plain(card, call, dtype):
 # workloads.BWD_REL (which says why)
 BWD_CALLS = [c for c in train_calls(8) if c.kernel.endswith("_bwd")] + [
     Call("ffn_block_bwd", 1, 5, 64, 1),     # ragged N, C below 128
-    Call("window_mha_bwd", 1, 0, 64, 1, n=3, l=36, heads=2, masked=True),
-]
+] + [dataclasses.replace(c, kernel="window_mha_bwd")
+     for c in MHA_EDGES + [Call("window_mha", 1, 0, 1024, 1, n=1, l=16, heads=32)]]
 
 
 @pytest.mark.cuda
@@ -111,6 +131,133 @@ def test_backward_kernel_matches_plain(card, call, dtype):
         rel = bwd_scale_err(g, w)
         print(call.kernel, call.label, dtype, i, rel)
         assert rel <= BWD_REL[dtype], (i, rel)
+
+
+# every window MHA shape: the sampling paths (batch 1 and 4; clusters of
+# 3 CTAs and split output projections), the B=8 train step (split weight
+# gradients and dx) and the edges above
+MHA_SHAPES = [c for c in path_calls(1) + path_calls(4) + path_calls(8)
+              if c.kernel == "window_mha"] + MHA_EDGES
+
+
+def _mha_call(direction, call, dtype, device, gen):
+    """Inputs of the window MHA forward or backward at call, and the
+    function that runs it on them."""
+    if direction == "backward":
+        call = dataclasses.replace(call, kernel="window_mha_bwd")
+        return make_inputs(call, dtype, device, gen), lambda *a: tattn.window_mha_bwd(
+            *a, num_heads=call.heads)
+    return make_inputs(call, dtype, device, gen), lambda *a: tattn.window_mha(
+        *a, num_heads=call.heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("call", MHA_SHAPES, ids=lambda c: c.label)
+def test_window_mha_reruns_bitwise_equal(card, call, direction):
+    """bf16 window MHA three times on the same inputs: every output has
+    the same bits, the fp32 weight gradients (rows split over blocks,
+    summed in a fixed order by the last block of each tile) included."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    args, fn = _mha_call(direction, call, torch.bfloat16, card, gen)
+    first = fn(*args)
+    first = first if isinstance(first, tuple) else (first,)
+    for _ in range(2):
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        for i, (a, b) in enumerate(zip(first, again)):
+            assert torch.equal(a, b), i
+
+
+GUARD = 1 << 16   # elements of sentinel on each side of a guarded buffer
+SENTINEL = 0xA5   # every byte of a guard
+
+
+class _GuardedBuffers:
+    """Stand-ins for torch.empty, torch.empty_like and torch.zeros that
+    place each tensor inside a larger buffer whose ends hold a sentinel,
+    so that a kernel's write past either end of its buffer shows."""
+
+    def __init__(self):
+        self.empty, self.zeros = torch.empty, torch.zeros
+        self.made = []  # (buffer, numel, zeroed)
+
+    def make(self, shape, dtype, device, zeroed=False):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        numel = math.prod(shape)
+        buf = self.empty(numel + 2 * GUARD, dtype=dtype, device=device)
+        buf.view(torch.uint8).fill_(SENTINEL)
+        inner = buf[GUARD:GUARD + numel]
+        if zeroed:
+            inner.zero_()
+        self.made.append((buf, numel, zeroed))
+        return inner.view(shape)
+
+    def install(self, monkeypatch):
+        monkeypatch.setattr(torch, "empty",
+                            lambda shape, dtype, device: self.make(shape, dtype, device))
+        monkeypatch.setattr(torch, "empty_like",
+                            lambda t: self.make(t.shape, t.dtype, t.device))
+        monkeypatch.setattr(torch, "zeros",
+                            lambda shape, dtype, device: self.make(shape, dtype, device, True))
+
+    def faults(self) -> list:
+        """(buffer index, what) for each guard written and each zeroed
+        buffer (the split counters) not left zero."""
+        out = []
+        for i, (buf, numel, zeroed) in enumerate(self.made):
+            raw = buf.view(torch.uint8)
+            edge = GUARD * buf.element_size()
+            if not bool((raw[:edge] == SENTINEL).all()):
+                out.append((i, "before"))
+            if not bool((raw[raw.numel() - edge:] == SENTINEL).all()):
+                out.append((i, "after"))
+            if zeroed and bool((buf[GUARD:GUARD + numel] != 0).any()):
+                out.append((i, "not left zero"))
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("call", MHA_SHAPES, ids=lambda c: c.label)
+def test_window_mha_writes_only_inside_its_buffers(card, monkeypatch, call, direction,
+                                                  dtype):
+    """Every buffer the wrapper allocates (outputs, intermediates, split
+    partials, split counters) lies between guards of a sentinel: after the
+    call (launch checked, device synchronised) no guard has changed, the
+    split counters are back to 0 and the result equals the plain
+    version's."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    args, fn = _mha_call(direction, call, dtype, card, gen)
+    guarded = _GuardedBuffers()
+    monkeypatch.setattr(tattn, "_counters", {})
+    guarded.install(monkeypatch)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert guarded.made and guarded.faults() == []
+    plain = tattn.window_mha_bwd_plain if direction == "backward" else tattn.window_mha_plain
+    want = plain(*args, num_heads=call.heads)
+    if direction == "backward":
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert bwd_scale_err(g, w) <= BWD_REL[dtype], i
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_window_mha_route_depends_on_shape_alone(card):
+    """bf16 runs the tensor-core route at every window MHA shape of the
+    UNet (head dim 32, L <= 64) and the FMA route elsewhere; fp32 always
+    runs the FMA route."""
+    lib = _build.load("window_attention")
+    unet = [c for c in path_calls(1) + path_calls(4) + path_calls(8)
+            if c.kernel == "window_mha"]
+    for c in unet + MHA_EDGES:
+        tc = lib.window_mha_tensor_cores(1, c.l, c.c, c.heads)
+        assert tc == (c not in MHA_FMA_ONLY), c.label
+        assert lib.window_mha_tensor_cores(0, c.l, c.c, c.heads) == 0, c.label
 
 
 def _grads(fn, leaves, cotangents):
