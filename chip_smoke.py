@@ -9,13 +9,14 @@ no result line):
      parallel); print the build seconds and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version at every call
      shape of the sampling path (batch 1 and 4, plus block_core at latent
-     64) and, for the two backward kernels and the window MHA forward, of
-     the training path (batch 8), in fp32 with TF32 off and in bf16; time
-     kernel, plain version and (window MHA, forward and backward) the
-     one-call PyTorch equivalent with a cold L2, printing kernel/library
-     and bound/kernel per row and per step of each path; hold
-     block_core's gradients through the card path against autograd
-     through its plain version (B=1 shapes);
+     64) and, for the two backward kernels and the window MHA and
+     ffn_block forwards, of the training path (batch 8), in fp32 with
+     TF32 off and in bf16; time kernel, plain version and (window MHA,
+     forward and backward) the one-call PyTorch equivalent with a cold
+     L2, printing bound/kernel (and kernel/library) per row and per step
+     of each path of window MHA and the FFN kernels; hold block_core's
+     gradients through the card path against autograd through its plain
+     version (B=1 shapes);
   3. sample one 256px image with the default UNet and VAE decoder (seeded
      random weights, 20 DDIM steps, bf16): launch counts must be exactly
      720 block_core and 160 window MHA; then images/s;
@@ -259,9 +260,10 @@ def phase_kernels(dev, reps: int) -> dict:
     cross = [swap(c, "ffn_block") for c in b1 if c.kernel == "block_core"] + [
         swap(c, "block_core") for c in b4 if c.kernel == "ffn_block"]
     latent64 = [c for c in path_calls(1, latent=64) if c.kernel == "block_core"]
-    # the backward kernels and the window MHA forward of a train step
+    # the backward kernels and the window MHA and ffn_block forwards of a
+    # train step
     train = [c for c in train_calls(TRAIN_BATCH)
-             if c.kernel.endswith("_bwd") or c.kernel == "window_mha"]
+             if c.kernel.endswith("_bwd") or c.kernel in ("window_mha", "ffn_block")]
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
@@ -334,19 +336,21 @@ def phase_kernels(dev, reps: int) -> dict:
                 "vq": "vae_train"}
     step_name = {"train": "train step at B=8",
                  "vae_train": f"VAE train step at B={VAE_BATCH}"}
-    # window MHA per step of every path it is on: kernel, library, bound
-    for name in ("window_mha", "window_mha_bwd"):
+    # window MHA and the FFN kernels per step of every path they are on:
+    # kernel, library (where there is one), bound
+    for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
         for tag in ("b1", "b4", "train"):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
-            step = {k: sum(r[k] * r["per_step"] for r in rs)
-                    for k in ("ms", "library_ms", "bound_ms")}
-            log(f"{name} {tag} per step: kernel {step['ms']:.4f} ms, library "
-                f"{step['library_ms']:.4f} ms (kernel/library "
-                f"{step['ms'] / step['library_ms']:.3f}), bound "
-                f"{step['bound_ms']:.5f} ms (bound/kernel "
-                f"{step['bound_ms'] / step['ms']:.4f})")
+            step = lambda k: sum(r[k] * r["per_step"] for r in rs)
+            ms, bms = step("ms"), step("bound_ms")
+            lib = ""
+            if rs[0]["library_ms"] is not None:
+                lib_ms = step("library_ms")
+                lib = f", library {lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f})"
+            log(f"{name} {tag} per step: kernel {ms:.4f} ms{lib}, bound "
+                f"{bms:.5f} ms (bound/kernel {bms / ms:.4f})")
     summary = {}
     for name in fns:
         main = [r for r in rows if r["kernel"] == name and r["tag"] == main_tag[name]]

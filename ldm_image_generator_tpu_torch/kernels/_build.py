@@ -114,15 +114,19 @@ _SIGNATURES = {
         "ffn_scratch_floats": ([_I] * 3, _LL),
     },
     "ffn_block": {
+        "ffn_tensor_cores": ([_I] * 4, _I),
         "ffn_block_forward": ([_I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P]
-                              + [_I] * 3 + [_P] * 5, _I),
-        "ffn_scratch_floats": ([_I] * 3, _LL),
+                              + [_I] * 3 + [_P] * 6, _I),
+        "ffn_block_scratch_floats": ([_I] * 4, _LL),
+        "ffn_counter_ints": ([], _LL),
     },
     "ffn_block_bwd": {
         "ffn_block_backward": ([_I] + [_P] * 12 + [_I, _P] + [_I] * 3
-                               + [_P] * 5, _I),
+                               + [_P] * 6, _I),
         "ffn_bwd_grad_floats": ([_I] * 2, _LL),
-        "ffn_bwd_scratch_floats": ([_I] * 3, _LL),
+        "ffn_bwd_scratch_floats": ([_I] * 4, _LL),
+        "ffn_tensor_cores": ([_I] * 4, _I),
+        "ffn_counter_ints": ([], _LL),
     },
     "window_attention": {
         "window_mha_tensor_cores": ([_I] * 4, _I),

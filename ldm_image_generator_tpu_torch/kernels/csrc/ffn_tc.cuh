@@ -1,0 +1,190 @@
+// Tensor-core route of the SwinBlock FFN (bfloat16), shared by
+// ffn_block.cu (forward) and ffn_block_bwd.cu (backward): tile shapes,
+// the route's shape rule, the split-K plan and the gate product
+// h @ [wa | wb] with its epilogue's element order.
+//
+// Every product is mma.sync m16n8k16 (bf16 in, fp32 accumulators) on 64 x
+// 64 block tiles of four warps, operands streamed through a ring of
+// cp.async stages (mma_common.cuh). k is split over blocks only where the
+// grid has fewer blocks than two per SM, and the splits meet in
+// tc::split_fixup (fixed order, no second launch), so reruns are bitwise
+// equal. The split counters live in a buffer the wrapper keeps zeroed;
+// every call leaves them zero.
+//
+// The gate tile holds 64 rows by 64 hidden columns of both a = h @ wa and
+// b = h @ wb as one 64 x 128 product: its B tile interleaves wa's and wb's
+// columns in 8-column chunks (tile column 16 q + e is wa's column 8 q + e
+// for e < 8, wb's column 8 q + e - 8 otherwise), so that each thread holds
+// a and b of the same elements, and the h tile is read once for both.
+#pragma once
+
+#include "ffn_common.cuh"
+#include "mma_common.cuh"
+
+namespace ldm {
+namespace ftc {
+
+using tc::BK;
+using tc::Gemm;
+using tc::THREADS;
+using tc::bf16;
+
+// Block tiles: a ring of 3 k-tiles where the blocks are compute-bound
+// (the backward), 4 where they wait on device memory (the forward, whose
+// gate takes 2 when each block runs at most 2 k-tiles: twice the blocks
+// per SM).
+template <int STAGES>
+using GateTile = Gemm<64, 128, 2, 2, STAGES>;  // h @ [wa | wb], 64 hidden columns
+using GateG = GateTile<3>;
+using Tile = Gemm<64, 64, 2, 2, 3>;            // every other product
+constexpr int HN = 64;                         // hidden columns of a gate tile
+constexpr int TILE_F = Tile::MI * Tile::NI * 4 * THREADS;     // fp32 per split of a tile
+constexpr int GATE_F = GateG::MI * GateG::NI * 4 * THREADS;   // ... of a gate tile
+
+// split counters the wrapper keeps zeroed: a plan uses at most four times
+// the SM count (only tiles with fewer blocks than two per SM split)
+constexpr int kCounters = 4096;
+
+// 8-element chunks of a row each lane of norm_film_rows_kernel holds
+constexpr int kNormChunks = 4;
+
+// The shapes the route takes: C and M multiples of 64, C <= 1024 (every
+// UNet width, 128-1024), any row count.
+__host__ __device__ inline bool takes(int N, int C, int M) {
+  return N >= 1 && C >= BK && M >= BK && C % BK == 0 && M % BK == 0 &&
+         C <= 32 * 8 * kNormChunks;
+}
+
+// h = T(channel_norm(x) * mul + bias) as norm_film_kernel computes it, for
+// the shapes takes() accepts: one warp per row holds the row in registers
+// (16-byte loads, one pass over x), so a row costs a few load latencies,
+// not C / 32 dependent ones. A programmatic dependent launch after it may
+// start at once. 256 threads a block.
+__global__ void __launch_bounds__(256)
+norm_film_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ mul,
+                      const bf16* __restrict__ bias, int rows, int C, int film_rows, float eps,
+                      bf16* __restrict__ h) {
+  tc::griddep_launch();
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int chunks = C / 8;
+  float v[kNormChunks][8];
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < kNormChunks; ++u) {
+    const int c = 8 * (lane + 32 * u);
+    if (c >= C) continue;
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)row * C + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s += v[u][k] = to_f(e[k]);
+  }
+  const float mean = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int u = 0; u < kNormChunks; ++u) {
+    if (lane + 32 * u >= chunks) continue;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q += (v[u][k] - mean) * (v[u][k] - mean);
+  }
+  const float rs = rsqrtf(warp_sum(q) / (C - 1) + eps);
+  const size_t fr = (size_t)(row % film_rows) * C;
+#pragma unroll
+  for (int u = 0; u < kNormChunks; ++u) {
+    const int c = 8 * (lane + 32 * u);
+    if (c >= C) continue;
+    const uint4 mr = *reinterpret_cast<const uint4*>(mul + fr + c);
+    const uint4 br = *reinterpret_cast<const uint4*>(bias + fr + c);
+    const bf16 *m = reinterpret_cast<const bf16*>(&mr), *b = reinterpret_cast<const bf16*>(&br);
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float h0 = (v[u][2 * k] - mean) * rs * to_f(m[2 * k]) + to_f(b[2 * k]);
+      const float h1 = (v[u][2 * k + 1] - mean) * rs * to_f(m[2 * k + 1]) + to_f(b[2 * k + 1]);
+      o[k] = tc::pack_bf16(h0, h1);
+    }
+    *reinterpret_cast<uint4*>(h + (size_t)row * C + c) = out;
+  }
+}
+
+// k-tiles split over blocks: until the grid has two blocks per SM, with
+// at least 4 k-tiles each.
+inline Split split_k(int tiles, int kt) {
+  const int sms = tc::sm_count();
+  int s = 1;
+  if (tiles < 2 * sms) {
+    s = (2 * sms + tiles - 1) / tiles;
+    s = s < kt / 4 ? s : kt / 4;
+    s = s > 1 ? s : 1;
+  }
+  const int per = (kt + s - 1) / s;
+  return Split{(kt + per - 1) / per, per};
+}
+
+// acc = h[mb.., k-tiles kt0..kt1) @ [wa | wb][.., hidden nbh..nbh + 64),
+// interleaved as above; wa, wb [C, M]. gate() as tc::gemm_tile's (the
+// weights stream first, h after it).
+template <class G, class Gate>
+__device__ __forceinline__ void ab_tile(float (&acc)[G::MI][G::NI][4], bf16* ring,
+                                        const bf16* h, int N, int C, int M, const bf16* wa,
+                                        const bf16* wb, int mb, int nbh, int kt0, int kt1,
+                                        Gate gate) {
+  tc::gemm_tile<G, false, false>(
+      acc, ring, kt0, kt1,
+      [&](int r, int c, int k0) -> const bf16* {
+        return mb + r < N ? h + (size_t)(mb + r) * C + k0 + c : nullptr;
+      },
+      [&](int r, int c, int k0) -> const bf16* {
+        return ((c & 8) ? wb : wa) + (size_t)(k0 + r) * M + nbh + (c >> 4) * 8;
+      },
+      [](const bf16*, int) {}, gate);
+}
+
+// Loads the biases of a tile's 64 columns before its k-loop (they are
+// inputs: nothing waits for them), one per thread (v0 for threads 0-63,
+// v1 for 64-127), and after it, with every thread, makes them readable as
+// at(0 or 1, column - tile column 0) from shared memory.
+struct TileBias {
+  float* s;  // [2][HN] shared
+  float r;
+  __device__ __forceinline__ void share() {
+    s[threadIdx.x] = r;
+    __syncthreads();
+  }
+  __device__ __forceinline__ float at(int which, int c) const { return s[which * HN + c]; }
+};
+static_assert(THREADS == 2 * HN, "one bias per thread");
+
+// Calls f(i, q, h, row, col) for this thread's element pairs (row,
+// col..col+1) of the gate tile at (mb, nbh): a is acc[i][2 q][2 h..],
+// b acc[i][2 q + 1][2 h..], and a Tile product's acc[i][q][2 h..] holds
+// the same elements.
+template <class F>
+__device__ __forceinline__ void for_gate_pairs(int mb, int nbh, F f) {
+  static_assert(GateG::MI == Tile::MI && GateG::NI == 2 * Tile::NI, "gate and Tile layouts");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = mb + (warp / GateG::WN) * (GateG::BM / GateG::WM);
+  const int c0 = nbh + (warp % GateG::WN) * (HN / GateG::WN) + 2 * t;
+#pragma unroll
+  for (int i = 0; i < GateG::MI; ++i)
+#pragma unroll
+    for (int q = 0; q < Tile::NI; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) f(i, q, h, m0 + 16 * i + g + 8 * h, c0 + 8 * q);
+}
+
+}  // namespace ftc
+}  // namespace ldm
+
+// The route of a call (both directions): bfloat16 at widths the
+// tensor-core kernels take (every UNet shape) runs on them; float32, and
+// bfloat16 at any other width, on the FMA chain. It depends on the shape
+// alone.
+extern "C" int ffn_tensor_cores(int dtype, int N, int C, int M) {
+  return dtype == 1 && ldm::ftc::takes(N, C, M);
+}
+
+// int32 split counters the tensor-core route needs zeroed before its
+// first call; every call leaves them zero.
+extern "C" long long ffn_counter_ints() { return ldm::ftc::kCounters; }

@@ -9,6 +9,11 @@
 // products is the weight stream from device memory, so the ring's depth
 // (bytes in flight per SM), not the instruction, sets their speed.
 //
+// Gemm and gemm_tile below are the block-tile products of the weight
+// projections (window MHA's output projection and backward tail, the FFN
+// kernels of ffn_tc.cuh): a 4-warp block's BM x BN tile over 64-deep
+// k-tiles, with split_fixup for split-K.
+//
 // Layouts. A tile is copied into shared memory as it lies in device
 // memory (16-byte chunks along the contiguous dimension), with rows
 // padded by 8 elements (16 bytes) so that the eight row addresses of an
@@ -271,6 +276,125 @@ __device__ __forceinline__ bool split_fixup(float (&acc)[MI][NI][4], float (&ext
   }
   if (threadIdx.x == 0) *counter = 0;
   return true;
+}
+
+__device__ __forceinline__ void store2(bf16* p, uint32_t v) { *reinterpret_cast<uint32_t*>(p) = v; }
+
+// Block tiles of a product: four warps, 64-deep k-tiles.
+constexpr int THREADS = 128;
+constexpr int BK = 64;
+
+// A block's tile of a product, BM x BN with the 4 warps in WM x WN, and a
+// ring of STAGES k-tiles.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
+struct Gemm {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, NSTAGE = STAGES_;
+  static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
+  static_assert(WM * WN * 32 == THREADS, "four warps");
+  template <bool A_T>
+  __host__ __device__ static constexpr int lda() { return A_T ? BM + 8 : BK + 8; }
+  template <bool B_T>
+  __host__ __device__ static constexpr int ldb() { return B_T ? BK + 8 : BN + 8; }
+  template <bool A_T>
+  __host__ __device__ static constexpr int a_el() { return (A_T ? BK : BM) * lda<A_T>(); }
+  template <bool B_T>
+  __host__ __device__ static constexpr int b_el() { return (B_T ? BN : BK) * ldb<B_T>(); }
+  template <bool A_T, bool B_T>
+  __host__ __device__ static constexpr size_t smem() {
+    return 2 * (size_t)NSTAGE * (a_el<A_T>() + b_el<B_T>());
+  }
+};
+
+// acc = A[m rows of the tile, k-tiles kt0..kt1) B[.., n cols of the
+// tile]. srcA(r, c, k0) / srcB(r, c, k0) address element (r, c..c+7) of
+// the tile as stored (A_T: [k][m], else [m][k]; B_T: [n][k], else
+// [k][n]) for the k-tile at k0, or return nullptr for zeros. after(Bs,
+// ldb) runs on each landed B tile. gate() runs once the first tiles of
+// one operand (B, or A with A_FIRST) are in flight and before any copy of
+// the other (pipeline).
+template <class G, bool A_T, bool B_T, bool A_FIRST = false, class SrcA, class SrcB, class After,
+          class Gate>
+__device__ __forceinline__ void gemm_tile(float (&acc)[G::MI][G::NI][4], bf16* ring, int kt0,
+                                          int kt1, SrcA srcA, SrcB srcB, After after, Gate gate) {
+  constexpr int LA = G::template lda<A_T>(), LB = G::template ldb<B_T>();
+  constexpr int AE = G::template a_el<A_T>(), SE = AE + G::template b_el<B_T>();
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp / G::WN) * (G::BM / G::WM), n0 = (warp % G::WN) * (G::BN / G::WN);
+  zero<G::MI, G::NI>(acc);
+  auto load_b = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    load_tile<B_T ? G::BN : BK, B_T ? BK : G::BN, THREADS>(
+        ring + buf * SE + AE, LB, B_T ? G::BN : BK, [&](int r, int c) { return srcB(r, c, k0); });
+  };
+  auto load_a = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    load_tile<A_T ? BK : G::BM, A_T ? G::BM : BK, THREADS>(
+        ring + buf * SE, LA, A_T ? BK : G::BM, [&](int r, int c) { return srcA(r, c, k0); });
+  };
+  auto compute = [&](int buf) {
+    const bf16* as = ring + buf * SE;
+    warp_mma<G::MI, G::NI, A_T, B_T>(acc, as, LA, as + AE, LB, m0, n0, BK);
+    after(as + AE, LB);
+  };
+  if (A_FIRST) pipeline<G::NSTAGE>(kt1 - kt0, load_a, gate, load_b, compute);
+  else pipeline<G::NSTAGE>(kt1 - kt0, load_b, gate, load_a, compute);
+}
+
+// Calls f(row, col, v0, v1) for the accumulator pairs (row, col..col+1)
+// of this thread, in the tile at (mb, nb).
+template <class G, class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[G::MI][G::NI][4], int mb, int nb,
+                                          F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = mb + (warp / G::WN) * (G::BM / G::WM), n0 = nb + (warp % G::WN) * (G::BN / G::WN);
+#pragma unroll
+  for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(m0 + 16 * i + g + 8 * h, n0 + 8 * j + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+}
+
+// Streaming multiprocessors of the current device (132 on the H100),
+// read once; the launch plans fill the card by it.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      n = count;
+  }
+  return n > 0 ? n : 1;
+}
+
+// One launch of THREADS-thread blocks with one launch attribute: a
+// cluster shape, or programmatic dependent launch (the kernel may start
+// while the one before it on the stream finishes, and gates on
+// griddep_wait).
+template <typename Kernel, typename Args>
+inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+                          cudaLaunchAttribute attr, const Args& args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
+// Programmatic dependent launch after the previous kernel on the stream
+// (overlap = true), or plain stream order (false).
+inline cudaLaunchAttribute after_previous(bool overlap = true) {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = overlap ? 1 : 0;
+  return a;
 }
 
 }  // namespace tc

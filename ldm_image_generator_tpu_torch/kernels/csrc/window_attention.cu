@@ -389,8 +389,9 @@ using tc::bf16;
 
 constexpr int D = 32;        // head width this route takes
 constexpr int LMAX = 64;     // tokens per window it takes
-constexpr int THREADS = 128;
-constexpr int BK = 64;       // k-tile depth
+using tc::BK;       // k-tile depth (64)
+using tc::THREADS;  // 128
+using tc::store2;
 constexpr int STAGES = 3;
 constexpr int QKV = 3 * D;   // one head's q, k, v columns
 // shared-memory leading dimensions (elements), rows padded by 8
@@ -442,8 +443,6 @@ struct KeyPad {
     return (uint64_t)__ballot_sync(0xffffffffu, lo) | (uint64_t)__ballot_sync(0xffffffffu, hi) << 32;
   }
 };
-
-__device__ __forceinline__ void store2(bf16* p, uint32_t v) { *reinterpret_cast<uint32_t*>(p) = v; }
 
 // NSEG of the head's q, k, v column segments (d columns each, from
 // segment `first` on) of window n: T(x_n @ w[:, cols] + b), rows >= L
@@ -772,80 +771,11 @@ __global__ void __launch_bounds__(THREADS) bwd_core_kernel(HeadArgs a) {
   }
 }
 
-// A block's tile of a product, BM x BN with 4 warps in WM x WN.
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
-struct Gemm {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, NSTAGE = STAGES_;
-  static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;
-  static_assert(WM * WN * 32 == THREADS, "four warps");
-  template <bool A_T>
-  __host__ __device__ static constexpr int lda() { return A_T ? BM + 8 : BK + 8; }
-  template <bool B_T>
-  __host__ __device__ static constexpr int ldb() { return B_T ? BK + 8 : BN + 8; }
-  template <bool A_T>
-  __host__ __device__ static constexpr int a_el() { return (A_T ? BK : BM) * lda<A_T>(); }
-  template <bool B_T>
-  __host__ __device__ static constexpr int b_el() { return (B_T ? BN : BK) * ldb<B_T>(); }
-  template <bool A_T, bool B_T>
-  __host__ __device__ static constexpr size_t smem() {
-    return 2 * (size_t)NSTAGE * (a_el<A_T>() + b_el<B_T>());
-  }
-};
+using tc::Gemm;
+using tc::for_pairs;
+using tc::gemm_tile;
 using Wide = Gemm<64, 64, 2, 2, 3>;    // many rows
 using Narrow = Gemm<16, 32, 1, 4, 6>;  // few rows: more blocks, deeper ring
-
-// acc = A[m rows of the tile, k-tiles kt0..kt1) B[.., n cols of the
-// tile]. srcA(r, c, k0) / srcB(r, c, k0) address element (r, c..c+7) of
-// the tile as stored (A_T: [k][m], else [m][k]; B_T: [n][k], else
-// [k][n]) for the k-tile at k0, or return nullptr for zeros. after(Bs,
-// ldb) runs on each landed B tile. gate() runs once the first tiles of
-// one operand (B, or A with A_FIRST) are in flight and before any copy of
-// the other (tc::pipeline).
-template <class G, bool A_T, bool B_T, bool A_FIRST = false, class SrcA, class SrcB, class After,
-          class Gate>
-__device__ __forceinline__ void gemm_tile(float (&acc)[G::MI][G::NI][4], bf16* ring, int kt0,
-                                          int kt1, SrcA srcA, SrcB srcB, After after, Gate gate) {
-  constexpr int LA = G::template lda<A_T>(), LB = G::template ldb<B_T>();
-  constexpr int AE = G::template a_el<A_T>(), SE = AE + G::template b_el<B_T>();
-  const int warp = threadIdx.x >> 5;
-  const int m0 = (warp / G::WN) * (G::BM / G::WM), n0 = (warp % G::WN) * (G::BN / G::WN);
-  tc::zero<G::MI, G::NI>(acc);
-  auto load_b = [&](int buf, int i) {
-    const int k0 = (kt0 + i) * BK;
-    tc::load_tile<B_T ? G::BN : BK, B_T ? BK : G::BN, THREADS>(ring + buf * SE + AE, LB,
-                                                              B_T ? G::BN : BK,
-                                             [&](int r, int c) { return srcB(r, c, k0); });
-  };
-  auto load_a = [&](int buf, int i) {
-    const int k0 = (kt0 + i) * BK;
-    tc::load_tile<A_T ? BK : G::BM, A_T ? G::BM : BK, THREADS>(ring + buf * SE, LA,
-                                                              A_T ? BK : G::BM,
-                                             [&](int r, int c) { return srcA(r, c, k0); });
-  };
-  auto compute = [&](int buf) {
-    const bf16* as = ring + buf * SE;
-    tc::warp_mma<G::MI, G::NI, A_T, B_T>(acc, as, LA, as + AE, LB, m0, n0, BK);
-    after(as + AE, LB);
-  };
-  if (A_FIRST) tc::pipeline<G::NSTAGE>(kt1 - kt0, load_a, gate, load_b, compute);
-  else tc::pipeline<G::NSTAGE>(kt1 - kt0, load_b, gate, load_a, compute);
-}
-
-// Calls f(row, col, v0, v1) for the accumulator pairs (row, col..col+1)
-// of this thread, in the tile at (mb, nb).
-template <class G, class F>
-__device__ __forceinline__ void for_pairs(const float (&acc)[G::MI][G::NI][4], int mb, int nb,
-                                          F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = mb + (warp / G::WN) * (G::BM / G::WM), n0 = nb + (warp % G::WN) * (G::BN / G::WN);
-#pragma unroll
-  for (int i = 0; i < G::MI; ++i)
-#pragma unroll
-    for (int j = 0; j < G::NI; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(m0 + 16 * i + g + 8 * h, n0 + 8 * j + 2 * t, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-}
 
 struct OutArgs {
   const bf16* o;   // [rows, C]
@@ -890,18 +820,7 @@ __global__ void __launch_bounds__(THREADS) out_proj_kernel(OutArgs a) {
   });
 }
 
-// Streaming multiprocessors of the current device (132 on the H100),
-// read once; the launch plans below fill the card by it.
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0, count = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess &&
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
-      n = count;
-  }
-  return n > 0 ? n : 1;
-}
+using tc::sm_count;
 
 struct OutPlan {
   bool narrow;
@@ -1080,24 +999,8 @@ constexpr int kCounters = 4096;
 // rate), else 1.
 inline int cluster_size(int blocks) { return blocks < sm_count() ? 3 : 1; }
 
-// One launch of THREADS-thread blocks with one launch attribute: a
-// cluster shape, or programmatic dependent launch (the kernel may start
-// while the one before it on the stream finishes, and gates on
-// tc::griddep_wait).
-template <typename Kernel, typename Args>
-inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
-                          cudaLaunchAttribute attr, const Args& args) {
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args);
-}
+using tc::after_previous;
+using tc::launch;
 
 inline cudaLaunchAttribute cluster_of(int cs) {
   cudaLaunchAttribute a = {};
@@ -1105,13 +1008,6 @@ inline cudaLaunchAttribute cluster_of(int cs) {
   a.val.clusterDim.x = cs;
   a.val.clusterDim.y = 1;
   a.val.clusterDim.z = 1;
-  return a;
-}
-
-inline cudaLaunchAttribute after_previous() {
-  cudaLaunchAttribute a = {};
-  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  a.val.programmaticStreamSerializationAllowed = 1;
   return a;
 }
 

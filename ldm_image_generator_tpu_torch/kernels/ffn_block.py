@@ -13,27 +13,37 @@ before the products; a and b are fp32 plus bias and the gate is rounded
 to the working type; the sum of the three output products and the
 output biases is fp32, rounded once.
 
-On the H100 (csrc/ffn_block.cu, chain of csrc/ffn_common.cuh): at the
-sampling shapes the work is bound by bytes, the 9 C x C weight matrices
-of the general and the two selected experts, streamed once per call
-(the expert ids are read from device memory, so only those two slices
-are read and the host never waits). With few rows each block's k-loop
-waits on device-memory latency, so the next k-tile is fetched while
-the current one is multiplied and k is split over blocks until the card
-has about four blocks per SM; fp32 partial sums meet in an elementwise
-pass. h, the gate g and the partials live in scratch this wrapper
-allocates. The product is a shared-memory-tiled fp32 FMA loop on the
-CUDA cores, not yet the tensor cores. Film rows repeat with period
+On the H100 (csrc/ffn_block.cu): at the B=4 sampling shapes with C >=
+512 the work is bound by bytes, the 9 C x C weight matrices of the
+general and the two selected experts, streamed once per call (the
+expert ids are read from device memory, so only those two slices are
+read and the host never waits); at the larger row counts by operations.
+bfloat16 at widths that are multiples of 64 with C <= 1024 (every
+UNet shape; the route depends on the shape alone, ``ffn_tensor_cores``)
+runs every product on the tensor cores (mma.sync, csrc/ffn_tc.cuh) in
+three launches: norm/FiLM, the gate (a and b of a tile in one block)
+and the output product over the three towers with the biases in its
+epilogue;
+k is split over blocks where the grid has fewer than two blocks per SM,
+the splits summed in a fixed order by the last block of each tile.
+float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
+csrc/ffn_common.cuh on purpose (TF32 would break the fp32 gates): it
+splits k until the card has about four blocks per SM and sums the fp32
+partials in an elementwise pass. h, the gate g and the partials live
+in scratch this wrapper allocates. Film rows repeat with period
 film_mul.shape[0], so the batch-1 FiLM schedule needs no broadcast copy.
 
 Backward (``ffn_block_bwd``, csrc/ffn_block_bwd.cu): from the saved h
 and the out-cotangent g, the towers' weight and bias gradients (fp32)
 and dh. At the training shapes it is bound by operations (24 products
 of N x C x M, half of them recomputing the forward's a, b and the
-gate's cotangent); the weight gradients contract over the N rows, so
-rows are split over blocks and the fp32 partials meet in a second pass
-(no atomics: reruns are bitwise equal). ``ffn_tower_bwd`` composes it
-with the expert scatter and the norm/FiLM backward, as the JAX
+gate's cotangent). The tensor-core route (the same shape rule) runs
+two launches: the gate's recompute and cotangents, then one launch
+holding the nine weight gradients (rows split over blocks, bias
+gradients as column sums) and dh; the FMA route splits the rows over
+blocks and sums the fp32 partials in a second pass. Neither uses
+atomics on data: reruns are bitwise equal. ``ffn_tower_bwd`` composes
+it with the expert scatter and the norm/FiLM backward, as the JAX
 package's ``_ffn_tower_bwd`` (:681) does, and ``ffn_block`` is an
 autograd Function around both directions.
 """
@@ -47,6 +57,29 @@ from ldm_image_generator_tpu_torch.ops.norm import channel_norm
 # calls of ffn_block and of ffn_block_bwd that launched their CUDA chains
 launches = 0
 bwd_launches = 0
+
+# {device index: int32 split-K counters}: zero before a tensor-core call,
+# left zero by it (the last block of each split tile resets its counter);
+# both directions' calls are ordered on the stream and share them
+_counters: dict = {}
+
+
+def _split_counters(lib, device) -> torch.Tensor:
+    t = _counters.get(device.index)
+    if t is None:
+        t = torch.zeros(lib.ffn_counter_ints(), dtype=torch.int32,
+                        device=device)
+        _counters[device.index] = t
+    return t
+
+
+def _check_chunk_aligned(lib, code, n, c, m, *tensors) -> None:
+    """The tensor-core route reads these tensors (activations and weight
+    matrices) in 16-byte chunks: each must start on a 16-byte boundary.
+    Biases and the expert ids are read element by element."""
+    if lib.ffn_tensor_cores(code, n, c, m) and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 tensor-core FFN kernels take activations "
+                         "and weight matrices that start on 16-byte boundaries")
 
 
 def norm_film(x: torch.Tensor, film_mul: torch.Tensor,
@@ -129,14 +162,15 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     h = torch.empty_like(x)
     g = torch.empty((3, n, m), dtype=x.dtype, device=x.device)
     lib = _build.load("ffn_block")
-    scratch = torch.empty(lib.ffn_scratch_floats(n, c, m), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(lib.ffn_block_scratch_floats(code, n, c, m),
+                          dtype=torch.float32, device=x.device)
+    _check_chunk_aligned(lib, code, n, c, m, x, film_mul, film_bias, gwa, gwb,
+                         gwc, wa, wb, wc)
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, expert_ids, out,
-                         h, g, scratch)
+                         h, g, scratch, _split_counters(lib, x.device))
     rc = lib.ffn_block_forward(
         code, p[0], p[1], p[2], film_mul.shape[0], *p[3:15], e, p[15],
-        n, c, m, p[16], p[17], p[18], p[19],
-        _build.current_stream(),
+        n, c, m, *p[16:], _build.current_stream(),
     )
     _build.check(lib, rc, "ffn_block")
     global launches
@@ -202,9 +236,11 @@ def ffn_block_bwd(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
     dh = torch.empty_like(h)
     dgate = torch.empty((9, n, m), dtype=h.dtype, device=h.device)
     grads = torch.empty(lib.ffn_bwd_grad_floats(c, m), **f32)
-    scratch = torch.empty(lib.ffn_bwd_scratch_floats(n, c, m), **f32)
+    scratch = torch.empty(lib.ffn_bwd_scratch_floats(code, n, c, m), **f32)
+    _check_chunk_aligned(lib, code, n, c, m, h, g, gwa, gwb, gwc, wa, wb, wc)
     p = _build.cuda_ptrs(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
-                         expert_ids, dh, dgate, grads, scratch)
+                         expert_ids, dh, dgate, grads, scratch,
+                         _split_counters(lib, h.device))
     rc = lib.ffn_block_backward(code, *p[:12], e, p[12], n, c, m, *p[13:],
                                 _build.current_stream())
     _build.check(lib, rc, "ffn_block_bwd")

@@ -76,9 +76,20 @@ MHA_FMA_ONLY = [
     Call("window_mha", 1, 0, 16, 1, n=3, l=36, heads=1, masked=True),
 ]
 MHA_EDGES += MHA_FMA_ONLY
+# ffn_block (and its backward) at every path shape: the batch-1 rows (the
+# body split across the batch; the tensor-core route splits k there), batch
+# 4 and the B=8 train step; then ragged row counts (40, 100) and C = M =
+# 48, which bfloat16 runs on the FMA route
+FFN_FMA_ONLY = [Call("ffn_block", 1, 4, 48, 1)]
+FFN_SHAPES = [dataclasses.replace(c, kernel="ffn_block")
+              for c in path_calls(1) + path_calls(4) + path_calls(8)
+              if c.kernel in ("block_core", "ffn_block")] + [
+    Call("ffn_block", 10, 2, 128, 1), Call("ffn_block", 1, 10, 128, 1),
+] + FFN_FMA_ONLY
 CALLS = [c for c in path_calls(1) + path_calls(4)] + [
     Call("block_core", 2, 5, 64, 1),        # odd map, C below 128, 2 images
 ] + MHA_EDGES
+CALLS += [c for c in FFN_SHAPES if c not in CALLS]
 
 
 @pytest.mark.cuda
@@ -108,6 +119,8 @@ BWD_CALLS = [c for c in train_calls(8) if c.kernel.endswith("_bwd")] + [
     Call("ffn_block_bwd", 1, 5, 64, 1),     # ragged N, C below 128
 ] + [dataclasses.replace(c, kernel="window_mha_bwd")
      for c in MHA_EDGES + [Call("window_mha", 1, 0, 1024, 1, n=1, l=16, heads=32)]]
+BWD_CALLS += [c for c in (dataclasses.replace(f, kernel="ffn_block_bwd") for f in FFN_SHAPES)
+              if c not in BWD_CALLS]
 
 
 @pytest.mark.cuda
@@ -260,6 +273,123 @@ def test_window_mha_route_depends_on_shape_alone(card):
         assert lib.window_mha_tensor_cores(0, c.l, c.c, c.heads) == 0, c.label
 
 
+def _ffn_call(direction, call, dtype, device, gen):
+    """Inputs of ffn_block or its backward at call, the wrapper and its
+    plain version."""
+    if direction == "backward":
+        call = dataclasses.replace(call, kernel="ffn_block_bwd")
+        return (make_inputs(call, dtype, device, gen), tffn.ffn_block_bwd,
+                tffn.ffn_block_bwd_plain)
+    return make_inputs(call, dtype, device, gen), tffn.ffn_block, tffn.ffn_block_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("call", FFN_SHAPES, ids=lambda c: c.label)
+def test_ffn_reruns_bitwise_equal(card, call, direction, dtype):
+    """ffn_block and its backward three times on the same inputs: every
+    output has the same bits, the split-k gate and output tiles and the
+    row-split fp32 weight gradients (summed in a fixed order) included."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    args, fn, _ = _ffn_call(direction, call, dtype, card, gen)
+    first = fn(*args)
+    for _ in range(2):
+        for i, (a, b) in enumerate(zip(first, fn(*args))):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+@pytest.mark.parametrize("call", FFN_SHAPES, ids=lambda c: c.label)
+def test_ffn_writes_only_inside_its_buffers(card, monkeypatch, call, direction, dtype):
+    """Every buffer the wrapper allocates (outputs, h, the gate, da/db,
+    split partials, split counters) lies between guards of a sentinel:
+    after the call no guard has changed, the split counters are back to 0
+    and the result equals the plain version's."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    args, fn, plain = _ffn_call(direction, call, dtype, card, gen)
+    guarded = _GuardedBuffers()
+    monkeypatch.setattr(tffn, "_counters", {})
+    guarded.install(monkeypatch)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert guarded.made and guarded.faults() == []
+    for i, (g, w) in enumerate(zip(got, plain(*args))):
+        if direction == "backward":
+            assert bwd_scale_err(g, w) <= BWD_REL[dtype], i
+        else:
+            torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ffn_route_depends_on_shape_alone(card):
+    """bf16 runs the tensor-core route at every FFN shape of the UNet (C
+    and M multiples of 64, C <= 1024) and the FMA route elsewhere; fp32
+    always runs the FMA route."""
+    lib = _build.load("ffn_block")
+    for c in FFN_SHAPES:
+        n = c.batch * c.hw * c.hw
+        assert lib.ffn_tensor_cores(1, n, c.c, c.c) == (c not in FFN_FMA_ONLY), c.label
+        assert lib.ffn_tensor_cores(0, n, c.c, c.c) == 0, c.label
+    assert lib.ffn_tensor_cores(1, 64, 128, 96) == 0  # M not a multiple of 64
+    assert lib.ffn_tensor_cores(1, 64, 1088, 1088) == 0  # C above 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", [c for c in FFN_SHAPES if c.batch == 8] + FFN_FMA_ONLY,
+                         ids=lambda c: c.label)
+def test_ffn_block_bwd_equal_expert_ids(card, call, dtype):
+    """Both routed slots on expert 2: each output holds against the plain
+    version, and the two slots' gradients are bitwise equal. In fp32 an
+    output may leave 1e-4 only where a ReLU pre-activation b lies within
+    the two sides' summation error of 0 (the FMA kernel and cuBLAS sum in
+    other orders, so [b > 0] may differ and move one row's contribution:
+    workloads.BWD_REL); it must then stay within the bf16 bound."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    args = list(make_inputs(dataclasses.replace(call, kernel="ffn_block_bwd"), dtype,
+                            card, gen))
+    args[-1] = torch.tensor((2, 2), dtype=torch.int32, device=card)
+    got = tffn.ffn_block_bwd(*args)
+    want = tffn.ffn_block_bwd_plain(*args)
+    torch.cuda.synchronize()
+    h, _, _, _, gwb, gbb, _, _, _, wb, bb, _, _ = args
+    b_min = min((h.double() @ w.double() + c.double()).abs().min().item()
+                for w, c in ((gwb, gbb), (wb[2], bb[2])))
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = bwd_scale_err(g, w)
+        if dtype == torch.float32 and err > BWD_REL[dtype]:
+            assert b_min < 1e-5 and err <= BWD_REL[torch.bfloat16], (i, err, b_min)
+        else:
+            assert err <= BWD_REL[dtype], (i, err)
+    for k in range(5):
+        assert torch.equal(got[6 + k], got[11 + k]), k
+
+
+@pytest.mark.cuda
+def test_ffn_takes_expert_ids_off_a_16_byte_boundary(card):
+    """The UNet passes each block's ids as a row of an [n, 2] int32 plan,
+    8 bytes apart: the tensor-core route reads them element by element and
+    takes any offset (only activations and weight matrices are read in
+    16-byte chunks)."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    plan = torch.tensor([[0, 1], [1, 3]], dtype=torch.int32, device=card)
+    assert plan[1].data_ptr() % 16 == 8
+    for kernel in ("ffn_block", "ffn_block_bwd"):
+        args = list(make_inputs(Call(kernel, 4, 8, 128, 1), torch.bfloat16, card, gen))
+        args[-1] = plan[1]
+        fn, plain = ((tffn.ffn_block, tffn.ffn_block_plain) if kernel == "ffn_block"
+                     else (tffn.ffn_block_bwd, tffn.ffn_block_bwd_plain))
+        for i, (g, w) in enumerate(zip(fn(*args), plain(*args))):
+            if kernel == "ffn_block":
+                torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+            else:
+                assert bwd_scale_err(g, w) <= BWD_REL[torch.bfloat16], i
+
+
 def _grads(fn, leaves, cotangents):
     outs = fn(*leaves)
     outs = outs if isinstance(outs, tuple) else (outs,)
@@ -315,6 +445,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     args[0] = args[0].t().contiguous().t()  # same shape, not contiguous
     with pytest.raises(ValueError):
         tffn.ffn_block(*args)
+    # bf16 on the tensor-core route: contiguous, but 2 bytes off a 16-byte
+    # boundary
+    args = list(make_inputs(Call("ffn_block", 1, 4, 128, 1), torch.bfloat16, card, gen))
+    x = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16, device=card)
+    args[0] = x[1:].view(args[0].shape).copy_(args[0])
+    with pytest.raises(ValueError):
+        tffn.ffn_block(*args)
+    bwd = list(make_inputs(Call("ffn_block_bwd", 1, 4, 128, 1), torch.bfloat16, card, gen))
+    bwd[1] = x[1:].view(bwd[1].shape).copy_(bwd[1])
+    with pytest.raises(ValueError):
+        tffn.ffn_block_bwd(*bwd)
 
 
 VQ_CALLS = vae_train_calls() + [

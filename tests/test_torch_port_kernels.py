@@ -22,6 +22,12 @@ torch.set_num_threads(1)
 # comparison takes the tolerance of tests/test_block_core_kernel.py
 TOL = dict(rtol=5e-4, atol=5e-5)
 TOL_PALLAS = dict(rtol=5e-4, atol=5e-4)
+# bf16, plain version vs the Pallas kernel in interpret mode: both round
+# h, the gate and the output to bf16 at the same points from fp32 sums
+# of the same products, so a value may differ only where the sums' order
+# moved it across a rounding boundary: by one bf16 ulp, at most 2**-7 of
+# its magnitude (2**-14 absolute near 0, below the outputs' ulp)
+TOL_BF16 = dict(rtol=2.0 ** -7, atol=2.0 ** -14)
 
 
 def _ffn_inputs(rows, c=128, m=128, e=4, film_rows=None, seed=0):
@@ -44,19 +50,36 @@ def _j(*arrs):
     return [jnp.asarray(a) for a in arrs]
 
 
-@pytest.mark.parametrize("ids", [(1, 3), (0, 2)])
-def test_ffn_block_plain_matches_xla_and_pallas(ids):
+# (ids, dtype) cases; the fp32 ones keep their ids
+DTYPE_CASES = [((1, 3), "float32"), ((0, 2), "float32"),
+               ((1, 3), "bfloat16"), ((0, 2), "bfloat16")]
+DTYPE_CASE_IDS = ["ids0", "ids1", "ids0-bf16", "ids1-bf16"]
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("ids,dtype", DTYPE_CASES, ids=DTYPE_CASE_IDS)
+def test_ffn_block_plain_matches_xla_and_pallas(ids, dtype):
+    """fp32: the plain version against the XLA composition and the Pallas
+    kernel (interpret). bf16 (inputs rounded alike on both sides): against
+    the Pallas kernel, whose rounding points the CUDA kernels share (the
+    XLA composition rounds every product in bf16 instead)."""
     x, mul, bias, w = _ffn_inputs(rows=32)
-    out, h = tffn.ffn_block_plain(*_t(x, mul, bias, *w),
-                                  torch.tensor(ids, dtype=torch.int32))
-    ref_out, ref_h = jffn.ffn_block_xla(*_j(x, mul, bias, *w), *ids)
-    np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), **TOL)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
-    p_out, p_h = jffn.ffn_block_pallas(*_j(x, mul, bias, *w),
-                                       jnp.asarray(ids, jnp.int32),
+    tt = [t.to(getattr(torch, dtype)) for t in _t(x, mul, bias, *w)]
+    jj = [a.astype(getattr(jnp, dtype)) for a in _j(x, mul, bias, *w)]
+    out, h = tffn.ffn_block_plain(*tt, torch.tensor(ids, dtype=torch.int32))
+    if dtype == "float32":
+        ref_out, ref_h = jffn.ffn_block_xla(*jj, *ids)
+        np.testing.assert_allclose(_np(h), np.asarray(ref_h), **TOL)
+        np.testing.assert_allclose(_np(out), np.asarray(ref_out), **TOL)
+    p_out, p_h = jffn.ffn_block_pallas(*jj, jnp.asarray(ids, jnp.int32),
                                        interpret=True)
-    np.testing.assert_allclose(h.numpy(), np.asarray(p_h), **TOL_PALLAS)
-    np.testing.assert_allclose(out.numpy(), np.asarray(p_out), **TOL_PALLAS)
+    tol = TOL_PALLAS if dtype == "float32" else TOL_BF16
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    np.testing.assert_allclose(_np(h), f32(p_h), **tol)
+    np.testing.assert_allclose(_np(out), f32(p_out), **tol)
 
 
 def test_ffn_block_periodic_film_rows_match_broadcast():
@@ -169,3 +192,26 @@ def test_trace_kernels_lists_every_path_shape_of_every_kernel():
     assert all(c.c == 32 * c.heads and c.l <= 64 for c in mha)
     if not torch.cuda.is_available():
         assert trace_kernels.main([]) == 1
+
+
+def test_sass_counts_reads_cuobjdump_and_ptxas_output():
+    """The SASS report pairs each kernel's HMMA and FFMA counts (FFMA.FTZ
+    counted, HMMA's own operands not) with ptxas's registers, stack frame
+    and spills."""
+    from ldm_image_generator_tpu_torch.cli import sass_counts
+
+    log = ("ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1av\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers\n")
+    assert sass_counts.ptxas_report(log) == {"_Z1av": (168, 8, 4, 4),
+                                             "_Z1bv": (40, 0, 0, 0)}
+    sass = ("\tcode for sm_90a\n\t\tFunction : _Z1av\n"
+            "  /*0010*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+            "  /*0020*/ HMMA.16816.F32.BF16 R8, R8, R14, R8 ;\n"
+            "  /*0030*/ FFMA R1, R2, R3, R4 ;\n"
+            "\t\tFunction : _Z1bv\n"
+            "  /*0010*/ FFMA.FTZ R1, R2, R3, R4 ;\n  /*0020*/ FMUL R1, R2, R3 ;\n")
+    assert sass_counts.sass_counts(sass) == {"_Z1av": (2, 1), "_Z1bv": (0, 1)}

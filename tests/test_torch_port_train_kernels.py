@@ -61,21 +61,40 @@ def _close(got, want, tol, names):
         np.testing.assert_allclose(a, np.asarray(b), err_msg=name, **tol)
 
 
-@pytest.mark.parametrize("ids", [(1, 3), (2, 2)])
-def test_ffn_block_bwd_plain_matches_pallas_interpret(ids):
+# bf16, plain version vs the Pallas backward in interpret mode: da, db,
+# the gate and dh round to bf16 at the same points from fp32 sums of the
+# same products, so a value may differ only where the sums' order moved
+# it across a rounding boundary: by one bf16 ulp (at most 2**-7 of its
+# magnitude; 2**-14 absolute near 0), which the fp32 weight gradients
+# carry as one rounded term of their row sums
+TOL_BF16 = dict(rtol=2.0 ** -7, atol=2.0 ** -14)
+
+
+@pytest.mark.parametrize("ids,dtype", [((1, 3), "float32"), ((2, 2), "float32"),
+                                       ((1, 3), "bfloat16"), ((2, 2), "bfloat16")],
+                         ids=["ids0", "ids1", "ids0-bf16", "ids1-bf16"])
+def test_ffn_block_bwd_plain_matches_pallas_interpret(ids, dtype):
     """The towers' backward alone (dh and the 15 fp32 gradients of the
-    general ReGLU and the two selected experts), equal ids included."""
+    general ReGLU and the two selected experts), equal ids included; in
+    bf16 with h, g and the weights rounded alike on both sides."""
     x, mul, bias, w = _ffn_inputs(rows=40)
     _, h = jffn.ffn_block_xla(*_j(x, mul, bias, *w), *ids)
     g, = _rng_arrays(7, [(40, 128)], scale=1.0)
     gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc = w
     jw = (gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc)
-    ref = jffn.ffn_block_bwd_pallas(jnp.asarray(h), jnp.asarray(g), *_j(*jw),
+    jdt = getattr(jnp, dtype)
+    ref = jffn.ffn_block_bwd_pallas(jnp.asarray(h, jdt), jnp.asarray(g, jdt),
+                                    *[a.astype(jdt) for a in _j(*jw)],
                                     jnp.asarray(ids, jnp.int32), interpret=True)
-    got = tffn.ffn_block_bwd_plain(*_t(np.asarray(h), g, *jw),
-                                   torch.tensor(ids, dtype=torch.int32))
-    ref = [np.asarray(r).reshape(np.shape(gt)) for r, gt in zip(ref, got)]
-    _close(got, ref, TOL_PALLAS, ("dh",) + tuple(f"g{i}" for i in range(15)))
+    got = tffn.ffn_block_bwd_plain(
+        *[t.to(getattr(torch, dtype)) for t in _t(np.asarray(h), g, *jw)],
+        torch.tensor(ids, dtype=torch.int32))
+    assert got[0].dtype == getattr(torch, dtype)
+    got = [t.float() for t in got]
+    ref = [np.asarray(r.astype(jnp.float32)).reshape(np.shape(gt))
+           for r, gt in zip(ref, got)]
+    _close(got, ref, TOL_PALLAS if dtype == "float32" else TOL_BF16,
+           ("dh",) + tuple(f"g{i}" for i in range(15)))
 
 
 @pytest.mark.parametrize("film_rows", [None, 16])
