@@ -16,13 +16,25 @@ no result line):
      L2, printing bound/kernel (and kernel/library) per row and per step
      of each path of window MHA and the FFN kernels; hold block_core's
      gradients through the card path against autograd through its plain
-     version (B=1 shapes);
+     version (B=1 shapes); and the int8 routes (block_core at batch 1,
+     latent 32 and 64; ffn_block at batch 4) in both types, each call
+     rerun bitwise and once more with every buffer its wrapper allocates
+     between sentinel guards, per step beside the same kernel with bf16
+     weights;
   3. sample one 256px image with the default UNet and VAE decoder (seeded
      random weights, 20 DDIM steps, bf16): launch counts must be exactly
      720 block_core and 160 window MHA; then images/s;
   4. sample 4 images in one call: 720 ffn_block launches, 0 block_core;
+     then the same two paths with int8 FFN weights (the same seeded
+     weights, ffn_quant='int8'): 720 int8 block_core and 160 window MHA
+     per B=1 sample, 720 int8 ffn_block per B=4 sample, no weight
+     quantized by a sample call, images/s, device-busy time, and the
+     final latent's relative L2 distance from full precision's (same x_T
+     and routing; reported, not gated);
   5. one full-width denoise step in fp32 on the card against the same
-     weights on the CPU (plain versions);
+     weights on the CPU (plain versions), for the UNet with full-precision
+     and with int8 FFN weights (whose int8 weights and scale-bias rows,
+     made on each side, must be equal);
   6. train: the default UNet (fp32 parameters, bf16 compute) on B=8
      seeded 32x32x8 latents, AdamW lr 1e-4, EMA 0.999, eps-prediction L1,
      stochastic depth 0.25: one warm-up step, then 5 timed steps that must
@@ -101,14 +113,16 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 5
 # launches per train step at B=8 on the default UNet
 TRAIN_LAUNCHES = dict(block_core=0, ffn_block=36, ffn_block_bwd=36,
-                      window_mha=8, window_mha_bwd=8, vq=0)
+                      window_mha=8, window_mha_bwd=8, vq=0, block_core_int8=0,
+                      ffn_block_int8=0)
 # the VAE train step (the JAX package's: 512px images, crop 192, batch
 # 8) and its launches
 VAE_BATCH = 8
 VAE_IMAGE = 512
 VAE_CROP = 192
 VAE_LAUNCHES = dict(block_core=0, ffn_block=0, ffn_block_bwd=0,
-                    window_mha=0, window_mha_bwd=0, vq=1)
+                    window_mha=0, window_mha_bwd=0, vq=1, block_core_int8=0,
+                    ffn_block_int8=0)
 # fp32 VAE step at B=2, card vs CPU: the metrics' relative error, and
 # each gradient's max abs error over its own max abs (the codebook rows
 # the two sides selected differently excepted)
@@ -226,6 +240,8 @@ def phase_kernels(dev, reps: int) -> dict:
         return lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True)
 
     heads_kw = lambda f: (lambda *a: f(*a[:-1], num_heads=a[-1]))
+    # int8 FFN weights run with grad mode off (sampling)
+    no_grad = lambda f: (lambda *a: torch.no_grad()(f)(*a))
     # name: (kernel, plain version, None or args -> the one PyTorch call
     # computing the same function, to time)
     fns = {
@@ -238,6 +254,8 @@ def phase_kernels(dev, reps: int) -> dict:
                            heads_kw(tattn.window_mha_bwd_plain), mha_library_bwd),
         "vq": (tvq.nearest_codebook_indices, tvq.nearest_codebook_indices_plain,
                None),
+        "block_core_int8": (no_grad(tbc.block_core), tbc.block_core_plain, None),
+        "ffn_block_int8": (no_grad(tffn.ffn_block), tffn.ffn_block_plain, None),
     }
     sources = {
         "block_core": ("ldm_image_generator_tpu_torch/kernels/csrc/block_core.cu",
@@ -252,6 +270,10 @@ def phase_kernels(dev, reps: int) -> dict:
                            "ldm_image_generator_tpu/kernels/window_attention.py:402"),
         "vq": ("ldm_image_generator_tpu_torch/kernels/csrc/vq.cu",
                "ldm_image_generator_tpu/kernels/vq.py:56"),
+        "block_core_int8": ("ldm_image_generator_tpu_torch/kernels/csrc/block_core.cu",
+                            "ldm_image_generator_tpu/kernels/block_core.py:453"),
+        "ffn_block_int8": ("ldm_image_generator_tpu_torch/kernels/csrc/ffn_block.cu",
+                           "ldm_image_generator_tpu/kernels/ffn_block.py:221"),
     }
     b1, b4 = path_calls(1), path_calls(4)
     # the B=1 body shapes through ffn_block and the B=4 ones through
@@ -264,10 +286,16 @@ def phase_kernels(dev, reps: int) -> dict:
     # train step
     train = [c for c in train_calls(TRAIN_BATCH)
              if c.kernel.endswith("_bwd") or c.kernel in ("window_mha", "ffn_block")]
+    # the int8 routes at their paths' shapes: block_core at B=1 (latent 32
+    # and 64), ffn_block at B=4
+    int8 = [(c, "b1") for c in path_calls(1, int8=True) if c.kernel == "block_core_int8"] + [
+        (c, "b1-64") for c in path_calls(1, latent=64, int8=True)
+        if c.kernel == "block_core_int8"] + [
+        (c, "b4") for c in path_calls(4, int8=True) if c.kernel == "ffn_block_int8"]
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
-        (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)]
+        (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -297,6 +325,8 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
+            if call.kernel.endswith("_int8"):
+                check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
                 continue
@@ -333,7 +363,7 @@ def phase_kernels(dev, reps: int) -> dict:
     check_vq_ties(dev)
     main_tag = {"block_core": "b1", "ffn_block": "b4", "window_mha": "b1",
                 "ffn_block_bwd": "train", "window_mha_bwd": "train",
-                "vq": "vae_train"}
+                "vq": "vae_train", "block_core_int8": "b1", "ffn_block_int8": "b4"}
     step_name = {"train": "train step at B=8",
                  "vae_train": f"VAE train step at B={VAE_BATCH}"}
     # window MHA and the FFN kernels per step of every path they are on:
@@ -351,6 +381,19 @@ def phase_kernels(dev, reps: int) -> dict:
                 lib = f", library {lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f})"
             log(f"{name} {tag} per step: kernel {ms:.4f} ms{lib}, bound "
                 f"{bms:.5f} ms (bound/kernel {bms / ms:.4f})")
+    # the int8 routes per step of their paths, beside the same kernel with
+    # full-precision (bf16) weights at the same shapes in this call
+    for name in ("block_core_int8", "ffn_block_int8"):
+        for tag in ("b1", "b1-64", "b4"):
+            rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
+            if not rs:
+                continue
+            step = lambda rr, k: sum(r[k] * r["per_step"] for r in rr)
+            bf16 = [r for r in rows if r["kernel"] == name[:-5] and r["tag"] == tag]
+            ms, bms, fp_ms = step(rs, "ms"), step(rs, "bound_ms"), step(bf16, "ms")
+            log(f"{name} {tag} per step: kernel {ms:.4f} ms, bound {bms:.5f} ms "
+                f"(bound/kernel {bms / ms:.4f}); bf16 weights {fp_ms:.4f} ms, bound "
+                f"{step(bf16, 'bound_ms'):.5f} ms (int8/bf16 {ms / fp_ms:.3f})")
     summary = {}
     for name in fns:
         main = [r for r in rows if r["kernel"] == name and r["tag"] == main_tag[name]]
@@ -371,6 +414,26 @@ def phase_kernels(dev, reps: int) -> dict:
             per=f"one {step} of its path: sum over its call shapes of calls "
                 "x cold-L2 ms per call, bf16")
     return summary
+
+
+def check_guarded_rerun(kernel, args, got) -> None:
+    """An int8 kernel call again with every buffer its wrapper allocates
+    between sentinel guards (and fresh split counters): no guard written,
+    the counters left 0; then a rerun: every output bitwise equal to
+    `got`, the first call's."""
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.kernels.workloads import GuardedBuffers
+
+    saved, tffn._counters = tffn._counters, {}
+    try:
+        with GuardedBuffers() as guarded:
+            again = kernel(*args)
+            torch.cuda.synchronize()
+    finally:
+        tffn._counters = saved
+    require(guarded.made and guarded.faults() == [], ("guards", guarded.faults()))
+    for calls in (again, kernel(*args)):
+        require(all(torch.equal(a, b) for a, b in zip(got, calls)), "int8 rerun bitwise equal")
 
 
 def check_vq_ties(dev) -> None:
@@ -420,6 +483,8 @@ def check_block_core_grads(dev, calls) -> None:
 
 
 def run_path(pipe, batch: int, generator):
+    """(launch counts, final latent) of one 256px 20-step sample; its
+    uint8 images and finite latents checked."""
     reset_launch_counts()
     img, z = pipe.sample(generator, batch=batch, image_size=256, num_steps=20,
                          return_latent=True)
@@ -429,6 +494,16 @@ def run_path(pipe, batch: int, generator):
             and tuple(img.shape) == (batch, 256, 256, 3), img.shape)
     require(tuple(z.shape) == (batch, 32, 32, 8) and torch.isfinite(z).all(),
             "final latent finite and [B, 32, 32, 8]")
+    return counts, z
+
+
+# launches of one 256px 20-step sample by batch: B=1 runs block_core on
+# the 36 blocks, B=4 ffn_block; 8 attention blocks each; the int8 UNet
+# runs the same on the int8 routes
+def path_launches(batch: int, int8: bool = False) -> dict:
+    counts = dict.fromkeys(launch_counts(), 0)
+    body = ("block_core" if batch == 1 else "ffn_block") + ("_int8" if int8 else "")
+    counts.update({body: 720, "window_mha": 160})
     return counts
 
 
@@ -442,10 +517,9 @@ def phase_path(dev, profile: bool) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device=dev).manual_seed(0)
     pipe.sample(gen, batch=1, image_size=256, num_steps=20)  # warm-up
-    counts = run_path(pipe, 1, gen)
+    counts, _ = run_path(pipe, 1, gen)
     log("path b1 launches", json.dumps(counts))
-    require(counts == dict(block_core=720, ffn_block=0, ffn_block_bwd=0,
-                           window_mha=160, window_mha_bwd=0, vq=0), counts)
+    require(counts == path_launches(1), counts)
     out = {"launches_b1": counts}
     times = []
     for _ in range(3):
@@ -460,10 +534,9 @@ def phase_path(dev, profile: bool) -> dict:
     if profile:
         out["profile_b1"] = profile_sample(pipe, gen)
 
-    counts = run_path(pipe, 4, gen)
+    counts, _ = run_path(pipe, 4, gen)
     log("path b4 launches", json.dumps(counts))
-    require(counts == dict(block_core=0, ffn_block=720, ffn_block_bwd=0,
-                           window_mha=160, window_mha_bwd=0, vq=0), counts)
+    require(counts == path_launches(4), counts)
     out["launches_b4"] = counts
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -473,23 +546,78 @@ def phase_path(dev, profile: bool) -> dict:
     out["b4_sample_s"] = dt
     out["b4_images_per_s"] = 4.0 / dt
     log("path b4 sample seconds", dt, "images/s", out["b4_images_per_s"])
-    return out
+    return out, pipe
 
 
-def profile_sample(pipe, gen) -> dict:
-    """Device time by kernel name over one B=1 sample."""
-    return profile_fn(lambda: pipe.sample(gen, batch=1, image_size=256,
+def profile_sample(pipe, gen, batch: int = 1) -> dict:
+    """Device time by kernel name over one sample."""
+    return profile_fn(lambda: pipe.sample(gen, batch=batch, image_size=256,
                                           num_steps=20))
 
 
-def phase_card_vs_cpu(dev) -> float:
-    """One full-width fp32 denoise step, card kernels vs CPU plain versions."""
+def phase_int8_path(dev, ref_pipe) -> dict:
+    """The int8 sampling path: the default UNet with ffn_quant='int8' (the
+    same seeded weights as ref_pipe's, bf16 compute) at B=1 and B=4: exact
+    launch counts on the int8 routes, no quantization in a sample call,
+    finite latents and uint8 images, images/s and a profile of each; and
+    the relative L2 distance of its final latent from ref_pipe's (full
+    precision) for the same x_T and routing."""
     from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+
+    t0 = time.perf_counter()
+    q0 = tffn.quantizations
+    pipe = LDMPipeline.random(UNetConfig(ffn_quant="int8"), dtype=torch.bfloat16,
+                              device=dev, seed=0)
+    made = tffn.quantizations - q0
+    same = all(torch.equal(a, b) for a, b in zip(pipe.unet.parameters(),
+                                                 ref_pipe.unet.parameters()))
+    require(same, "int8 and full-precision pipelines hold the same weights")
+    log(f"int8 path: pipeline built in {time.perf_counter() - t0:.2f} s, "
+        f"{made} weight matrices quantized")
+    require(made == 6 * 36, made)
+    out = {}
+    for batch in (1, 4):
+        seed = 10 + batch
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pipe.sample(gen, batch=batch, image_size=256, num_steps=20)  # warm-up
+        q0 = tffn.quantizations
+        counts, z = run_path(pipe, batch, torch.Generator(device=dev).manual_seed(seed))
+        log(f"int8 path b{batch} launches", json.dumps(counts))
+        require(counts == path_launches(batch, int8=True), counts)
+        _, z_ref = run_path(ref_pipe, batch, torch.Generator(device=dev).manual_seed(seed))
+        times = []
+        for _ in range(3 if batch == 1 else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.sample(gen, batch=batch, image_size=256, num_steps=20)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        require(tffn.quantizations == q0, "a sample call quantized weights")
+        rel_l2 = ((z.float() - z_ref.float()).norm() / z_ref.float().norm()).item()
+        ips = batch / (sum(times) / len(times))
+        log(f"int8 path b{batch}: sample seconds {times}, images/s {ips:.4f}; final "
+            f"latent relative L2 distance from full precision {rel_l2:.5f}; "
+            "0 weights quantized in the sample calls")
+        prof = profile_sample(pipe, gen, batch)
+        out[f"b{batch}"] = dict(launches=counts, sample_s=times, images_per_s=ips,
+                                latent_rel_l2_vs_bf16_weights=rel_l2,
+                                device_busy_ms=prof["device_busy_ms"],
+                                profiled_wall_ms=prof["wall_ms"])
+    return out
+
+
+def phase_card_vs_cpu(dev, cfg=None) -> float:
+    """One full-width fp32 denoise step of the UNet of `cfg` (default: the
+    default UNet), card kernels vs CPU plain versions."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.models.layers import RandomMoE
     from ldm_image_generator_tpu_torch.models.unet import UNet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = UNet(UNetConfig(), device="cpu",
+    cpu = UNet(cfg or UNetConfig(), device="cpu",
                generator=torch.Generator().manual_seed(1)).eval()
     card = copy.deepcopy(cpu).to(dev)
     gen = torch.Generator().manual_seed(2)
@@ -501,7 +629,16 @@ def phase_card_vs_cpu(dev) -> float:
         got = card(x.to(dev), t.to(dev), moe_plan=plan.to(dev)).cpu()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    log(f"card vs cpu fp32 step: max abs err {err:.3e}, output max {scale:.3e}")
+    log(f"card vs cpu fp32 step (ffn_quant={cpu.cfg.ffn_quant}): max abs err "
+        f"{err:.3e}, output max {scale:.3e}")
+    if cpu.cfg.ffn_quant == "int8":
+        # the int8 weights each side made (quantize_cols on its own device)
+        made = [(a.ffn_weights(torch.float32), b.ffn_weights(torch.float32))
+                for a, b in zip(cpu.modules(), card.modules()) if isinstance(a, RandomMoE)]
+        differ = sum(int((x != y.cpu()).sum()) for w, v in made for x, y in zip(w, v))
+        log(f"card vs cpu int8 weights: {differ} of "
+            f"{sum(x.numel() for w, _ in made for x in w)} values differ")
+        require(differ == 0, "quantize_cols on the card equals the CPU's")
     require(torch.isfinite(got).all(), "card step output finite")
     require(err <= STEP_REL_TOL * scale, (err, scale))
     return err / scale
@@ -515,7 +652,8 @@ def launch_counts() -> dict:
 
     return dict(block_core=tbc.launches, ffn_block=tffn.launches,
                 ffn_block_bwd=tffn.bwd_launches, window_mha=tattn.launches,
-                window_mha_bwd=tattn.bwd_launches, vq=tvq.launches)
+                window_mha_bwd=tattn.bwd_launches, vq=tvq.launches,
+                block_core_int8=tbc.int8_launches, ffn_block_int8=tffn.int8_launches)
 
 
 def reset_launch_counts() -> None:
@@ -526,6 +664,7 @@ def reset_launch_counts() -> None:
 
     tbc.launches = tffn.launches = tffn.bwd_launches = 0
     tattn.launches = tattn.bwd_launches = tvq.launches = 0
+    tbc.int8_launches = tffn.int8_launches = 0
 
 
 def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
@@ -977,6 +1116,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; nothing to check")
         return 1
+    from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -993,11 +1133,16 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = phase_kernels(dev, reps=10)
     log(f"kernels checked at {time.perf_counter() - t_start:.1f} s")
-    path = phase_path(dev, profile)
+    path, pipe = phase_path(dev, profile)
     kernels["block_core"]["launches"] = path["launches_b1"]["block_core"]
     kernels["window_mha"]["launches"] = path["launches_b1"]["window_mha"]
     kernels["ffn_block"]["launches"] = path["launches_b4"]["ffn_block"]
+    int8_path = phase_int8_path(dev, pipe)
+    del pipe
+    kernels["block_core_int8"]["launches"] = int8_path["b1"]["launches"]["block_core_int8"]
+    kernels["ffn_block_int8"]["launches"] = int8_path["b4"]["launches"]["ffn_block_int8"]
     rel = phase_card_vs_cpu(dev)
+    rel_int8 = phase_card_vs_cpu(dev, UNetConfig(ffn_quant="int8"))
     log(f"sampling phases done at {time.perf_counter() - t_start:.1f} s")
     train = phase_train(dev)
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
@@ -1014,6 +1159,8 @@ def main(argv) -> int:
         "b1_images_per_s": path["b1_images_per_s"],
         "b4_images_per_s": path["b4_images_per_s"],
         "card_vs_cpu_rel_err": rel,
+        "int8_path": int8_path,
+        "int8_card_vs_cpu_rel_err": rel_int8,
         "train_launches": train["launches"],
         "train_steps_per_s": train["steps_per_s"],
         "train_images_per_s": train["images_per_s"],

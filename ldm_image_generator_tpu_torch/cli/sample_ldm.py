@@ -1,15 +1,17 @@
 """Sample images from the latent diffusion model on the GPU.
 
     python -m ldm_image_generator_tpu_torch.cli.sample_ldm -s 256 -n 1 \\
-        -t 20 -fp16 true -o ./ddpm_outputs/
+        -t 20 -fp16 true -o ./ddpm_outputs/ [--quant int8]
 
 Builds seeded random weights (loading checkpoints is not ported yet),
-runs DDIM sampling and writes <outdir>/<i>.png. Runs on `cuda` unless
-`-d cpu` is given; a CUDA request without a card raises.
+runs DDIM sampling and writes <outdir>/<i>.png. --quant int8 samples
+with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Runs on
+`cuda` unless `-d cpu` is given; a CUDA request without a card raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import struct
 import zlib
@@ -51,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eta", default=0.0, type=float)
     p.add_argument("-fp16", default=False, type=str2bool,
                    help="bfloat16 compute (false: float32)")
+    p.add_argument("--quant", default="none", choices=["none", "int8"],
+                   help="int8: per-output-column quantized FFN weights")
     p.add_argument("-o", "--outdir", default="./ddpm_outputs/")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
     return p
@@ -73,6 +77,7 @@ def main(argv=None):
     ucfg, vcfg = UNetConfig(), VAEConfig()
     if args.config == "tiny":
         ucfg, vcfg = ucfg.tiny(), vcfg.tiny()
+    ucfg = dataclasses.replace(ucfg, ffn_quant=args.quant)
     dtype = (DEFAULT_PRECISION if args.fp16 else FULL_PRECISION).compute_dtype
     pipe = LDMPipeline.random(ucfg, vcfg, dtype=dtype, device=device,
                               seed=args.seed)

@@ -109,13 +109,13 @@ _LL = ctypes.c_longlong
 # {source: {function: (argtypes, restype)}}
 _SIGNATURES = {
     "block_core": {
-        "block_core_forward": ([_I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P, _P, _P]
+        "block_core_forward": ([_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P, _P, _P]
                                + [_I] * 6 + [_P] * 5, _I),
         "ffn_scratch_floats": ([_I] * 3, _LL),
     },
     "ffn_block": {
         "ffn_tensor_cores": ([_I] * 4, _I),
-        "ffn_block_forward": ([_I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P]
+        "ffn_block_forward": ([_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P]
                               + [_I] * 3 + [_P] * 6, _I),
         "ffn_block_scratch_floats": ([_I] * 4, _LL),
         "ffn_counter_ints": ([], _LL),

@@ -21,6 +21,12 @@ sums the FFN partials, the conv, its bias and the residual there, so
 out is written once. Products are the latency-hiding split-K fp32 FMA
 loop of ffn_block.
 
+int8 FFN weights (``block_core_pallas(..., quantized=True)``; see
+ffn_block.py): the same chain with the weights read as int8 and each
+product scaled per column before its bias; the grouped conv, its bias
+and the residual stay in the compute dtype. The row-band schedule of the
+TPU kernel (a VMEM workaround) has no counterpart here either.
+
 Gradients: ``block_core`` is an autograd Function. The TPU kernel had no
 backward of its own (its custom_vjp took the XLA VJP of block_core_xla);
 here the backward is composed from the ported pieces: the FFN towers'
@@ -37,11 +43,14 @@ from ldm_image_generator_tpu_torch.kernels.ffn_block import (
     check_ffn_args,
     ffn_tower_bwd,
     norm_film,
+    refuse_int8_grad,
     reglu_sum_fp32,
 )
 
-# calls of block_core that launched the CUDA kernel chain
+# calls of block_core (full-precision and int8 FFN weights) that launched
+# the CUDA kernel chain
 launches = 0
+int8_launches = 0
 # the conv pass takes the UNet's grouped conv: groups of 32 channels
 GROUP_WIDTH = 32
 
@@ -100,7 +109,7 @@ def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
                          "memory")
     if conv_kernel.dtype != x.dtype or conv_bias.dtype != x.dtype:
         raise TypeError("conv params must have x's dtype")
-    code = _build.dtype_code(x)
+    code, q = _build.dtype_code(x), gwa.dtype == torch.int8
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     g = torch.empty((3, n, m), dtype=x.dtype, device=x.device)
@@ -110,13 +119,16 @@ def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, conv_kernel,
                          conv_bias, expert_ids, out, h, g, scratch)
     rc = lib.block_core_forward(
-        code, p[0], p[1], p[2], film_mul.shape[0] * hh * ww, *p[3:15], e,
-        p[15], p[16], p[17], int(add_residual), b, hh, ww, c, m,
-        p[18], p[19], p[20], p[21], _build.current_stream(),
+        code, int(q), p[0], p[1], p[2], film_mul.shape[0] * hh * ww,
+        *p[3:15], e, p[15], p[16], p[17], int(add_residual), b, hh, ww, c,
+        m, p[18], p[19], p[20], p[21], _build.current_stream(),
     )
     _build.check(lib, rc, "block_core")
-    global launches
-    launches += 1
+    global launches, int8_launches
+    if q:
+        int8_launches += 1
+    else:
+        launches += 1
     return out, h
 
 
@@ -165,7 +177,9 @@ def block_core(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
                add_residual: bool = True):
     """(out, h), differentiable in every input but the ids. CPU tensors
     take the plain versions; CUDA tensors launch the kernel chains or
-    raise. Grad mode off skips the autograd Function (see ffn_block)."""
+    raise. Grad mode off skips the autograd Function (see ffn_block);
+    int8 FFN weights run with grad mode off only."""
+    refuse_int8_grad(gwa.dtype == torch.int8)
     fn = _BlockCore.apply if torch.is_grad_enabled() else _block_core_forward
     return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
               wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids, add_residual)

@@ -5,12 +5,15 @@
 // The Hopper counterpart of block_core_pallas (both of its schedules):
 // the FFN chain of ffn_common.cuh with the grouped conv (group width
 // 32), its bias and the residual folded into the pass that writes out,
-// so out is written once. dtype: 0 = float32, 1 = bfloat16; scratch
-// holds ffn_scratch_floats(B * H * W, C, M) floats.
+// so out is written once. dtype: 0 = float32, 1 = bfloat16; wq: 0 =
+// FFN weights in dtype, 1 = int8 FFN weights with fp32 [2, out]
+// scale-bias rows (block_core_pallas(quantized=True); the conv, its bias
+// and the residual stay in dtype); scratch holds
+// ffn_scratch_floats(B * H * W, C, M) floats.
 #include "ffn_common.cuh"
 
 extern "C" int block_core_forward(
-    int dtype, const void* x, const void* mul, const void* bias, int film_rows,
+    int dtype, int wq, const void* x, const void* mul, const void* bias, int film_rows,
     const void* gwa, const void* gba, const void* gwb, const void* gbb, const void* gwc,
     const void* gbc, const void* wa, const void* ba, const void* wb, const void* bb,
     const void* wc, const void* bc, int E, const void* conv_kernel, const void* conv_bias,
@@ -22,7 +25,12 @@ extern "C" int block_core_forward(
   const ldm::ConvArgs conv{conv_kernel, conv_bias, H, W};
   const void* residual = add_residual ? x : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return ldm::ffn_chain<float>(a, conv, B, residual, st);
-  if (dtype == 1) return ldm::ffn_chain<__nv_bfloat16>(a, conv, B, residual, st);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return wq ? ldm::ffn_chain<float, int8_t>(a, conv, B, residual, st)
+              : ldm::ffn_chain<float, float>(a, conv, B, residual, st);
+  if (dtype == 1)
+    return wq ? ldm::ffn_chain<bf16, int8_t>(a, conv, B, residual, st)
+              : ldm::ffn_chain<bf16, bf16>(a, conv, B, residual, st);
   return (int)cudaErrorInvalidValue;
 }

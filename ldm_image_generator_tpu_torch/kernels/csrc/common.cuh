@@ -24,6 +24,8 @@ namespace ldm {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// an int8 weight (quantized FFN route): exact in fp32 and in bf16
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -187,9 +189,10 @@ struct TileSmem {
 // NB right-hand sides sharing A, with the next k-tile fetched into
 // registers while the current one is multiplied. k_begin is a multiple
 // of BK; loads past K read zero. AT, BT and ones_row as fetch_a/fetch_b.
-template <typename S, int NB, bool AT = false, bool BT = false, typename T>
+// B may have another element type than A (int8 weights).
+template <typename S, int NB, bool AT = false, bool BT = false, typename T, typename TB>
 __device__ __forceinline__ void tile_product(const T* __restrict__ A, int lda, int rows, int K,
-                                             int row0, const T* const (&B)[NB], int ldb,
+                                             int row0, const TB* const (&B)[NB], int ldb,
                                              int cols, int col0, int k_begin, int k_end,
                                              TileSmem<S, NB>& sm,
                                              float (&acc)[NB][S::TM][S::TN], int ones_row = -1) {

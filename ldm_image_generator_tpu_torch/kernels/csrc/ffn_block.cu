@@ -30,6 +30,16 @@
 // bytes or FLOP, sets a call's time (PERF.md).
 // float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
 // ffn_common.cuh on purpose: TF32 would break the fp32 gates.
+//
+// int8 weights (wq = 1; ffn_block_pallas(quantized=True)): the same
+// launches and plans on either route. On the tensor cores the weight
+// k-tiles arrive as int8 and become bf16 in shared memory (gemm_tile_q);
+// the gate epilogue gives a and b their own column scale and bias before
+// the ReLU (the scale rows read in the tile's interleaved order), and the
+// output kernel, whose k-loop runs over the three towers, scales each
+// tower's fp32 sum at the tower's last k-tile and adds it to a running
+// total, so split-k partials arrive already scaled. The weight bytes
+// halve; a call stays bound by the same launch latency (PERF.md).
 #include "ffn_tc.cuh"
 
 namespace ldm {
@@ -45,26 +55,47 @@ struct FwdArgs {
 using OutTile = Gemm<64, 64, 2, 2, 4>;
 
 // grid (M / 64, ceil(N / 64), 3 towers x gate.splits); a ring of STAGES
-// k-tiles.
-template <int STAGES>
+// k-tiles. Q: int8 weights with fp32 scale-bias rows.
+template <int STAGES, bool Q>
 __global__ void __launch_bounds__(THREADS) gate_kernel(FwdArgs a) {
   using G = GateTile<STAGES>;
+  using W = typename std::conditional<Q, int8_t, bf16>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   tc::griddep_launch();  // the output kernel may start streaming wc
   const FfnArgs& f = a.f;
   const int N = f.N, C = f.C, M = f.M;
   const int r = blockIdx.z / a.gate.splits, s = blockIdx.z % a.gate.splits;
   const int nbh = blockIdx.x * HN, mb = blockIdx.y * GateG::BM;
-  const Reglu<bf16> w = reglu_in<bf16>(f, r);
+  const auto w = reglu_in<bf16, W>(f, r);
   const int kt = C / BK, kt0 = s * a.gate.per, kt1 = min(kt, kt0 + a.gate.per);
-  __shared__ float bias_s[2 * HN];
-  TileBias bias{bias_s, to_f((threadIdx.x < HN ? w.ba : w.bb)[nbh + threadIdx.x % HN])};
+  // a's (threads 0-63) and b's (64-127) bias, and with int8 their scale
+  __shared__ float bias_s[2 * HN], scale_s[Q ? 2 * HN : 1];
+  const auto* ab_bias = threadIdx.x < HN ? w.ba : w.bb;
+  const int bc = nbh + threadIdx.x % HN;
+  TileBias bias{bias_s, Q ? to_f(ab_bias[M + bc]) : to_f(ab_bias[bc])};
+  TileBias scale{scale_s, Q ? to_f(ab_bias[bc]) : 0.f};
   float acc[G::MI][G::NI][4];
   // h comes from norm_film_rows_kernel: the weights stream in before the
   // wait
-  ab_tile<G>(acc, ring, (const bf16*)f.h, N, C, M, w.wa, w.wb, mb, nbh, kt0, kt1,
-             [] { tc::griddep_wait(); });
+  if constexpr (Q) {
+    const int8_t *wa = w.wa, *wb = w.wb;
+    gemm_tile_q<G>(
+        acc, smem_raw, kt0, kt1,
+        [&](int rr, int c, int k0) -> const bf16* {
+          return mb + rr < N ? (const bf16*)f.h + (size_t)(mb + rr) * C + k0 + c : nullptr;
+        },
+        [&](int rr, int c, int k0) {
+          return (c < HN ? wa + c : wb + c - HN) + (size_t)(k0 + rr) * M + nbh;
+        },
+        // hidden columns c..c+15 of wa (c < 64) or wb: their bf16 tile
+        // columns in the 8-column interleave (tile column 16 q + e)
+        [](int c) { return c < HN ? make_int2(2 * c, 2 * c + 16) : make_int2(2 * c - 120, 2 * c - 104); },
+        [](int) {}, [] { tc::griddep_wait(); });
+    scale.share();
+  } else {
+    ab_tile<G>(acc, reinterpret_cast<bf16*>(smem_raw), (const bf16*)f.h, N, C, M, w.wa, w.wb,
+               mb, nbh, kt0, kt1, [] { tc::griddep_wait(); });
+  }
   bias.share();
   if (a.gate.splits > 1) {
     float none[1];
@@ -78,53 +109,101 @@ __global__ void __launch_bounds__(THREADS) gate_kernel(FwdArgs a) {
   for_gate_pairs(mb, nbh, [&](int i, int q, int h, int row, int col) {
     if (row >= N) return;
     const int c = col - nbh;
-    const float a0 = acc[i][2 * q][2 * h] + bias.at(0, c);
-    const float a1 = acc[i][2 * q][2 * h + 1] + bias.at(0, c + 1);
-    const float b0 = acc[i][2 * q + 1][2 * h] + bias.at(1, c);
-    const float b1 = acc[i][2 * q + 1][2 * h + 1] + bias.at(1, c + 1);
+    // (with int8: the fp32 product times the column scale plus the bias,
+    // rounded once)
+    const auto ab = [&](int which, int e) {
+      const float v = acc[i][2 * q + which][2 * h + e];
+      return Q ? fmaf(v, scale.at(which, c + e), bias.at(which, c + e)) : v + bias.at(which, c + e);
+    };
+    const float a0 = ab(0, 0), a1 = ab(0, 1), b0 = ab(1, 0), b1 = ab(1, 1);
     tc::store2(g + (size_t)row * M + col,
                tc::pack_bf16(a0 * fmaxf(b0, 0.f), a1 * fmaxf(b1, 0.f)));
   });
 }
 
-// grid (C / 64, ceil(N / 64), out.splits).
+// grid (C / 64, ceil(N / 64), out.splits). Q: int8 weights with fp32
+// scale-bias rows.
+template <bool Q>
 __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
+  using W = typename std::conditional<Q, int8_t, bf16>::type;
+  using Bi = typename Wt<bf16, W>::Bias;
+  constexpr int BR = Wt<bf16, W>::BR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   const FfnArgs& f = a.f;
   const int N = f.N, C = f.C, M = f.M;
   const int nb = blockIdx.x * OutTile::BN, mb = blockIdx.y * OutTile::BM, s = blockIdx.z;
   const size_t mc = (size_t)M * C;
-  const bf16* wc0 = (const bf16*)f.gwc;
-  const bf16* wc1 = expert_slice((const bf16*)f.wc, f.ids, 0, f.E, mc);
-  const bf16* wc2 = expert_slice((const bf16*)f.wc, f.ids, 1, f.E, mc);
+  const W* wc[3] = {(const W*)f.gwc, expert_slice((const W*)f.wc, f.ids, 0, f.E, mc),
+                    expert_slice((const W*)f.wc, f.ids, 1, f.E, mc)};
+  const Bi* bc[3] = {(const Bi*)f.gbc, expert_slice((const Bi*)f.bc, f.ids, 0, f.E, BR * (size_t)C),
+                     expert_slice((const Bi*)f.bc, f.ids, 1, f.E, BR * (size_t)C)};
   const bf16* g = (const bf16*)f.g;
   const int kt = 3 * M / BK, kt0 = s * a.out.per, kt1 = min(kt, kt0 + a.out.per);
-  // the three output biases' sum (threads 0-63)
-  __shared__ float bias_s[2 * HN];
-  float b = 0.f;
-  if (threadIdx.x < OutTile::BN) {
-    const int c = nb + threadIdx.x;
-    b = to_f(((const bf16*)f.gbc)[c]) +
-        to_f(expert_slice((const bf16*)f.bc, f.ids, 0, f.E, (size_t)C)[c]) +
-        to_f(expert_slice((const bf16*)f.bc, f.ids, 1, f.E, (size_t)C)[c]);
+  // threads 0-63: the three output biases' sum; with int8, the towers'
+  // column scales: tower 0's in threads 64-127, towers 1 and 2's in hi
+  __shared__ float bias_s[2 * HN], hi_s[Q ? 2 * HN : 1];
+  const int bcol = nb + threadIdx.x % HN;
+  float lo = 0.f, hi = 0.f;
+  if (threadIdx.x < HN) {
+    lo = Wt<bf16, W>::bias(bc[0], bcol, C) + Wt<bf16, W>::bias(bc[1], bcol, C) +
+         Wt<bf16, W>::bias(bc[2], bcol, C);
+    if constexpr (Q) hi = bc[1][bcol];
+  } else if constexpr (Q) {
+    lo = bc[0][bcol];
+    hi = bc[2][bcol];
   }
-  TileBias bias{bias_s, b};
+  TileBias bias{bias_s, lo}, scales{hi_s, hi};
   float acc[OutTile::MI][OutTile::NI][4];
   // k runs over [g_0 | g_1 | g_2] and [wc_0; wc_1; wc_2]; a k-tile lies in
   // one tower (M % 64 == 0). g comes from gate_kernel: wc streams first.
-  tc::gemm_tile<OutTile, false, false>(
-      acc, ring, kt0, kt1,
-      [&](int r, int c, int k0) -> const bf16* {
-        const int t = k0 / M;
-        return mb + r < N ? g + ((size_t)t * N + mb + r) * M + k0 - t * M + c : nullptr;
-      },
-      [&](int r, int c, int k0) -> const bf16* {
-        const int t = k0 / M;
-        return (t == 0 ? wc0 : t == 1 ? wc1 : wc2) + (size_t)(k0 - t * M + r) * C + nb + c;
-      },
-      [](const bf16*, int) {}, [] { tc::griddep_wait(); });
-  bias.share();
+  const auto src_g = [&](int r, int c, int k0) -> const bf16* {
+    const int t = k0 / M;
+    return mb + r < N ? g + ((size_t)t * N + mb + r) * M + k0 - t * M + c : nullptr;
+  };
+  const auto src_wc = [&](int r, int c, int k0) {
+    const int t = k0 / M;
+    return wc[t] + (size_t)(k0 - t * M + r) * C + nb + c;
+  };
+  if constexpr (Q) {
+    // each tower's sum in acc, scaled into total at its last k-tile here
+    float total[OutTile::MI][OutTile::NI][4];
+    tc::zero<OutTile::MI, OutTile::NI>(total);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int cn = (warp % OutTile::WN) * (OutTile::BN / OutTile::WN) + 2 * (lane & 3);
+    gemm_tile_q<OutTile>(
+        acc, smem_raw, kt0, kt1, src_g, src_wc,
+        [](int c) { return make_int2(c, c + 8); },
+        [&](int k) {
+          const int t = k * BK / M;
+          if (k + 1 < kt1 && (k + 1) * BK / M == t) return;
+#pragma unroll
+          for (int i = 0; i < OutTile::MI; ++i)
+#pragma unroll
+            for (int j = 0; j < OutTile::NI; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = cn + 8 * j + (e & 1);
+                total[i][j][e] += acc[i][j][e] * (t == 0 ? bias.at(1, c) : scales.at(t - 1, c));
+                acc[i][j][e] = 0.f;
+              }
+        },
+        [&] {
+          bias.share();
+          scales.share();
+          tc::griddep_wait();
+        });
+#pragma unroll
+    for (int i = 0; i < OutTile::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < OutTile::NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = total[i][j][e];
+  } else {
+    tc::gemm_tile<OutTile, false, false>(acc, reinterpret_cast<bf16*>(smem_raw), kt0, kt1, src_g,
+                                         src_wc, [](const bf16*, int) {},
+                                         [] { tc::griddep_wait(); });
+    bias.share();
+  }
   if (a.out.splits > 1) {
     float none[1];
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -162,6 +241,7 @@ inline FwdPlan fwd_plan(int N, int C, int M) {
   return p;
 }
 
+template <bool Q>
 inline int forward(const FfnArgs& f, int* counters, cudaStream_t st) {
   const FwdPlan p = fwd_plan(f.N, f.C, f.M);
   if (p.counters > kCounters) return (int)cudaErrorInvalidValue;
@@ -176,15 +256,19 @@ inline int forward(const FfnArgs& f, int* counters, cudaStream_t st) {
                   counters,
                   counters + (p.gate.splits > 1 ? p.gate_tiles : 0)};
   const dim3 gate_grid(f.M / HN, p.rt, 3 * p.gate.splits);
+  const auto smem = [](auto g) {
+    using G = decltype(g);
+    return Q ? QTile<G>::smem : G::template smem<false, false>();
+  };
   cudaError_t e =
       p.gate.per <= 2
-          ? tc::launch(gate_kernel<2>, gate_grid, GateTile<2>::smem<false, false>(), st,
+          ? tc::launch(gate_kernel<2, Q>, gate_grid, smem(GateTile<2>()), st,
                        tc::after_previous(), a)
-          : tc::launch(gate_kernel<4>, gate_grid, GateTile<4>::smem<false, false>(), st,
+          : tc::launch(gate_kernel<4, Q>, gate_grid, smem(GateTile<4>()), st,
                        tc::after_previous(), a);
   if (e != cudaSuccess) return (int)e;
-  e = tc::launch(out_kernel, dim3(f.C / OutTile::BN, p.rt, p.out.splits),
-                 OutTile::smem<false, false>(), st, tc::after_previous(), a);
+  e = tc::launch(out_kernel<Q>, dim3(f.C / OutTile::BN, p.rt, p.out.splits), smem(OutTile()),
+                 st, tc::after_previous(), a);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -197,8 +281,10 @@ extern "C" long long ffn_block_scratch_floats(int dtype, int N, int C, int M) {
   return ffn_scratch_floats(N, C, M);
 }
 
+// wq: 0 = weights in the compute dtype, 1 = int8 weights with fp32
+// [2, out] scale-bias rows in place of the biases (ffn_common.cuh).
 extern "C" int ffn_block_forward(
-    int dtype, const void* x, const void* mul, const void* bias, int film_rows,
+    int dtype, int wq, const void* x, const void* mul, const void* bias, int film_rows,
     const void* gwa, const void* gba, const void* gwb, const void* gbb, const void* gwc,
     const void* gbc, const void* wa, const void* ba, const void* wb, const void* bb,
     const void* wc, const void* bc, int E, const void* ids, int N, int C, int M, void* out,
@@ -207,8 +293,14 @@ extern "C" int ffn_block_forward(
                  bb, wc,  bc,   E, (const int*)ids, N,   C,   M,   out, h,   g,   (float*)scratch};
   const ldm::ConvArgs none{nullptr, nullptr, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ffn_tensor_cores(dtype, N, C, M)) return ldm::ftc::forward(a, (int*)counters, st);
-  if (dtype == 0) return ldm::ffn_chain<float>(a, none, 1, nullptr, st);
-  if (dtype == 1) return ldm::ffn_chain<__nv_bfloat16>(a, none, 1, nullptr, st);
+  if (ffn_tensor_cores(dtype, N, C, M))
+    return wq ? ldm::ftc::forward<true>(a, (int*)counters, st)
+              : ldm::ftc::forward<false>(a, (int*)counters, st);
+  if (dtype == 0)
+    return wq ? ldm::ffn_chain<float, int8_t>(a, none, 1, nullptr, st)
+              : ldm::ffn_chain<float, float>(a, none, 1, nullptr, st);
+  if (dtype == 1)
+    return wq ? ldm::ffn_chain<__nv_bfloat16, int8_t>(a, none, 1, nullptr, st)
+              : ldm::ffn_chain<__nv_bfloat16, __nv_bfloat16>(a, none, 1, nullptr, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,12 @@
 // columns in 8-column chunks (tile column 16 q + e is wa's column 8 q + e
 // for e < 8, wb's column 8 q + e - 8 otherwise), so that each thread holds
 // a and b of the same elements, and the h tile is read once for both.
+//
+// int8 weights (the quantized route, gemm_tile_q): the weight k-tiles
+// stream through the ring as int8, 16 values a 16-byte copy (half the
+// bytes of bf16), and each landed tile is converted into one bf16 tile
+// (exact: |q| <= 127), in the layout above, that the fragments are read
+// from; the column scales and biases act in the epilogues.
 #pragma once
 
 #include "ffn_common.cuh"
@@ -139,6 +145,90 @@ __device__ __forceinline__ void ab_tile(float (&acc)[G::MI][G::NI][4], bf16* rin
         return ((c & 8) ? wb : wa) + (size_t)(k0 + r) * M + nbh + (c >> 4) * 8;
       },
       [](const bf16*, int) {}, gate);
+}
+
+// 16 int8 (one 16-byte chunk) as 16 bf16: elements 0-7 in lo, 8-15 in
+// hi. Each byte, made unsigned (q + 128), goes into the mantissa of 2**23
+// and the float subtraction of 2**23 + 128 leaves q exactly: no
+// integer-to-float conversion instruction.
+__device__ __forceinline__ void i8x16_to_bf16(const uint4& raw, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
+  uint32_t o[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t u = w[k / 2], sel = 0x7540u + 2 * (k % 2);
+    const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
+    const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, sel + 1)) - 8388736.f;
+    o[k] = tc::pack_bf16(f0, f1);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// Shared memory of gemm_tile_q for block tile G: a ring of NSTAGE stages,
+// each a bf16 A k-tile and an int8 B k-tile (rows of BN bytes, padded by
+// 16), then the one bf16 B tile the fragments are read from.
+template <class G>
+struct QTile {
+  static constexpr int LA = G::template lda<false>();  // A row, elements
+  static constexpr int LQ = G::BN + 16;                // int8 B row, bytes
+  static constexpr int LB = G::template ldb<false>();  // bf16 B row, elements
+  static constexpr int A_BYTES = 2 * G::BM * LA;
+  static constexpr int STAGE = A_BYTES + BK * LQ;
+  static constexpr size_t smem = (size_t)G::NSTAGE * STAGE + 2 * (size_t)BK * LB;
+  static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte chunks");
+};
+
+// gemm_tile's product (A_T, B_T false) with int8 B: acc = A[tile rows,
+// k-tiles kt0..kt1) B[.., tile columns], B's elements converted exactly
+// to bf16. srcA(r, c, k0) as gemm_tile's; srcQ(r, c, k0) addresses the
+// 16 int8 of B's stored tile row r, columns c..c+15 (c a multiple of 16);
+// place(c) gives the bf16 tile columns of that chunk's two halves (so a
+// tile may interleave two matrices). after(kt) runs once the k-tile kt's
+// product is in acc; gate() as gemm_tile's (B streams first).
+template <class G, class SrcA, class SrcQ, class Place, class After, class Gate>
+__device__ __forceinline__ void gemm_tile_q(float (&acc)[G::MI][G::NI][4], unsigned char* smem,
+                                            int kt0, int kt1, SrcA srcA, SrcQ srcQ, Place place,
+                                            After after, Gate gate) {
+  using L = QTile<G>;
+  constexpr int CH = G::BN / 16;  // 16-byte chunks of an int8 row
+  static_assert(BK * CH % THREADS == 0, "whole passes of the conversion");
+  bf16* bs = reinterpret_cast<bf16*>(smem + G::NSTAGE * L::STAGE);
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp / G::WN) * (G::BM / G::WM), n0 = (warp % G::WN) * (G::BN / G::WN);
+  tc::zero<G::MI, G::NI>(acc);
+  auto a_tile = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * L::STAGE); };
+  auto q_tile = [&](int buf) { return smem + buf * L::STAGE + L::A_BYTES; };
+  // an int8 row of BN bytes copies as BN / 2 bf16-sized elements
+  auto load_q = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    tc::load_tile<BK, G::BN / 2, THREADS>(
+        reinterpret_cast<bf16*>(q_tile(buf)), L::LQ / 2, BK,
+        [&](int r, int c) { return reinterpret_cast<const bf16*>(srcQ(r, 2 * c, k0)); });
+  };
+  auto load_a = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    tc::load_tile<G::BM, BK, THREADS>(a_tile(buf), L::LA, G::BM,
+                                  [&](int r, int c) { return srcA(r, c, k0); });
+  };
+  int kt = kt0;
+  auto compute = [&](int buf) {
+    const unsigned char* q = q_tile(buf);
+#pragma unroll
+    for (int u = 0; u < BK * CH / THREADS; ++u) {
+      const int idx = threadIdx.x + u * THREADS, r = idx / CH, c = (idx % CH) * 16;
+      uint4 lo, hi;
+      i8x16_to_bf16(*reinterpret_cast<const uint4*>(q + r * L::LQ + c), lo, hi);
+      const int2 dst = place(c);
+      *reinterpret_cast<uint4*>(bs + r * L::LB + dst.x) = lo;
+      *reinterpret_cast<uint4*>(bs + r * L::LB + dst.y) = hi;
+    }
+    __syncthreads();  // the bf16 tile is whole; the next k-step's barrier frees it
+    tc::warp_mma<G::MI, G::NI, false, false>(acc, a_tile(buf), L::LA, bs, L::LB, m0, n0, BK);
+    after(kt++);
+  };
+  tc::pipeline<G::NSTAGE>(kt1 - kt0, load_q, gate, load_a, compute);
 }
 
 // Loads the biases of a tile's 64 columns before its k-loop (they are

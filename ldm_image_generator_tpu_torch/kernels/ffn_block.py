@@ -46,6 +46,16 @@ atomics on data: reruns are bitwise equal. ``ffn_tower_bwd`` composes
 it with the expert scatter and the norm/FiLM backward, as the JAX
 package's ``_ffn_tower_bwd`` (:681) does, and ``ffn_block`` is an
 autograd Function around both directions.
+
+int8 weights (``ffn_block_pallas(..., quantized=True)``): ``quantize_cols``
+makes each weight matrix int8 with an fp32 [2, out] row pair [scale;
+bias] in place of its bias (stacked experts [E, 2, out]); the wrappers
+take the weights so quantized and run the same routes and launches
+(csrc/ffn_common.cuh, csrc/ffn_block.cu): each product on the weights
+converted to the compute dtype (exact, |q| <= 127) with fp32 sums, then
+its column scale and bias. That halves the weight bytes of bf16, which
+bound a batch-1 call. These calls have no backward yet: with grad mode
+on they raise (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -54,9 +64,13 @@ import torch
 from ldm_image_generator_tpu_torch.kernels import _build
 from ldm_image_generator_tpu_torch.ops.norm import channel_norm
 
-# calls of ffn_block and of ffn_block_bwd that launched their CUDA chains
+# calls of ffn_block (full-precision and int8 weights) and of
+# ffn_block_bwd that launched their CUDA chains
 launches = 0
+int8_launches = 0
 bwd_launches = 0
+# weight tensors quantize_cols has quantized
+quantizations = 0
 
 # {device index: int32 split-K counters}: zero before a tensor-core call,
 # left zero by it (the last block of each split tile resets its counter);
@@ -82,6 +96,57 @@ def _check_chunk_aligned(lib, code, n, c, m, *tensors) -> None:
                          "and weight matrices that start on 16-byte boundaries")
 
 
+def quantize_cols(w: torch.Tensor, bias: torch.Tensor):
+    """Symmetric per-output-column int8 quantization (the JAX package's
+    quantize_cols, ldm_image_generator_tpu/kernels/ffn_block.py:56):
+    w [..., in, out], bias [..., out] -> (int8 w, fp32 [..., 2, out] rows
+    [scale; bias]), scale = max |w| / 127 per output column floored at
+    1e-12, w / scale rounded half to even."""
+    global quantizations
+    quantizations += 1
+    wf = w.detach().float()
+    # divided by a tensor: on the card a Python-scalar divisor rounds some
+    # scales one ulp from the quotient (as a product with the reciprocal
+    # would), and then some weights to the other integer, so the card's
+    # int8 weights would differ from the CPU's and the JAX package's
+    amax = wf.abs().amax(dim=-2)
+    scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-12)
+    wq = torch.round(wf / scale.unsqueeze(-2)).to(torch.int8)
+    return wq, torch.stack([scale, bias.detach().float()], dim=-2)
+
+
+def dequantize_cols(wq: torch.Tensor, sb: torch.Tensor):
+    """Inverse of quantize_cols: (fp32 w, fp32 bias)."""
+    return wq.float() * sb[..., 0:1, :], sb[..., 1, :]
+
+
+def fake_quantize(w: torch.Tensor, bias: torch.Tensor):
+    """(w, bias) rounded through the int8 scheme, in their dtypes, with
+    straight-through gradients to the full-precision tensors (the JAX
+    package's fake_quantize, :329): w + detach(dequant(quant(w)) - w)."""
+    wdq, b = dequantize_cols(*quantize_cols(w, bias))
+    wdq, b = wdq.to(w.dtype), b.to(bias.dtype)
+    return w + (wdq - w).detach(), bias + (b - bias).detach()
+
+
+def quantize_ffn(weights) -> tuple:
+    """The 12 FFN weights (gwa, gba, ..., wc, bc: matrix, bias pairs) as
+    quantize_cols makes them: each matrix int8, each bias its [2, out]
+    scale-bias rows. Quantize the weights in the compute dtype, as the
+    JAX package's RandomMoE casts them before its kernels quantize."""
+    return tuple(t for w, b in zip(weights[0::2], weights[1::2])
+                 for t in quantize_cols(w, b))
+
+
+def refuse_int8_grad(quantized: bool) -> None:
+    """int8 weights have no backward yet: raise with grad mode on."""
+    if quantized and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "int8 FFN weights run forward only (sampling, under "
+            "torch.no_grad()); training through them, the straight-through "
+            "backward on the dequantized weights, is ROADMAP A15")
+
+
 def norm_film(x: torch.Tensor, film_mul: torch.Tensor,
               film_bias: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
     """h = T(channel_norm(x) * film_mul + film_bias) on rows [N, C], the
@@ -96,21 +161,32 @@ def norm_film(x: torch.Tensor, film_mul: torch.Tensor,
 def reglu_sum_fp32(h, gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc,
                    expert_ids) -> torch.Tensor:
     """fp32 sum of the general and the two selected experts' ReGLUs of
-    h [N, C], output biases included (the gate rounded to h.dtype)."""
+    h [N, C], output biases included (the gate rounded to h.dtype). With
+    int8 weights (quantize_cols) each product runs on the weights cast up
+    and takes its column scale before the bias, and each tower's output
+    product its own column scale, as the Pallas kernel does."""
+    q = gwa.dtype == torch.int8
     ids = expert_ids.long()
     sel = lambda w: w.index_select(0, ids).float()
     ea, eba, eb, ebb, ec, ebc = sel(wa), sel(ba), sel(wb), sel(bb), sel(wc), sel(bc)
     hf = h.float()
-    out = gbc.float() + ebc[0] + ebc[1]
-    for wa_, ba_, wb_, bb_, wc_ in (
-        (gwa.float(), gba.float(), gwb.float(), gbb.float(), gwc.float()),
-        (ea[0], eba[0], eb[0], ebb[0], ec[0]),
-        (ea[1], eba[1], eb[1], ebb[1], ec[1]),
+    # a bias, or with int8 rows [scale; bias]: y * scale + bias rounded
+    # once (a fused multiply-add, as the CUDA kernels and XLA compute it:
+    # the product and the sum are exact in fp64)
+    proj = lambda y, b: ((y.double() * b[0].double() + b[1].double()).float()
+                         if q else y + b)
+    bias = lambda b: b[1] if q else b
+    out = bias(gbc.float()) + bias(ebc[0]) + bias(ebc[1])
+    for wa_, ba_, wb_, bb_, wc_, bc_ in (
+        (gwa.float(), gba.float(), gwb.float(), gbb.float(), gwc.float(), gbc.float()),
+        (ea[0], eba[0], eb[0], ebb[0], ec[0], ebc[0]),
+        (ea[1], eba[1], eb[1], ebb[1], ec[1], ebc[1]),
     ):
-        a = hf @ wa_ + ba_
-        b = hf @ wb_ + bb_
+        a = proj(hf @ wa_, ba_)
+        b = proj(hf @ wb_, bb_)
         g = (a * torch.relu(b)).to(h.dtype)
-        out = out + g.float() @ wc_
+        y = g.float() @ wc_
+        out = out + (y * bc_[0] if q else y)
     return out
 
 
@@ -124,23 +200,29 @@ def ffn_block_plain(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
 
 
 def check_ffn_args(x, film_mul, film_bias, weights, expert_ids):
-    """Shapes, types and placement the CUDA chain takes; raises otherwise."""
+    """Shapes, types and placement the CUDA chain takes; raises otherwise.
+    Weights in x's dtype, or int8 matrices with fp32 [2, out] / [E, 2,
+    out] scale-bias rows in place of the biases (quantize_cols)."""
     n, c = x.shape
     gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc = weights
     e, _, m = wa.shape
+    q = gwa.dtype == torch.int8
+    # (shape, dtype) of a weight matrix and of a bias of `out` columns
+    mat = lambda *s: (s, torch.int8 if q else x.dtype)
+    vec = lambda *s: ((*s[:-1], 2, s[-1]), torch.float32) if q else (s, x.dtype)
     want = {
-        "film_mul": (film_mul, (film_mul.shape[0], c)),
-        "film_bias": (film_bias, film_mul.shape),
-        "gwa": (gwa, (c, m)), "gba": (gba, (m,)), "gwb": (gwb, (c, m)),
-        "gbb": (gbb, (m,)), "gwc": (gwc, (m, c)), "gbc": (gbc, (c,)),
-        "wa": (wa, (e, c, m)), "ba": (ba, (e, m)), "wb": (wb, (e, c, m)),
-        "bb": (bb, (e, m)), "wc": (wc, (e, m, c)), "bc": (bc, (e, c)),
+        "film_mul": (film_mul, ((film_mul.shape[0], c), x.dtype)),
+        "film_bias": (film_bias, (tuple(film_mul.shape), x.dtype)),
+        "gwa": (gwa, mat(c, m)), "gba": (gba, vec(m)), "gwb": (gwb, mat(c, m)),
+        "gbb": (gbb, vec(m)), "gwc": (gwc, mat(m, c)), "gbc": (gbc, vec(c)),
+        "wa": (wa, mat(e, c, m)), "ba": (ba, vec(e, m)), "wb": (wb, mat(e, c, m)),
+        "bb": (bb, vec(e, m)), "wc": (wc, mat(e, m, c)), "bc": (bc, vec(e, c)),
     }
-    for name, (t, shape) in want.items():
+    for name, (t, (shape, dtype)) in want.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(shape)}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, want {x.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
     if n % film_mul.shape[0]:
         raise ValueError(f"film rows {film_mul.shape[0]} do not divide {n}")
     if expert_ids.dtype != torch.int32 or tuple(expert_ids.shape) != (2,):
@@ -157,7 +239,7 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
                                gwc, gbc, wa, ba, wb, bb, wc, bc, expert_ids)
     weights = (gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc)
     n, c, m, e = check_ffn_args(x, film_mul, film_bias, weights, expert_ids)
-    code = _build.dtype_code(x)
+    code, q = _build.dtype_code(x), gwa.dtype == torch.int8
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     g = torch.empty((3, n, m), dtype=x.dtype, device=x.device)
@@ -169,12 +251,15 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, expert_ids, out,
                          h, g, scratch, _split_counters(lib, x.device))
     rc = lib.ffn_block_forward(
-        code, p[0], p[1], p[2], film_mul.shape[0], *p[3:15], e, p[15],
-        n, c, m, *p[16:], _build.current_stream(),
+        code, int(q), p[0], p[1], p[2], film_mul.shape[0], *p[3:15], e,
+        p[15], n, c, m, *p[16:], _build.current_stream(),
     )
     _build.check(lib, rc, "ffn_block")
-    global launches
-    launches += 1
+    global launches, int8_launches
+    if q:
+        int8_launches += 1
+    else:
+        launches += 1
     return out, h
 
 
@@ -329,7 +414,9 @@ def ffn_block(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     CPU tensors take the plain versions; CUDA tensors launch the kernel
     chains (forward and backward) or raise. With grad mode off
     (sampling) the autograd Function is skipped: it would record
-    nothing and costs host time per call."""
+    nothing and costs host time per call. int8 weights (quantize_cols)
+    run with grad mode off only."""
+    refuse_int8_grad(gwa.dtype == torch.int8)
     fn = _FfnBlock.apply if torch.is_grad_enabled() else _ffn_block_forward
     return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
               wb, bb, wc, bc, expert_ids)

@@ -14,6 +14,7 @@ import math
 import torch
 
 from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
+from ldm_image_generator_tpu_torch.kernels.ffn_block import quantize_ffn
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -24,7 +25,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 class Call:
     """One kernel call shape on the path and its count per denoise step."""
 
-    kernel: str            # block_core | ffn_block | window_mha, or *_bwd; vq
+    kernel: str            # block_core | ffn_block (or *_int8: int8 FFN
+                           # weights) | window_mha, or *_bwd; vq
     batch: int
     hw: int                # map side (block kernels; vq: latent side) or 0
     c: int                 # channels (vq: vector width D)
@@ -45,11 +47,12 @@ class Call:
 
 
 def path_calls(batch: int, latent: int = 32,
-               cfg: UNetConfig = UNetConfig()) -> list:
+               cfg: UNetConfig = UNetConfig(), int8: bool = False) -> list:
     """Every distinct kernel call of one UNet forward at `batch`: the
-    block body (block_core at batch <= 2, else ffn_block) of every
-    block, and window_mha for the attention blocks."""
-    body = "block_core" if batch <= 2 else "ffn_block"
+    block body (block_core at batch <= 2, else ffn_block; with int8 FFN
+    weights their *_int8 routes) of every block, and window_mha for the
+    attention blocks."""
+    body = ("block_core" if batch <= 2 else "ffn_block") + ("_int8" if int8 else "")
     calls = []
     ws = cfg.window_size
     for i, (c, nb) in enumerate(zip(cfg.channels, cfg.stages)):
@@ -96,7 +99,8 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
                 gen: torch.Generator) -> tuple:
     """Positional arguments of the kernel wrapper for `call` (weights at
     lecun scale, biases and FiLM random, film at batch 1; FFN width M = C
-    as ffn_mul=1 gives), cast to dtype."""
+    as ffn_mul=1 gives), cast to dtype; for a *_int8 call the FFN weights
+    then go through quantize_cols."""
     c = m = call.c
     e = 4
     cast = lambda t: t.to(dtype).contiguous()
@@ -124,6 +128,8 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
     ffn = (w(c, m, fan=c), b(m), w(c, m, fan=c), b(m), w(m, c, fan=m), b(c),
            w(e, c, m, fan=c), b(e, m), w(e, c, m, fan=c), b(e, m),
            w(e, m, c, fan=m), b(e, c))
+    if call.kernel.endswith("_int8"):
+        ffn = quantize_ffn(ffn)
     ids = torch.tensor((1, 3), dtype=torch.int32, device=device)
     if call.kernel == "ffn_block_bwd":
         # h as the norm/FiLM output (about unit scale), g an out-cotangent
@@ -131,7 +137,7 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
         g = cast(_randn((bt * hw * hw, c), gen, device))
         gwa, gba, gwb, gbb, gwc, _, wa, ba, wb, bb, wc, _ = ffn
         return (h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids)
-    if call.kernel == "ffn_block":
+    if call.kernel.startswith("ffn_block"):
         return (x.reshape(-1, c), mul.reshape(-1, c), bias.reshape(-1, c),
                 *ffn, ids)
     conv_k = w(3, 3, 32, c, fan=9 * 32)
@@ -173,10 +179,15 @@ def work(call: Call, dtype: torch.dtype):
         return nbytes, flops
     rows = call.batch * call.hw * call.hw
     film = 2 * call.hw * call.hw * c
-    weights = 3 * (3 * c * m + 2 * m + c)  # general + two experts
-    nbytes = it * (rows * c + film + weights + 2 * rows * c) + 8
+    # general + two experts: matrices and biases, or with int8 the
+    # matrices at 1 byte and an fp32 scale and bias per output column
+    if call.kernel.endswith("_int8"):
+        weights = 3 * (3 * c * m + 8 * (2 * m + c))
+    else:
+        weights = it * 3 * (3 * c * m + 2 * m + c)
+    nbytes = it * (rows * c + film + 2 * rows * c) + weights + 8
     flops = 18 * rows * c * m
-    if call.kernel == "block_core":
+    if call.kernel.startswith("block_core"):
         nbytes += it * (9 * 32 * c + c)
         flops += 2 * rows * c * 9 * 32
     return nbytes, flops
@@ -235,3 +246,57 @@ def vq_mismatches(x: torch.Tensor, codebook: torch.Tensor, got: torch.Tensor,
         scales.append(e_sq + 2.0 * (xr * e).abs().sum(-1))
     rel = (gaps[0] - gaps[1]).abs() / torch.maximum(*scales)
     return int(rows.numel()), float(rel.max())
+
+
+GUARD = 1 << 16   # elements of sentinel on each side of a guarded buffer
+SENTINEL = 0xA5   # every byte of a guard
+
+
+class GuardedBuffers:
+    """Within `with GuardedBuffers() as g:`, torch.empty, torch.empty_like
+    and torch.zeros (as the kernel wrappers call them) place each tensor
+    inside a larger buffer whose ends hold a sentinel, so that a kernel's
+    write past either end of its buffer shows in g.faults() once the
+    device has synchronised (compute-sanitizer does not run on the H100
+    machines)."""
+
+    def __init__(self):
+        self.made = []  # (buffer, numel, zeroed)
+        self._saved = None
+
+    def make(self, shape, dtype, device, zeroed=False):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        numel = math.prod(shape)
+        buf = self._saved[0](numel + 2 * GUARD, dtype=dtype, device=device)
+        buf.view(torch.uint8).fill_(SENTINEL)
+        inner = buf[GUARD:GUARD + numel]
+        if zeroed:
+            inner.zero_()
+        self.made.append((buf, numel, zeroed))
+        return inner.view(shape)
+
+    def __enter__(self):
+        self._saved = (torch.empty, torch.empty_like, torch.zeros)
+        torch.empty = lambda shape, dtype, device: self.make(shape, dtype, device)
+        torch.empty_like = lambda t: self.make(t.shape, t.dtype, t.device)
+        torch.zeros = lambda shape, dtype, device: self.make(shape, dtype, device, True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.empty, torch.empty_like, torch.zeros = self._saved
+        return False
+
+    def faults(self) -> list:
+        """(buffer index, what) for each guard written and each zeroed
+        buffer (the split counters) not left zero."""
+        out = []
+        for i, (buf, numel, zeroed) in enumerate(self.made):
+            raw = buf.view(torch.uint8)
+            edge = GUARD * buf.element_size()
+            if not bool((raw[:edge] == SENTINEL).all()):
+                out.append((i, "before"))
+            if not bool((raw[raw.numel() - edge:] == SENTINEL).all()):
+                out.append((i, "after"))
+            if zeroed and bool((buf[GUARD:GUARD + numel] != 0).any()):
+                out.append((i, "not left zero"))
+        return out

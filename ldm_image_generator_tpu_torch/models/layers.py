@@ -7,7 +7,9 @@ checkpoint across by flattening names. Modules compute in the dtype of
 the activations they receive and cast each parameter to it at use, as
 flax's `dtype` field does: training keeps fp32 parameters and computes
 in bf16 (the cast's gradient reaches the fp32 parameter); the sampling
-pipeline casts the modules once, so there the cast is a no-op.
+pipeline casts copies of the modules once, so there the cast is a no-op.
+With int8 FFN weights (RandomMoE quant='int8', sampling only) each block
+quantizes its cast FFN weights once per weight version and keeps them.
 
 The block body runs through the port's kernel wrappers: block_core at
 batch <= 2, ffn_block plus a plain grouped conv above, and window_mha for
@@ -32,7 +34,7 @@ from ldm_image_generator_tpu_torch.kernels.block_core import (
     block_core,
     grouped_conv3x3,
 )
-from ldm_image_generator_tpu_torch.kernels.ffn_block import ffn_block
+from ldm_image_generator_tpu_torch.kernels.ffn_block import ffn_block, quantize_ffn
 from ldm_image_generator_tpu_torch.kernels.window_attention import (
     NEG_INF,
     window_mha,
@@ -228,12 +230,20 @@ class RandomMoE(nn.Module):
     block's norm and FiLM (and, given conv params, its grouped conv and
     residual). Experts are stacked [E, ...]; the routed pair arrives as
     expert ids [2] int32, a pair id into pair_table, or the configured
-    fixed indices."""
+    fixed indices. quant='int8' runs the kernels' int8 routes on the
+    weights cast to the compute dtype and then quantized (quantize_cols);
+    those raise with grad mode on (training through them is ROADMAP A15)."""
 
     def __init__(self, channels: int, init: ParamInit, ffn_mul: int = 1,
                  num_experts: int = 4,
-                 fixed_expert_indices: Optional[Sequence[int]] = None):
+                 fixed_expert_indices: Optional[Sequence[int]] = None,
+                 quant: str = "none"):
         super().__init__()
+        if quant not in ("none", "int8"):
+            raise ValueError(f"ffn quant {quant!r}: 'none' or 'int8'")
+        self.quant = quant
+        # (weight version, int8 weights) of the last quantization
+        self._int8 = None
         c, m, e = channels, channels * ffn_mul, num_experts
         self.wa = init.lecun(e, c, m, fan_in=c)
         self.wb = init.lecun(e, c, m, fan_in=c)
@@ -267,6 +277,21 @@ class RandomMoE(nn.Module):
         raise ValueError("RandomMoE needs expert_ids, a pair_id or "
                          "fixed_expert_indices (routing is drawn by the UNet)")
 
+    def ffn_weights(self, dtype: torch.dtype) -> tuple:
+        """The 12 FFN weights as the kernels take them at compute dtype:
+        cast, or with quant='int8' cast and quantized, made once per
+        weight version (a parameter's storage and in-place version) and
+        kept."""
+        w = (self.gwa, self.gba, self.gwb, self.gbb, self.gwc, self.gbc,
+             self.wa, self.ba, self.wb, self.bb, self.wc, self.bc)
+        if self.quant == "none":
+            return cast_all(w, dtype)
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in w)
+        if self._int8 is None or self._int8[0] != key:
+            with torch.no_grad():
+                self._int8 = (key, quantize_ffn(cast_all(w, dtype)))
+        return self._int8[1]
+
     def forward(self, x, film_mul, film_bias, conv_kernel=None,
                 conv_bias=None, add_residual: bool = False, expert_ids=None,
                 pair_id=None):
@@ -275,15 +300,12 @@ class RandomMoE(nn.Module):
         Parameters, film and conv params are cast to x.dtype."""
         ids = self.expert_ids(expert_ids, pair_id)
         dt = x.dtype
-        w = (self.gwa, self.gba, self.gwb, self.gbb, self.gwc, self.gbc,
-             self.wa, self.ba, self.wb, self.bb, self.wc, self.bc)
-        if conv_kernel is not None:
-            w = w + (conv_kernel, conv_bias)
-        w = cast_all(w, dt)
+        w = self.ffn_weights(dt)
         film_mul, film_bias = cast_all((film_mul, film_bias), dt)
         if conv_kernel is not None:
-            return block_core(x, film_mul, film_bias, *w, ids,
-                              add_residual=add_residual)
+            conv_kernel, conv_bias = cast_all((conv_kernel, conv_bias), dt)
+            return block_core(x, film_mul, film_bias, *w, conv_kernel,
+                              conv_bias, ids, add_residual=add_residual)
         c = x.shape[-1]
         out, h = ffn_block(x.reshape(-1, c), film_mul.reshape(-1, c),
                            film_bias.reshape(-1, c), *w, ids)
@@ -357,14 +379,16 @@ class SwinBlock(nn.Module):
     def __init__(self, channels: int, init: ParamInit, head_dim: int = 32,
                  window_size: int = 6, shift: int = 0, attention: bool = True,
                  num_experts: int = 4, ffn_mul: int = 1,
-                 fixed_expert_indices: Optional[Sequence[int]] = None):
+                 fixed_expert_indices: Optional[Sequence[int]] = None,
+                 ffn_quant: str = "none"):
         super().__init__()
         c = channels
         heads = max(1, c // head_dim)
         self.attention = attention
         self.encodings = Encodings(c, init)
         self.ffn = RandomMoE(c, init, ffn_mul=ffn_mul, num_experts=num_experts,
-                             fixed_expert_indices=fixed_expert_indices)
+                             fixed_expert_indices=fixed_expert_indices,
+                             quant=ffn_quant)
         self.conv = GroupedConv2d(c, init, group_width=min(head_dim, c))
         if attention:
             self.self_attention = WindowAttention(
@@ -403,7 +427,8 @@ class SwinStack(nn.Module):
                  head_dim: int = 32, window_size: int = 6,
                  attention: bool = True, num_experts: int = 4,
                  ffn_mul: int = 1,
-                 fixed_expert_indices: Optional[Sequence[int]] = None):
+                 fixed_expert_indices: Optional[Sequence[int]] = None,
+                 ffn_quant: str = "none"):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
@@ -413,6 +438,7 @@ class SwinStack(nn.Module):
                 attention=attention and i >= num_blocks - 2,
                 num_experts=num_experts, ffn_mul=ffn_mul,
                 fixed_expert_indices=fixed_expert_indices,
+                ffn_quant=ffn_quant,
             ))
 
     def blocks(self):

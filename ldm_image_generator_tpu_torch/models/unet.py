@@ -20,6 +20,10 @@ parameters train in bf16 compute; by default the parameters' dtype.
 
 FiLM schedule: ``collect_film`` evaluates every block's FiLM tower for a
 batch of timesteps; ``forward(film=...)`` replays one step's slice.
+
+int8 FFN weights (``ffn_quant='int8'``, as the JAX package's UNetConfig):
+every block's MoE FFN runs the kernels' int8 routes, with grad mode off;
+``prepare_ffn`` makes the int8 weights ahead of a sampling run.
 """
 from __future__ import annotations
 
@@ -32,10 +36,30 @@ from ldm_image_generator_tpu_torch.config import UNetConfig, resolve_device
 from ldm_image_generator_tpu_torch.models.layers import (
     Dense,
     ParamInit,
+    RandomMoE,
     SwinStack,
     cast,
     pair_table,
 )
+
+
+def refusal(cfg: UNetConfig):
+    """The message refusing a config field this port would otherwise
+    accept and ignore, naming the ROADMAP item that ports it, or None."""
+    todo = [
+        (cfg.num_classes, "num_classes > 0 (class conditioning): A3"),
+        (cfg.experts_per_call != 2, "experts_per_call != 2: A12"),
+        (cfg.ablate_branches, "ablate_branches: A12"),
+        (cfg.remat, "remat=True (rematerialized stacks): A7"),
+        (cfg.ffn_backend not in ("auto", "pallas"),
+         f"ffn_backend={cfg.ffn_backend!r} (the JAX package's XLA "
+         "composition, which rounds bf16 at other points than the kernels)"),
+        (cfg.attention_backend not in ("auto", "pallas"),
+         f"attention_backend={cfg.attention_backend!r} (the JAX package's "
+         "XLA composition)"),
+    ]
+    hits = [what for hit, what in todo if hit]
+    return "not ported yet: " + "; ".join(hits) if hits else None
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
@@ -93,11 +117,9 @@ class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig(), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (cfg.num_classes or cfg.experts_per_call != 2
-                or cfg.ffn_quant != "none" or cfg.ablate_branches):
-            raise NotImplementedError(
-                "class conditioning, int8 FFN weights, branch ablation and "
-                "routings other than 2-of-E are not ported yet")
+        why = refusal(cfg)
+        if why:
+            raise NotImplementedError(f"UNetConfig: {why} (see ROADMAP.md)")
         dev = resolve_device(device)
         init = ParamInit(dev, generator)
         self.cfg = cfg
@@ -109,7 +131,8 @@ class UNet(nn.Module):
             chs[i], stages[i], init, head_dim=cfg.head_dim,
             window_size=cfg.window_size, attention=attn,
             num_experts=cfg.num_experts, ffn_mul=cfg.ffn_mul,
-            fixed_expert_indices=cfg.fixed_expert_indices)
+            fixed_expert_indices=cfg.fixed_expert_indices,
+            ffn_quant=cfg.ffn_quant)
         for i in range(n):
             self.add_module(f"enc_stage_{i}", stack(i, False))
             if i != n - 1:
@@ -128,6 +151,15 @@ class UNet(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.encoder_first.kernel.dtype
+
+    def prepare_ffn(self, dtype: torch.dtype) -> None:
+        """Make every block's FFN weights for compute dtype now: with
+        ffn_quant='int8' the int8 weights a forward would otherwise make
+        at its first call (a no-op otherwise)."""
+        if self.cfg.ffn_quant == "int8":
+            for m in self.modules():
+                if isinstance(m, RandomMoE):
+                    m.ffn_weights(dtype)
 
     def stage_names(self) -> list:
         """Stack names in routing-plan order."""

@@ -2,11 +2,15 @@
 LDMPipeline.sample in ldm_image_generator_tpu/pipelines.py.
 
 init noise -> DDIM over the UNet in latent space (FiLM schedule computed
-once per call) -> VAE decode -> clamp -> uint8. The pipeline casts its
-modules to the compute dtype once, at construction.
+once per call) -> VAE decode -> clamp -> uint8. The pipeline samples with
+copies of the caller's modules cast to the compute dtype (and, with
+ffn_quant='int8', their int8 FFN weights), made once per weight version
+of those modules; the caller's modules are left as they are.
 """
 from __future__ import annotations
 
+import copy
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,18 +42,55 @@ def to_uint8(img: torch.Tensor) -> torch.Tensor:
     return (img * 127.5 + 127.5).to(torch.uint8)
 
 
+def weight_version(*modules) -> tuple:
+    """A key that changes when a parameter or buffer of the modules is
+    replaced or changed in place: each tensor's storage, dtype and
+    in-place version counter."""
+    return tuple((t.data_ptr(), t.dtype, t._version) for m in modules
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+def cast_copy(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """`module` itself when its floating tensors are all in dtype, else a
+    copy with them cast (each parameter cast straight into the copy, so
+    the module is never held twice at its own width)."""
+    tensors = list(itertools.chain(module.parameters(), module.buffers()))
+    if all(t.dtype == dtype for t in tensors if t.is_floating_point()):
+        return module
+    memo = {id(p): torch.nn.Parameter(p.detach().to(dtype, copy=True),
+                                      requires_grad=p.requires_grad)
+            for p in module.parameters()}
+    return copy.deepcopy(module, memo).to(dtype).eval()
+
+
 class LDMPipeline:
     """Unconditional DDIM latent diffusion sampler over a UNet and a VAE
-    Decoder. Both modules are cast to `dtype` in place."""
+    Decoder. The caller's modules are not changed: the pipeline samples
+    with copies cast to `dtype` (the modules themselves where they already
+    are in it) and, with the UNet's ffn_quant='int8', their int8 FFN
+    weights, all made here and made again only when the modules' weights
+    change (memoized per weight version, as the JAX package's _PrepCache):
+    a sample call of unchanged weights casts and quantizes nothing."""
 
     def __init__(self, unet: UNet, decoder: Decoder,
                  ddpm_cfg: DDPMConfig = DDPMConfig(),
                  dtype: torch.dtype = torch.bfloat16):
-        self.unet = unet.to(dtype).eval()
-        self.decoder = decoder.to(dtype).eval()
         self.schedule = make_schedule(ddpm_cfg)
         self.prediction = ddpm_cfg.prediction
         self.dtype = dtype
+        self._src = (unet, decoder)
+        self._version = None
+        self._prepare()
+
+    def _prepare(self) -> None:
+        """The cast copies (and int8 FFN weights) of the caller's modules'
+        current weights, made unless this weight version has them."""
+        version = weight_version(*self._src)
+        if version == self._version:
+            return
+        self.unet, self.decoder = (cast_copy(m, self.dtype) for m in self._src)
+        self.unet.prepare_ffn(self.dtype)
+        self._version = version
 
     @classmethod
     def random(cls, unet_cfg: UNetConfig = UNetConfig(),
@@ -74,6 +115,7 @@ class LDMPipeline:
         """denoise(x, t) -> fp32 model output. With film_cache the FiLM
         towers run once here for every sampler timestep and each step
         replays its slice; a timestep outside that schedule raises."""
+        self._prepare()
         dev = self.device
         routing_gen = (None if self.unet.cfg.fixed_expert_indices is not None
                        else generator)

@@ -7,7 +7,6 @@ without the repo's conftest:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_port_cuda.py
 """
 import dataclasses
-import math
 
 import pytest
 import torch
@@ -21,6 +20,7 @@ from ldm_image_generator_tpu_torch.kernels.workloads import (
     BWD_REL,
     VQ_TIE_REL,
     Call,
+    GuardedBuffers,
     bwd_scale_err,
     make_inputs,
     path_calls,
@@ -34,6 +34,9 @@ torch.set_num_threads(1)
 WRAPPERS = {
     "block_core": (tbc, tbc.block_core, tbc.block_core_plain),
     "ffn_block": (tffn, tffn.ffn_block, tffn.ffn_block_plain),
+    # int8 FFN weights: the same wrappers, counted in int8_launches
+    "block_core_int8": (tbc, tbc.block_core, tbc.block_core_plain),
+    "ffn_block_int8": (tffn, tffn.ffn_block, tffn.ffn_block_plain),
     "window_mha": (tattn, lambda *a: tattn.window_mha(*a[:-1], num_heads=a[-1]),
                    lambda *a: tattn.window_mha_plain(*a[:-1], num_heads=a[-1])),
 }
@@ -86,24 +89,36 @@ FFN_SHAPES = [dataclasses.replace(c, kernel="ffn_block")
               if c.kernel in ("block_core", "ffn_block")] + [
     Call("ffn_block", 10, 2, 128, 1), Call("ffn_block", 1, 10, 128, 1),
 ] + FFN_FMA_ONLY
+# int8 FFN weights: block_core at the B=1 path shapes (latent 32 and 64)
+# and an odd map; ffn_block at every FFN shape above (B=4 is the path's;
+# the B=1 rows split k, so splits span the output kernel's towers)
+INT8_CALLS = [dataclasses.replace(c, kernel="block_core_int8")
+              for c in path_calls(1) + path_calls(1, latent=64) + [Call("block_core", 2, 5, 64, 1)]
+              if c.kernel == "block_core"] + [
+    dataclasses.replace(c, kernel="ffn_block_int8") for c in FFN_SHAPES]
 CALLS = [c for c in path_calls(1) + path_calls(4)] + [
     Call("block_core", 2, 5, 64, 1),        # odd map, C below 128, 2 images
 ] + MHA_EDGES
-CALLS += [c for c in FFN_SHAPES if c not in CALLS]
+CALLS += [c for c in FFN_SHAPES if c not in CALLS] + INT8_CALLS
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("call", CALLS, ids=lambda c: f"{c.kernel}{c.label}")
 def test_kernel_matches_plain(card, call, dtype):
+    """Each wrapper's kernel against its plain version; an int8 call
+    (grad mode off) launches the int8 chain, never the full-precision one."""
     mod, kernel, plain = WRAPPERS[call.kernel]
     gen = torch.Generator(device=card).manual_seed(0)
     args = make_inputs(call, dtype, card, gen)
     if call.kernel == "window_mha":
         args = args + (call.heads,)
-    before = mod.launches
-    got = kernel(*args)
-    assert mod.launches == before + 1
+    int8 = call.kernel.endswith("_int8")
+    counts = lambda: (mod.launches, getattr(mod, "int8_launches", 0))
+    before = counts()
+    with torch.set_grad_enabled(not int8):
+        got = kernel(*args)
+    assert counts() == (before[0] + (not int8), before[1] + int8)
     want = plain(*args)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -182,54 +197,6 @@ def test_window_mha_reruns_bitwise_equal(card, call, direction):
             assert torch.equal(a, b), i
 
 
-GUARD = 1 << 16   # elements of sentinel on each side of a guarded buffer
-SENTINEL = 0xA5   # every byte of a guard
-
-
-class _GuardedBuffers:
-    """Stand-ins for torch.empty, torch.empty_like and torch.zeros that
-    place each tensor inside a larger buffer whose ends hold a sentinel,
-    so that a kernel's write past either end of its buffer shows."""
-
-    def __init__(self):
-        self.empty, self.zeros = torch.empty, torch.zeros
-        self.made = []  # (buffer, numel, zeroed)
-
-    def make(self, shape, dtype, device, zeroed=False):
-        shape = (shape,) if isinstance(shape, int) else tuple(shape)
-        numel = math.prod(shape)
-        buf = self.empty(numel + 2 * GUARD, dtype=dtype, device=device)
-        buf.view(torch.uint8).fill_(SENTINEL)
-        inner = buf[GUARD:GUARD + numel]
-        if zeroed:
-            inner.zero_()
-        self.made.append((buf, numel, zeroed))
-        return inner.view(shape)
-
-    def install(self, monkeypatch):
-        monkeypatch.setattr(torch, "empty",
-                            lambda shape, dtype, device: self.make(shape, dtype, device))
-        monkeypatch.setattr(torch, "empty_like",
-                            lambda t: self.make(t.shape, t.dtype, t.device))
-        monkeypatch.setattr(torch, "zeros",
-                            lambda shape, dtype, device: self.make(shape, dtype, device, True))
-
-    def faults(self) -> list:
-        """(buffer index, what) for each guard written and each zeroed
-        buffer (the split counters) not left zero."""
-        out = []
-        for i, (buf, numel, zeroed) in enumerate(self.made):
-            raw = buf.view(torch.uint8)
-            edge = GUARD * buf.element_size()
-            if not bool((raw[:edge] == SENTINEL).all()):
-                out.append((i, "before"))
-            if not bool((raw[raw.numel() - edge:] == SENTINEL).all()):
-                out.append((i, "after"))
-            if zeroed and bool((buf[GUARD:GUARD + numel] != 0).any()):
-                out.append((i, "not left zero"))
-        return out
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
@@ -243,11 +210,10 @@ def test_window_mha_writes_only_inside_its_buffers(card, monkeypatch, call, dire
     version's."""
     gen = torch.Generator(device=card).manual_seed(10)
     args, fn = _mha_call(direction, call, dtype, card, gen)
-    guarded = _GuardedBuffers()
     monkeypatch.setattr(tattn, "_counters", {})
-    guarded.install(monkeypatch)
-    got = fn(*args)
-    torch.cuda.synchronize()
+    with GuardedBuffers() as guarded:
+        got = fn(*args)
+        torch.cuda.synchronize()
     monkeypatch.undo()
     assert guarded.made and guarded.faults() == []
     plain = tattn.window_mha_bwd_plain if direction == "backward" else tattn.window_mha_plain
@@ -310,11 +276,10 @@ def test_ffn_writes_only_inside_its_buffers(card, monkeypatch, call, direction, 
     and the result equals the plain version's."""
     gen = torch.Generator(device=card).manual_seed(12)
     args, fn, plain = _ffn_call(direction, call, dtype, card, gen)
-    guarded = _GuardedBuffers()
     monkeypatch.setattr(tffn, "_counters", {})
-    guarded.install(monkeypatch)
-    got = fn(*args)
-    torch.cuda.synchronize()
+    with GuardedBuffers() as guarded:
+        got = fn(*args)
+        torch.cuda.synchronize()
     monkeypatch.undo()
     assert guarded.made and guarded.faults() == []
     for i, (g, w) in enumerate(zip(got, plain(*args))):
@@ -370,21 +335,63 @@ def test_ffn_block_bwd_equal_expert_ids(card, call, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", INT8_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
+def test_int8_reruns_bitwise_and_writes_only_inside_its_buffers(card, monkeypatch, call,
+                                                                dtype):
+    """An int8 call with every buffer the wrapper allocates (outputs, h,
+    the gate, split partials, split counters) between guards of a
+    sentinel: no guard changed, the split counters back to 0; then two
+    reruns with the same bits, and the plain version's result."""
+    mod, fn, plain = WRAPPERS[call.kernel]
+    gen = torch.Generator(device=card).manual_seed(15)
+    args = make_inputs(call, dtype, card, gen)
+    monkeypatch.setattr(tffn, "_counters", {})
+    with torch.no_grad():
+        with GuardedBuffers() as guarded:
+            first = fn(*args)
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert guarded.made and guarded.faults() == []
+        for _ in range(2):
+            for i, (a, b) in enumerate(zip(first, fn(*args))):
+                assert torch.equal(a, b), i
+    for g, w in zip(first, plain(*args)):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_cols_on_the_card_equals_the_cpu(card, dtype):
+    """quantize_cols makes the same int8 weights and scale-bias rows on
+    the card as on the CPU (stacked C=1024 experts and a C=128 matrix)."""
+    gen = torch.Generator().manual_seed(16)
+    for shape in ((4, 1024, 1024), (128, 128)):
+        w = (torch.randn(shape, generator=gen) / 32).to(dtype)
+        b = torch.randn(shape[:-2] + shape[-1:], generator=gen).to(dtype)
+        for got, want in zip(tffn.quantize_cols(w.to(card), b.to(card)),
+                             tffn.quantize_cols(w, b)):
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_ffn_takes_expert_ids_off_a_16_byte_boundary(card):
     """The UNet passes each block's ids as a row of an [n, 2] int32 plan,
     8 bytes apart: the tensor-core route reads them element by element and
     takes any offset (only activations and weight matrices are read in
-    16-byte chunks)."""
+    16-byte chunks), with full-precision and int8 weights."""
     gen = torch.Generator(device=card).manual_seed(14)
     plan = torch.tensor([[0, 1], [1, 3]], dtype=torch.int32, device=card)
     assert plan[1].data_ptr() % 16 == 8
-    for kernel in ("ffn_block", "ffn_block_bwd"):
+    for kernel in ("ffn_block", "ffn_block_bwd", "ffn_block_int8"):
         args = list(make_inputs(Call(kernel, 4, 8, 128, 1), torch.bfloat16, card, gen))
         args[-1] = plan[1]
-        fn, plain = ((tffn.ffn_block, tffn.ffn_block_plain) if kernel == "ffn_block"
+        fn, plain = ((tffn.ffn_block, tffn.ffn_block_plain) if kernel != "ffn_block_bwd"
                      else (tffn.ffn_block_bwd, tffn.ffn_block_bwd_plain))
-        for i, (g, w) in enumerate(zip(fn(*args), plain(*args))):
-            if kernel == "ffn_block":
+        with torch.set_grad_enabled(kernel != "ffn_block_int8"):
+            got = fn(*args)
+        for i, (g, w) in enumerate(zip(got, plain(*args))):
+            if kernel != "ffn_block_bwd":
                 torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
             else:
                 assert bwd_scale_err(g, w) <= BWD_REL[torch.bfloat16], i
@@ -456,6 +463,30 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     bwd[1] = x[1:].view(bwd[1].shape).copy_(bwd[1])
     with pytest.raises(ValueError):
         tffn.ffn_block_bwd(*bwd)
+    # int8 weights: a matrix 1 byte off a 16-byte boundary on the
+    # tensor-core route; a bias that is not [2, out] scale-bias rows; fp32
+    # rows that are not fp32; and grad mode on
+    with torch.no_grad():
+        q = list(make_inputs(Call("ffn_block_int8", 1, 4, 128, 1), torch.bfloat16, card, gen))
+        raw = torch.empty(q[3].numel() + 1, dtype=torch.int8, device=card)
+        bad = list(q)
+        bad[3] = raw[1:].view(q[3].shape).copy_(q[3])
+        with pytest.raises(ValueError):
+            tffn.ffn_block(*bad)
+        bad = list(q)
+        bad[4] = q[4][1].contiguous()
+        with pytest.raises(ValueError):
+            tffn.ffn_block(*bad)
+        bad = list(q)
+        bad[4] = q[4].to(torch.bfloat16)
+        with pytest.raises(TypeError):
+            tffn.ffn_block(*bad)
+        bc = list(make_inputs(Call("block_core_int8", 1, 4, 128, 1), torch.float32, card, gen))
+        bc[8] = bc[8][..., 1, :].contiguous()  # gbc without its scale row
+        with pytest.raises(ValueError):
+            tbc.block_core(*bc)
+    with pytest.raises(NotImplementedError, match="A15"):
+        tffn.ffn_block(*q)
 
 
 VQ_CALLS = vae_train_calls() + [
