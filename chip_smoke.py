@@ -1,7 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA H100).
 
     python3 chip_smoke.py             # the whole check, as below
-    python3 chip_smoke.py --profile   # plus a torch.profiler pass (B=1)
 
 Phases, each fatal on failure (the script then exits non-zero and prints
 no result line):
@@ -14,17 +13,21 @@ no result line):
      TF32 off and in bf16; time kernel, plain version and (window MHA,
      forward and backward) the one-call PyTorch equivalent with a cold
      L2, printing bound/kernel (and kernel/library) per row and per step
-     of each path of window MHA and the FFN kernels; hold block_core's
-     gradients through the card path against autograd through its plain
-     version (B=1 shapes); and the int8 routes (block_core at batch 1,
-     latent 32 and 64; ffn_block at batch 4) in both types, each call
-     rerun bitwise and once more with every buffer its wrapper allocates
-     between sentinel guards, per step beside the same kernel with bf16
-     weights;
+     of each path of window MHA and the FFN kernels, and block_core's
+     per B=1 step (latent 32 and 64) beside ffn_block plus the plain
+     grouped conv at the same shapes; hold block_core's gradients through
+     the card path against autograd through its plain version (B=1
+     shapes, fp32 and bf16); block_core (full-precision and int8 FFN
+     weights, batch 1, latent 32 and 64) and the int8 ffn_block (batch 4)
+     in both types, each call rerun bitwise and once more with every
+     buffer its wrapper allocates between sentinel guards; the int8
+     routes per step beside the same kernel with bf16 weights;
   3. sample one 256px image with the default UNet and VAE decoder (seeded
      random weights, 20 DDIM steps, bf16): launch counts must be exactly
-     720 block_core and 160 window MHA; then images/s;
-  4. sample 4 images in one call: 720 ffn_block launches, 0 block_core;
+     720 block_core and 160 window MHA; then images/s and a profile of
+     one sample (device-busy time);
+  4. sample 4 images in one call: 720 ffn_block launches, 0 block_core,
+     images/s and a profile of one sample;
      then the same two paths with int8 FFN weights (the same seeded
      weights, ffn_quant='int8'): 720 int8 block_core and 160 window MHA
      per B=1 sample, 720 int8 ffn_block per B=4 sample, no weight
@@ -282,6 +285,9 @@ def phase_kernels(dev, reps: int) -> dict:
     cross = [swap(c, "ffn_block") for c in b1 if c.kernel == "block_core"] + [
         swap(c, "block_core") for c in b4 if c.kernel == "ffn_block"]
     latent64 = [c for c in path_calls(1, latent=64) if c.kernel == "block_core"]
+    # ...and the latent-64 B=1 body shapes through ffn_block, beside
+    # block_core there
+    cross64 = [swap(c, "ffn_block") for c in latent64]
     # the backward kernels and the window MHA and ffn_block forwards of a
     # train step
     train = [c for c in train_calls(TRAIN_BATCH)
@@ -295,7 +301,8 @@ def phase_kernels(dev, reps: int) -> dict:
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
-        (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8
+        (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8 + [
+        (c, "split-64") for c in cross64]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -325,7 +332,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
-            if call.kernel.endswith("_int8"):
+            if call.kernel.endswith("_int8") or call.kernel == "block_core":
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -381,6 +388,19 @@ def phase_kernels(dev, reps: int) -> dict:
                 lib = f", library {lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f})"
             log(f"{name} {tag} per step: kernel {ms:.4f} ms{lib}, bound "
                 f"{bms:.5f} ms (bound/kernel {bms / ms:.4f})")
+    # block_core per B=1 step (latent 32 and 64) beside ffn_block plus the
+    # plain grouped conv at the same shapes, the two calls a SwinBlock
+    # would make without it
+    for tag, split in (("b1", "split"), ("b1-64", "split-64")):
+        rs = [r for r in rows if r["kernel"] == "block_core" and r["tag"] == tag]
+        parts = [r for r in rows if r["kernel"] == "ffn_block" and r["tag"] == split]
+        step = lambda rr, k: sum(r[k] * r["per_step"] for r in rr)
+        ms, bms = step(rs, "ms"), step(rs, "bound_ms")
+        ffn_ms, conv_ms = step(parts, "ms"), step(parts, "conv_ms")
+        log(f"block_core {tag} per step: kernel {ms:.4f} ms, bound {bms:.5f} ms "
+            f"(bound/kernel {bms / ms:.4f}); ffn_block + grouped conv at the same "
+            f"shapes {ffn_ms + conv_ms:.4f} ms ({ffn_ms:.4f} + {conv_ms:.4f}; "
+            f"block_core/sum {ms / (ffn_ms + conv_ms):.3f})")
     # the int8 routes per step of their paths, beside the same kernel with
     # full-precision (bf16) weights at the same shapes in this call
     for name in ("block_core_int8", "ffn_block_int8"):
@@ -417,10 +437,10 @@ def phase_kernels(dev, reps: int) -> dict:
 
 
 def check_guarded_rerun(kernel, args, got) -> None:
-    """An int8 kernel call again with every buffer its wrapper allocates
-    between sentinel guards (and fresh split counters): no guard written,
-    the counters left 0; then a rerun: every output bitwise equal to
-    `got`, the first call's."""
+    """A kernel call again with every buffer its wrapper allocates between
+    sentinel guards (and fresh split counters): no guard written, the
+    counters left 0; then a rerun: every output bitwise equal to `got`,
+    the first call's."""
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
     from ldm_image_generator_tpu_torch.kernels.workloads import GuardedBuffers
 
@@ -433,7 +453,7 @@ def check_guarded_rerun(kernel, args, got) -> None:
         tffn._counters = saved
     require(guarded.made and guarded.faults() == [], ("guards", guarded.faults()))
     for calls in (again, kernel(*args)):
-        require(all(torch.equal(a, b) for a, b in zip(got, calls)), "int8 rerun bitwise equal")
+        require(all(torch.equal(a, b) for a, b in zip(got, calls)), "rerun bitwise equal")
 
 
 def check_vq_ties(dev) -> None:
@@ -458,7 +478,10 @@ def check_vq_ties(dev) -> None:
 def check_block_core_grads(dev, calls) -> None:
     """block_core's gradients through the card path (the composed
     backward with the ffn_block_bwd kernel) against autograd through its
-    plain version on the card, fp32, at the B=1 body shapes."""
+    plain version on the card at the B=1 body shapes: fp32 (the FMA
+    chain forward) within BWD_REL[fp32], and bf16 (the tensor-core
+    forward) within BWD_REL[bf16], each of max abs err over max(max
+    |plain|, 1)."""
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels.workloads import (
         BWD_REL,
@@ -466,20 +489,25 @@ def check_block_core_grads(dev, calls) -> None:
         make_inputs,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(5)
+    # a generator per type: neither type's inputs depend on the other's
+    gens = {dtype: torch.Generator(device=dev).manual_seed(seed)
+            for dtype, seed in ((torch.float32, 5), (torch.bfloat16, 6))}
     for call in calls:
         if call.kernel != "block_core":
             continue
-        args = make_inputs(call, torch.float32, dev, gen)
-        cot = [torch.randn(args[0].shape, generator=gen, device=dev) for _ in range(2)]
-        grads = []
-        for fn in (tbc.block_core, tbc.block_core_plain):
-            leaves = [a.detach().requires_grad_(a.dtype == torch.float32) for a in args]
-            torch.autograd.backward(fn(*leaves, add_residual=False), cot)
-            grads.append([t.grad for t in leaves if t.requires_grad])
-        worst = max(bwd_scale_err(g, w) for g, w in zip(*grads))
-        log(f"block_core grads {call.label}: card path vs plain autograd {worst:.3e}")
-        require(worst <= BWD_REL[torch.float32], (call.label, worst))
+        for dtype, gen in gens.items():
+            args = make_inputs(call, dtype, dev, gen)
+            cot = [torch.randn(args[0].shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(2)]
+            grads = []
+            for fn in (tbc.block_core, tbc.block_core_plain):
+                leaves = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+                torch.autograd.backward(fn(*leaves, add_residual=False), cot)
+                grads.append([t.grad for t in leaves if t.requires_grad])
+            worst = max(bwd_scale_err(g, w) for g, w in zip(*grads))
+            log(f"block_core grads {call.label} {dtype}: card path vs plain autograd "
+                f"{worst:.3e}")
+            require(worst <= BWD_REL[dtype], (call.label, dtype, worst))
 
 
 def run_path(pipe, batch: int, generator):
@@ -507,7 +535,7 @@ def path_launches(batch: int, int8: bool = False) -> dict:
     return counts
 
 
-def phase_path(dev, profile: bool) -> dict:
+def phase_path(dev) -> dict:
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
 
     t0 = time.perf_counter()
@@ -531,8 +559,9 @@ def phase_path(dev, profile: bool) -> dict:
     out["b1_sample_s"] = times
     out["b1_images_per_s"] = 1.0 / (sum(times) / len(times))
     log("path b1 sample seconds", times, "images/s", out["b1_images_per_s"])
-    if profile:
-        out["profile_b1"] = profile_sample(pipe, gen)
+    # the profiles draw from their own generator: gen's draws stay those of
+    # the checks
+    out["profile_b1"] = profile_sample(pipe, torch.Generator(device=dev).manual_seed(1))
 
     counts, _ = run_path(pipe, 4, gen)
     log("path b4 launches", json.dumps(counts))
@@ -546,6 +575,7 @@ def phase_path(dev, profile: bool) -> dict:
     out["b4_sample_s"] = dt
     out["b4_images_per_s"] = 4.0 / dt
     log("path b4 sample seconds", dt, "images/s", out["b4_images_per_s"])
+    out["profile_b4"] = profile_sample(pipe, torch.Generator(device=dev).manual_seed(4), 4)
     return out, pipe
 
 
@@ -1112,7 +1142,6 @@ def phase_vae_card_vs_cpu(dev) -> dict:
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    profile = "--profile" in argv
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; nothing to check")
         return 1
@@ -1133,7 +1162,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = phase_kernels(dev, reps=10)
     log(f"kernels checked at {time.perf_counter() - t_start:.1f} s")
-    path, pipe = phase_path(dev, profile)
+    path, pipe = phase_path(dev)
     kernels["block_core"]["launches"] = path["launches_b1"]["block_core"]
     kernels["window_mha"]["launches"] = path["launches_b1"]["window_mha"]
     kernels["ffn_block"]["launches"] = path["launches_b4"]["ffn_block"]
@@ -1158,6 +1187,8 @@ def main(argv) -> int:
         "card": name, "build_s": build_s, "elapsed_s": elapsed,
         "b1_images_per_s": path["b1_images_per_s"],
         "b4_images_per_s": path["b4_images_per_s"],
+        "b1_device_busy_ms": path["profile_b1"]["device_busy_ms"],
+        "b4_device_busy_ms": path["profile_b4"]["device_busy_ms"],
         "card_vs_cpu_rel_err": rel,
         "int8_path": int8_path,
         "int8_card_vs_cpu_rel_err": rel_int8,

@@ -110,8 +110,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "block_core": {
         "block_core_forward": ([_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P, _P, _P]
-                               + [_I] * 6 + [_P] * 5, _I),
-        "ffn_scratch_floats": ([_I] * 3, _LL),
+                               + [_I] * 6 + [_P] * 6, _I),
+        "block_core_scratch_floats": ([_I] * 4, _LL),
+        "block_core_smem_bytes": ([_I] * 6, _LL),
+        "ffn_tensor_cores": ([_I] * 4, _I),
+        "ffn_counter_ints": ([], _LL),
     },
     "ffn_block": {
         "ffn_tensor_cores": ([_I] * 4, _I),

@@ -14,15 +14,21 @@ residual summed in fp32 before the one final rounding.
 On the H100 (csrc/block_core.cu): at batch 1 the call is bound by bytes,
 the 9 C x C FFN weight matrices it streams (the conv weights are 9 * 32
 * C values). The TPU kernel held whole images or row bands with a halo
-in 16 MB of VMEM; here the last pass of the chain takes one image row
-and one 32-channel group per block, holds the row's 3 x (W + 2) x 32
-window of h and the group's 9 x 32 x 32 taps in shared memory, and
-sums the FFN partials, the conv, its bias and the residual there, so
-out is written once. Products are the latency-hiding split-K fp32 FMA
-loop of ffn_block.
+in 16 MB of VMEM. Here bfloat16 at the widths ``ffn_tensor_cores`` takes
+(C a multiple of 64 up to 1024: every UNet shape; the route depends on
+dtype and shape alone) runs ffn_block's three tensor-core launches
+(csrc/ffn_tc_fwd.cuh): the output product's k-loop runs on over 9 more
+k-tiles, one per conv tap, each a product of h shifted by the tap (zero
+rows outside the image) with that tap's weights, each warp's 32 output
+columns being one conv group; the conv bias and the residual join the
+output biases in its epilogue, so out is written once. float32, and
+bfloat16 at other widths, keep the FMA chain of ffn_block (TF32 would
+break the fp32 gates), whose last pass takes one image row and one
+32-channel group per block with the row's 3 x (W + 2) x 32 window of h
+and the group's taps in shared memory.
 
 int8 FFN weights (``block_core_pallas(..., quantized=True)``; see
-ffn_block.py): the same chain with the weights read as int8 and each
+ffn_block.py): the same routes with the weights read as int8 and each
 product scaled per column before its bias; the grouped conv, its bias
 and the residual stay in the compute dtype. The row-band schedule of the
 TPU kernel (a VMEM workaround) has no counterpart here either.
@@ -40,6 +46,8 @@ import torch.nn.functional as F
 
 from ldm_image_generator_tpu_torch.kernels import _build
 from ldm_image_generator_tpu_torch.kernels.ffn_block import (
+    _check_chunk_aligned,
+    _split_counters,
     check_ffn_args,
     ffn_tower_bwd,
     norm_film,
@@ -103,25 +111,27 @@ def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
         raise ValueError(f"conv kernel {tuple(conv_kernel.shape)} / bias "
                          f"{tuple(conv_bias.shape)}: the kernel takes group "
                          f"width {GROUP_WIDTH} and C={c} a multiple of it")
-    smem = 4 * (3 * (ww + 2) * GROUP_WIDTH + 9 * GROUP_WIDTH ** 2)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"map width {ww} exceeds the conv pass's shared "
-                         "memory")
     if conv_kernel.dtype != x.dtype or conv_bias.dtype != x.dtype:
         raise TypeError("conv params must have x's dtype")
     code, q = _build.dtype_code(x), gwa.dtype == torch.int8
+    lib = _build.load("block_core")
+    if lib.block_core_smem_bytes(code, int(q), n, c, m, ww) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"map width {ww} exceeds the conv pass's shared "
+                         "memory")
+    _check_chunk_aligned(lib, code, n, c, m, x, film_mul, film_bias, gwa, gwb,
+                         gwc, wa, wb, wc, conv_kernel)
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     g = torch.empty((3, n, m), dtype=x.dtype, device=x.device)
-    lib = _build.load("block_core")
-    scratch = torch.empty(lib.ffn_scratch_floats(n, c, m), dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(lib.block_core_scratch_floats(code, n, c, m),
+                          dtype=torch.float32, device=x.device)
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, conv_kernel,
-                         conv_bias, expert_ids, out, h, g, scratch)
+                         conv_bias, expert_ids, out, h, g, scratch,
+                         _split_counters(lib, x.device))
     rc = lib.block_core_forward(
         code, int(q), p[0], p[1], p[2], film_mul.shape[0] * hh * ww,
         *p[3:15], e, p[15], p[16], p[17], int(add_residual), b, hh, ww, c,
-        m, p[18], p[19], p[20], p[21], _build.current_stream(),
+        m, *p[18:], _build.current_stream(),
     )
     _build.check(lib, rc, "block_core")
     global launches, int8_launches

@@ -2,15 +2,41 @@
 //   h   = channel_norm(x) * film_mul + film_bias
 //   out = [x +] ReGLU_general(h) + ReGLU_e1(h) + ReGLU_e2(h)
 //         + conv3x3_grouped(h) + conv_bias
-// The Hopper counterpart of block_core_pallas (both of its schedules):
-// the FFN chain of ffn_common.cuh with the grouped conv (group width
-// 32), its bias and the residual folded into the pass that writes out,
-// so out is written once. dtype: 0 = float32, 1 = bfloat16; wq: 0 =
-// FFN weights in dtype, 1 = int8 FFN weights with fp32 [2, out]
-// scale-bias rows (block_core_pallas(quantized=True); the conv, its bias
-// and the residual stay in dtype); scratch holds
-// ffn_scratch_floats(B * H * W, C, M) floats.
-#include "ffn_common.cuh"
+// The Hopper counterpart of block_core_pallas (both of its schedules).
+// dtype: 0 = float32, 1 = bfloat16; wq: 0 = FFN weights in dtype, 1 =
+// int8 FFN weights with fp32 [2, out] scale-bias rows
+// (block_core_pallas(quantized=True); the conv, its bias and the residual
+// stay in dtype); scratch holds block_core_scratch_floats(dtype, B * H *
+// W, C, M) floats, counters ffn_counter_ints() zeroed ints.
+//
+// bfloat16 at the widths ffn_tc.cuh takes (C and M multiples of 64, C <=
+// 1024: every UNet shape) runs on the tensor cores in the three launches
+// of ffn_tc_fwd.cuh, the grouped conv (group width 32) as 9 more k-tiles
+// of the output product and its bias and the residual in that kernel's
+// epilogue, so out is written once. At batch 1 a call is bound by the 9
+// C x C FFN weight matrices' bytes on paper, by the three launches'
+// latency in practice (PERF.md).
+// float32, and bfloat16 at other widths, keep the FMA chain of
+// ffn_common.cuh on purpose (TF32 would break the fp32 gates): its last
+// pass takes one image row and one 32-channel group per block, holds the
+// row's 3 x (W + 2) x 32 window of h and the group's taps in shared
+// memory, and sums the FFN partials, the conv, its bias and the residual
+// there.
+#include "ffn_tc_fwd.cuh"
+
+// fp32 scratch (split partial sums) one call needs, for the wrapper.
+extern "C" long long block_core_scratch_floats(int dtype, int N, int C, int M) {
+  if (ffn_tensor_cores(dtype, N, C, M)) return (long long)ldm::ftc::fwd_plan(N, C, M, true).floats;
+  return ffn_scratch_floats(N, C, M);
+}
+
+// Dynamic shared memory the largest launch of a call's route needs, for
+// a map W pixels wide.
+extern "C" long long block_core_smem_bytes(int dtype, int wq, int N, int C, int M, int W) {
+  if (ffn_tensor_cores(dtype, N, C, M))
+    return (long long)(wq ? ldm::ftc::fwd_smem<true>(true) : ldm::ftc::fwd_smem<false>(true));
+  return (long long)ldm::conv_smem_bytes(W);
+}
 
 extern "C" int block_core_forward(
     int dtype, int wq, const void* x, const void* mul, const void* bias, int film_rows,
@@ -18,7 +44,7 @@ extern "C" int block_core_forward(
     const void* gbc, const void* wa, const void* ba, const void* wb, const void* bb,
     const void* wc, const void* bc, int E, const void* conv_kernel, const void* conv_bias,
     const void* ids, int add_residual, int B, int H, int W, int C, int M, void* out, void* h,
-    void* g, void* scratch, void* stream) {
+    void* g, void* scratch, void* counters, void* stream) {
   const int N = B * H * W;
   ldm::FfnArgs a{x,  mul, bias, film_rows,       gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb,
                  bb, wc,  bc,   E, (const int*)ids, N,   C,   M,   out, h,   g,   (float*)scratch};
@@ -26,6 +52,9 @@ extern "C" int block_core_forward(
   const void* residual = add_residual ? x : nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
+  if (ffn_tensor_cores(dtype, N, C, M))
+    return wq ? ldm::ftc::forward<true>(a, conv, residual, (int*)counters, st)
+              : ldm::ftc::forward<false>(a, conv, residual, (int*)counters, st);
   if (dtype == 0)
     return wq ? ldm::ffn_chain<float, int8_t>(a, conv, B, residual, st)
               : ldm::ffn_chain<float, float>(a, conv, B, residual, st);

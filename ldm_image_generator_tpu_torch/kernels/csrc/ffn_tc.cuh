@@ -1,5 +1,6 @@
 // Tensor-core route of the SwinBlock FFN (bfloat16), shared by
-// ffn_block.cu (forward) and ffn_block_bwd.cu (backward): tile shapes,
+// ffn_tc_fwd.cuh (the forward of ffn_block and block_core) and
+// ffn_block_bwd.cu (backward): tile shapes,
 // the route's shape rule, the split-K plan and the gate product
 // h @ [wa | wb] with its epilogue's element order.
 //

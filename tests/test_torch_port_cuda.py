@@ -441,6 +441,126 @@ def test_block_core_without_residual_matches_plain(card):
         torch.testing.assert_close(g, w, **TOL[torch.float32])
 
 
+# block_core on the bf16 tensor-core route: the B=1 path shapes at latent
+# 32 and 64 (maps 4-64 wide; C=1024 has 16 rows, a ragged tile, and
+# splits k over blocks) and an odd map (2 images of 5 x 5, 50 rows, C=64,
+# a batch-1 FiLM); C=96 is not a multiple of 64, so bf16 runs the FMA chain
+BLOCK_CORE_TC = [c for c in path_calls(1) + path_calls(1, latent=64)
+                 if c.kernel == "block_core"] + [Call("block_core", 2, 5, 64, 1)]
+BLOCK_CORE_FMA_ONLY = Call("block_core", 1, 4, 96, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add_residual", [True, False], ids=["residual", "no-residual"])
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+@pytest.mark.parametrize("call", BLOCK_CORE_TC, ids=lambda c: c.label)
+def test_block_core_tensor_cores_match_plain_rerun_bitwise_inside_their_buffers(
+        card, monkeypatch, call, weights, add_residual):
+    """bf16 block_core on the tensor cores, with bf16 and with int8 FFN
+    weights: every buffer the wrapper allocates (out, h, the gate, split
+    partials, split counters) between guards of a sentinel, none of which
+    changes, the counters back to 0; two reruns with the same bits; and
+    the plain version's result (the conv taps at the image edges and
+    between images read zeros, the conv bias and residual added once)."""
+    lib = _build.load("block_core")
+    n = call.batch * call.hw * call.hw
+    assert lib.ffn_tensor_cores(1, n, call.c, call.c) == 1
+    kernel = "block_core_int8" if weights == "int8" else "block_core"
+    gen = torch.Generator(device=card).manual_seed(17)
+    args = make_inputs(dataclasses.replace(call, kernel=kernel), torch.bfloat16, card, gen)
+    fn = lambda: tbc.block_core(*args, add_residual=add_residual)
+    monkeypatch.setattr(tffn, "_counters", {})
+    with torch.no_grad():
+        with GuardedBuffers() as guarded:
+            first = fn()
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert guarded.made and guarded.faults() == []
+        for _ in range(2):
+            for i, (a, b) in enumerate(zip(first, fn())):
+                assert torch.equal(a, b), i
+    for g, w in zip(first, tbc.block_core_plain(*args, add_residual=add_residual)):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+
+
+def _device_kernels(fn) -> dict:
+    """{device kernel name: launches} of one call of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_block_core_route_depends_on_shape_alone(card, weights):
+    """bf16 at a tensor-core width runs three launches (norm/FiLM, the
+    gate, the output product with the conv) and no finish_kernel; fp32,
+    and bf16 at C=96, run the FMA chain with its finish_kernel; each
+    matches the plain version."""
+    lib = _build.load("block_core")
+    gen = torch.Generator(device=card).manual_seed(19)
+    suffix = "_int8" if weights == "int8" else ""
+    tc_call = Call("block_core" + suffix, 1, 8, 128, 1)
+    fma_call = dataclasses.replace(BLOCK_CORE_FMA_ONLY, kernel="block_core" + suffix)
+    for call, dtype, tc in ((tc_call, torch.bfloat16, True), (tc_call, torch.float32, False),
+                            (fma_call, torch.bfloat16, False)):
+        n = call.batch * call.hw * call.hw
+        assert lib.ffn_tensor_cores(_build.DTYPE_CODES[dtype], n, call.c, call.c) == tc
+        args = make_inputs(call, dtype, card, gen)
+        with torch.no_grad():
+            chain = _device_kernels(lambda: tbc.block_core(*args))
+            got = tbc.block_core(*args)
+        finish = [k for k in chain if "finish_kernel" in k]
+        if tc:
+            assert sum(chain.values()) == 3 and not finish, chain
+            assert any("out_kernel" in k for k in chain), chain
+        else:
+            assert finish, chain
+        for g, w in zip(got, tbc.block_core_plain(*args)):
+            torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_block_core_refuses_misaligned_inputs_on_the_tensor_cores(card):
+    """The tensor-core route reads x, the film rows, the weight matrices
+    and the conv taps in 16-byte chunks: one of them 2 bytes (or, int8,
+    1 byte) off a 16-byte boundary is refused."""
+    gen = torch.Generator(device=card).manual_seed(20)
+    for kernel, which in (("block_core", 0), ("block_core", 15), ("block_core_int8", 3)):
+        args = list(make_inputs(Call(kernel, 1, 8, 128, 1), torch.bfloat16, card, gen))
+        t = args[which]
+        raw = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        args[which] = raw[1:].view(t.shape).copy_(t)
+        with torch.no_grad(), pytest.raises(ValueError):
+            tbc.block_core(*args)
+
+
+@pytest.mark.cuda
+def test_block_core_gradients_on_the_tensor_core_route(card):
+    """bf16 at a tensor-core shape: the gradients through the card path
+    (forward on the tensor cores, the composed backward) against autograd
+    through the plain version on the card, each within workloads.BWD_REL
+    of its scale."""
+    gen = torch.Generator(device=card).manual_seed(18)
+    args = make_inputs(Call("block_core", 1, 8, 128, 1), torch.bfloat16, card, gen)
+    cot = [torch.randn(args[0].shape, generator=gen, device=card).to(torch.bfloat16)
+           for _ in range(2)]
+    grads = []
+    for fn in (tbc.block_core, tbc.block_core_plain):
+        leaves = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+        torch.autograd.backward(fn(*leaves), cot)
+        grads.append([t.grad for t in leaves if t.requires_grad])
+    assert len(grads[0]) == len(grads[1]) == 17
+    for i, (g, w) in enumerate(zip(*grads)):
+        assert bwd_scale_err(g, w) <= BWD_REL[torch.bfloat16], i
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     gen = torch.Generator(device=card).manual_seed(2)

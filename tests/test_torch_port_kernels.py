@@ -122,6 +122,28 @@ def test_block_core_plain_matches_xla_and_pallas(add_residual):
     np.testing.assert_allclose(out.numpy(), np.asarray(p_out), **TOL_PALLAS)
 
 
+@pytest.mark.parametrize("add_residual", [True, False])
+def test_block_core_plain_matches_pallas_bf16(add_residual):
+    """bf16 (inputs rounded alike on both sides): the plain version against
+    the Pallas kernel (interpret), whose rounding points the CUDA kernels
+    share: h and the gate rounded to bf16, the FFN towers, the grouped
+    conv of bf16 h, its bias and the residual summed in fp32 and rounded
+    once."""
+    x, mul, bias, w, ck, cb = _block_inputs()
+    ids = (1, 3)
+    tt = [t.to(torch.bfloat16) for t in _t(x, mul, bias, *w, ck, cb)]
+    jj = [a.astype(jnp.bfloat16) for a in _j(x, mul, bias, *w, ck, cb)]
+    out, h = tbc.block_core_plain(*tt, torch.tensor(ids, dtype=torch.int32),
+                                  add_residual=add_residual)
+    p_out, p_h = jbc.block_core_pallas(*jj, jnp.asarray(ids, jnp.int32),
+                                       add_residual=add_residual,
+                                       interpret=True)
+    assert out.dtype == h.dtype == torch.bfloat16
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    np.testing.assert_allclose(_np(h), f32(p_h), **TOL_BF16)
+    np.testing.assert_allclose(_np(out), f32(p_out), **TOL_BF16)
+
+
 def _attn_inputs(n=3, l=36, c=128, seed=2):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, l, c)).astype(np.float32)
