@@ -66,7 +66,10 @@ no result line):
      max abs) of the CPU's updated parameters (see VAE_OPT_STEP_REL); the
      parameters after the two steps are reported.
 Phase 2 also holds the vq kernel against its plain version at the VAE
-step's shape (see workloads.VQ_TIE_REL) and on exact ties. The last
+step's shape (see workloads.VQ_TIE_REL), with its output between
+sentinel guards, and on a near-tie codebook and exact ties across
+cluster ranks, warp halves, quad lanes and a lane's code pair
+(check_vq_ties), in both types. The last
 line is {"ok": true, "device": {...}}; the line before it is the
 kernels' JSON record.
 """
@@ -332,7 +335,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
-            if call.kernel.endswith("_int8") or call.kernel == "block_core":
+            if call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq"):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -453,26 +456,59 @@ def check_guarded_rerun(kernel, args, got) -> None:
         tffn._counters = saved
     require(guarded.made and guarded.faults() == [], ("guards", guarded.faults()))
     for calls in (again, kernel(*args)):
+        calls = calls if isinstance(calls, tuple) else (calls,)
         require(all(torch.equal(a, b) for a, b in zip(got, calls)), "rerun bitwise equal")
 
 
 def check_vq_ties(dev) -> None:
-    """The vq kernel on exact ties: a codebook of two equal halves at the
-    VAE step's K; every index must lie in the first half and equal the
-    kernel's answer on that half alone."""
+    """The vq kernel at the VAE step's shape, x in fp32 and bf16, on a
+    near-tie codebook (pairs 2**-18 apart, exact duplicates K/2 on: equal
+    to the plain version except within VQ_TIE_REL) and on exact
+    duplicates placed in the next cluster rank's slice, in the other warp
+    half of the same rank's slice, in lanes 2-3 of the quad holding their
+    first copy, in the same lane's code pair, and K/2 on: never the second
+    copy, and on the halves layout the kernel's answer on the first half
+    alone. Every call reruns bitwise."""
+    from ldm_image_generator_tpu_torch.kernels import _build
     from ldm_image_generator_tpu_torch.kernels import vq as tvq
-    from ldm_image_generator_tpu_torch.kernels.workloads import vae_train_calls
+    from ldm_image_generator_tpu_torch.kernels.workloads import (
+        VQ_TIE_REL,
+        near_tie_codebook,
+        tie_codebook,
+        vae_train_calls,
+        vq_mismatches,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(7)
     (call,) = vae_train_calls(VAE_BATCH, VAE_CROP)
-    half = torch.randn((call.l // 2, call.c), generator=gen, device=dev)
-    x = torch.randn((call.n, call.c), generator=gen, device=dev)
-    got = tvq.nearest_codebook_indices(x, torch.cat([half, half]))
-    alone = tvq.nearest_codebook_indices(x, half)
-    torch.cuda.synchronize()
-    require(bool((got < call.l // 2).all()) and torch.equal(got, alone),
-            "vq: the first index on exact ties")
-    log(f"vq exact ties [{call.n},{call.c}] K={call.l}: first index taken")
+    slice_codes = _build.load("vq").vq_slice_codes(call.n, call.l)
+
+    def indices(x, cb):
+        got = tvq.nearest_codebook_indices(x, cb)
+        require(torch.equal(tvq.nearest_codebook_indices(x, cb), got),
+                "vq rerun bitwise equal")
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((call.n, call.c), generator=gen, device=dev).to(dtype)
+        cb = near_tie_codebook(call.l, call.c, gen, dev)
+        n_mis, gap = vq_mismatches(x, cb, indices(x, cb),
+                                   tvq.nearest_codebook_indices_plain(x, cb))
+        log(f"vq near ties [{call.n},{call.c}] K={call.l} {dtype}: {n_mis} indices "
+            f"differ from the plain version's, largest score gap {gap:.3e}")
+        require(gap <= VQ_TIE_REL, ("vq near ties", dtype, n_mis, gap))
+        for layout in ("halves", "next_rank", "mid", "quad", "pair"):
+            cb, copy_of = tie_codebook(call.l, call.c, layout, gen, dev, slice_codes)
+            got = indices(x, cb).long()
+            n_mis, gap = vq_mismatches(x, cb, got, tvq.nearest_codebook_indices_plain(x, cb))
+            require(torch.equal(copy_of[got], got) and gap <= VQ_TIE_REL,
+                    ("vq: the first index on exact ties", layout, dtype, n_mis, gap))
+            if layout == "halves":
+                half = cb[: call.l // 2].contiguous()
+                require(torch.equal(got, indices(x, half).long()),
+                        ("vq: the first half's answer", dtype))
+        log(f"vq exact ties [{call.n},{call.c}] K={call.l} {dtype} (halves, next rank "
+            f"of {slice_codes} codes, mid-slice, quad, pair): first index taken")
 
 
 def check_block_core_grads(dev, calls) -> None:

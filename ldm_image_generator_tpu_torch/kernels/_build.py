@@ -142,8 +142,8 @@ _SIGNATURES = {
         "window_mha_bwd_scratch_floats": ([_I] * 5, _LL),
     },
     "vq": {
-        "vq_nearest": ([_I, _P, _P, _I, _I, _I] + [_P] * 4, _I),
-        "vq_splits": ([_I] * 2, _I),
+        "vq_nearest": ([_I, _P, _P, _I, _I, _P, _P], _I),
+        "vq_slice_codes": ([_I] * 2, _I),
     },
 }
 

@@ -13,16 +13,19 @@ plain version writes the [N, K] score matrix to device memory and reads
 it back (151 MB at the VAE train step), the kernel keeps every score in
 registers.
 
-On the H100 (csrc/vq.cu): the work is N * K * (2D + 2) fp32 operations
-on a few hundred KB, so the kernel is bound by the CUDA cores' fp32 rate.
-Each thread keeps four rows of x in registers; each block streams a
-slice of the codebook through shared memory in chunks and keeps a
-running (min score, index) per row with a strict <, so the lowest index
-wins within a slice. The K axis is split over blocks so that the card
-has a few blocks per SM at N = 4608; the slices' (min, index) partials
-meet in a second pass that takes them in slice order with the same
-strict <, so ties still go to the first index. No atomics: reruns are
-bitwise equal.
+On the H100 (csrc/vq.cu), in one launch: the dot runs on the tensor
+cores (mma.sync m16n8k8 in TF32, k = D = 8), made fp32-accurate by
+splitting each operand into a TF32 head and a TF32 tail and summing
+head*head + head*tail + tail*head (a bf16 x is exactly a TF32 value, so
+two passes); the accumulator starts at ||e||^2, so the score leaves the
+tensor cores whole and the CUDA cores only keep a running (min score,
+index) per row, strict < in code order. A thread-block cluster of up to
+8 CTAs splits K; each CTA stages its slice of the codebook, split as it
+loads, in shared memory, and writes its rows' minima into rank 0's
+shared memory, which merges them in rank order, ties to the lower index.
+No partials in device memory, no atomics: reruns are bitwise equal. The
+bound is the tensor cores' TF32 rate for those passes, three for an
+fp32 x and two for a bf16 x (workloads.bound_ms).
 
 There is no backward: the indices are integers and the quantizer stops
 gradients through them (models/vae.py).
@@ -37,6 +40,8 @@ from ldm_image_generator_tpu_torch.kernels import _build
 launches = 0
 # the kernel's vector width (VAEConfig.embedding_dim)
 KERNEL_DIM = 8
+# the kernel keeps code indices in fp32, exact up to 2**24
+KERNEL_MAX_CODES = 1 << 24
 
 
 def nearest_codebook_indices_plain(x: torch.Tensor,
@@ -56,18 +61,16 @@ def _launch(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)} and codebook {tuple(codebook.shape)}")
     if codebook.dtype != torch.float32:
         raise TypeError(f"the vq kernel takes a float32 codebook, got {codebook.dtype}")
+    if k > KERNEL_MAX_CODES:
+        raise ValueError(f"the vq kernel takes at most {KERNEL_MAX_CODES} codes, got {k}")
     code = _build.dtype_code(x)
     if codebook.data_ptr() % 16:
         raise ValueError("the vq kernel reads codebook rows as float4: its "
                          "data must be 16-byte aligned")
     lib = _build.load("vq")
-    splits = lib.vq_splits(n, k)
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    part_min = torch.empty((splits, n), dtype=torch.float32, device=x.device)
-    part_idx = torch.empty((splits, n), dtype=torch.int32, device=x.device)
-    p = _build.cuda_ptrs(x, codebook, out, part_min, part_idx)
-    rc = lib.vq_nearest(code, p[0], p[1], n, k, splits, p[2], p[3], p[4],
-                        _build.current_stream())
+    p = _build.cuda_ptrs(x, codebook, out)
+    rc = lib.vq_nearest(code, p[0], p[1], n, k, p[2], _build.current_stream())
     _build.check(lib, rc, "vq")
     global launches
     launches += 1

@@ -16,9 +16,15 @@ import torch
 from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
 from ldm_image_generator_tpu_torch.kernels.ffn_block import quantize_ffn
 
-# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type
+# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand
+# type ("tf32": the tensor cores' TF32 rate)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+# TF32 tensor-core passes that give an fp32-accurate product with an
+# fp32 codebook, by the type of the other operand: the least-cost such
+# product on this card. fp32: big*big, big*small, small*big; bf16 is
+# exact in TF32: x*big, x*small
+TF32_PASSES = {torch.float32: 3, torch.bfloat16: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,15 +151,27 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
 
 
 def work(call: Call, dtype: torch.dtype):
-    """(bytes, flops) the call needs: each input read once (only the two
-    selected experts' weights), each output written once."""
+    """(bytes, {PEAK_FLOPS key: operations}) the call needs: each input
+    read once (only the two selected experts' weights), each output
+    written once; the operations by the unit whose peak they run at."""
     it = torch.finfo(dtype).bits // 8
+    if call.kernel != "vq":
+        nbytes, flops = _block_work(call, it)
+        return nbytes, {dtype: flops}
+    # x in, fp32 codebook in, int32 indices out; per (vector, code) a
+    # D-term dot accurate to fp32, as TF32_PASSES[dtype] TF32 tensor-core
+    # products (the tensor cores' TF32 rate bounds it), and the score and
+    # the compare on the CUDA cores (2 fp32 operations)
+    pairs = call.n * call.l
+    nbytes = it * call.n * call.c + 4 * call.l * call.c + 4 * call.n
+    return nbytes, {"tf32": TF32_PASSES[dtype] * 2 * call.c * pairs,
+                    torch.float32: 2 * pairs}
+
+
+def _block_work(call: Call, it: int):
+    """(bytes, flops) of a window MHA, FFN or block_core call with
+    `it`-byte activations."""
     c = m = call.c
-    if call.kernel == "vq":
-        # x in, fp32 codebook in, int32 indices out; per (vector, code) a
-        # D-term dot (2D), the score and the compare (2)
-        nbytes = it * call.n * c + 4 * call.l * c + 4 * call.n
-        return nbytes, call.n * call.l * (2 * c + 2)
     if call.kernel == "window_mha_bwd":
         # projections 22 N L C^2 (qkv recompute 6, dO 2, dx 6, dW 8) plus
         # the six attention products 12 N L^2 C; x, g in, dx out; weights
@@ -212,12 +230,11 @@ def bwd_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def bound_ms(call: Call, dtype: torch.dtype):
-    """(least ms on an H100 at its published peaks, 'bytes'|'operations').
-    vq computes in fp32 whatever the dtype of x."""
-    nbytes, flops = work(call, dtype)
+    """(least ms on an H100 at its published peaks, 'bytes'|'operations'):
+    the larger of the bytes' time and the slowest unit's operations."""
+    nbytes, ops = work(call, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = PEAK_FLOPS[torch.float32 if call.kernel == "vq" else dtype]
-    t_ops = flops / peak * 1e3
+    t_ops = max(n / PEAK_FLOPS[unit] for unit, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -246,6 +263,64 @@ def vq_mismatches(x: torch.Tensor, codebook: torch.Tensor, got: torch.Tensor,
         scales.append(e_sq + 2.0 * (xr * e).abs().sum(-1))
     rel = (gaps[0] - gaps[1]).abs() / torch.maximum(*scales)
     return int(rows.numel()), float(rel.max())
+
+
+def near_tie_codebook(k: int, d: int, gen: torch.Generator, device) -> torch.Tensor:
+    """[k, d] fp32 codebook of near ties: N(0, 1) codes in pairs, the
+    second of each pair the first with every element moved by about
+    2**-18 relative (random signs), and its second half an exact copy of
+    its first (so each duplicate lies K/2 codes on, in another slice of
+    the kernel's K split)."""
+    half = k // 2
+    pairs = torch.randn(((half + 1) // 2, d), generator=gen, device=device)
+    sign = torch.randint(0, 2, pairs.shape, generator=gen, device=device) * 2 - 1
+    near = pairs * (1 + sign * 2.0 ** -18)
+    first = torch.stack([pairs, near], 1).reshape(-1, d)[:half]
+    rest = torch.randn((k - 2 * half, d), generator=gen, device=device)
+    return torch.cat([first, first, rest]).contiguous()
+
+
+def tie_codebook(k: int, d: int, layout: str, gen: torch.Generator, device,
+                 slice_codes: int = 0):
+    """(codebook [k, d] fp32, copy_of [k] int64): N(0, 1) codes, some of
+    them exact copies of an earlier one; copy_of[i] is the index of the
+    first copy of code i (i itself for a first copy). layout 'halves':
+    code i + k/2 copies code i; 'next_rank': in each even slice of
+    slice_codes codes (a rank of the vq kernel's K split), code i is
+    copied one slice on, in the next rank; 'mid': in each slice, the
+    codes of its first ceil(tiles / 2) 8-code tiles (what the kernel's
+    first half of warps takes of a slice staged at once) are copied as
+    far on, into the other half; 'quad': in each 8-code tile, codes 4-7
+    copy codes 0-3 (the vq kernel's lanes 2 and 3 of a quad copy lanes 0
+    and 1); 'pair': code 2j + 1 copies code 2j (the two codes one lane
+    holds of a tile)."""
+    i = torch.arange(k, device=device)
+    if layout in ("next_rank", "mid") and slice_codes <= 0:
+        raise ValueError(f"{layout} needs slice_codes")
+    if layout == "halves":
+        first = i[: k // 2]
+        second = first + k // 2
+    elif layout == "next_rank":
+        first = i[((i // slice_codes) % 2 == 0) & (i + slice_codes < k)]
+        second = first + slice_codes
+    elif layout == "mid":
+        half = 8 * ((slice_codes // 8 + 1) // 2)
+        off = i % slice_codes
+        first = i[(off < half) & (off + half < slice_codes) & (i + half < k)]
+        second = first + half
+    elif layout == "pair":
+        first = i[(i % 2 == 0) & (i + 1 < k)]
+        second = first + 1
+    elif layout == "quad":
+        first = i[(i % 8 < 4) & (i + 4 < k)]
+        second = first + 4
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    cb = torch.randn((k, d), generator=gen, device=device)
+    cb[second] = cb[first]
+    copy_of = i.clone()
+    copy_of[second] = first
+    return cb, copy_of
 
 
 GUARD = 1 << 16   # elements of sentinel on each side of a guarded buffer

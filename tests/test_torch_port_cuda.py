@@ -23,7 +23,9 @@ from ldm_image_generator_tpu_torch.kernels.workloads import (
     GuardedBuffers,
     bwd_scale_err,
     make_inputs,
+    near_tie_codebook,
     path_calls,
+    tie_codebook,
     train_calls,
     vae_train_calls,
     vq_mismatches,
@@ -612,7 +614,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
 VQ_CALLS = vae_train_calls() + [
     Call("vq", 1, 0, 8, 1, n=700, l=300),       # ragged rows, few codes
     Call("vq", 1, 0, 8, 1, n=37, l=8192),       # one row block, many slices
+    Call("vq", 1, 0, 8, 1, n=4608, l=8191),     # a ragged slice and tile
+    Call("vq", 1, 0, 8, 1, n=4608, l=300),      # short slices, a ragged tile
+    Call("vq", 1, 0, 8, 1, n=1, l=8192),        # one row
+    Call("vq", 1, 0, 8, 1, n=17, l=8192),       # one m-tile and a row
+    Call("vq", 1, 0, 8, 1, n=4609, l=8192),     # the VAE step and a row
 ]
+
+
+def _vq_indices(x, codebook):
+    """The kernel's indices, checked to take one launch and to rerun
+    bitwise."""
+    before = tvq.launches
+    got = tvq.nearest_codebook_indices(x, codebook)
+    assert tvq.launches == before + 1
+    assert torch.equal(tvq.nearest_codebook_indices(x, codebook), got)
+    return got
 
 
 @pytest.mark.cuda
@@ -623,9 +640,7 @@ def test_vq_kernel_matches_plain(card, call, dtype):
     near-tie (workloads.VQ_TIE_REL), and a rerun gives the same bits."""
     gen = torch.Generator(device=card).manual_seed(6)
     x, codebook = make_inputs(call, dtype, card, gen)
-    before = tvq.launches
-    got = tvq.nearest_codebook_indices(x, codebook)
-    assert tvq.launches == before + 1
+    got = _vq_indices(x, codebook)
     want = tvq.nearest_codebook_indices_plain(x, codebook)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (call.n,)
@@ -633,21 +648,62 @@ def test_vq_kernel_matches_plain(card, call, dtype):
     n, gap = vq_mismatches(x, codebook, got, want)
     print(call.label, dtype, "mismatches", n, "largest gap", gap)
     assert gap <= VQ_TIE_REL, (n, gap)
-    assert torch.equal(tvq.nearest_codebook_indices(x, codebook), got)
 
 
 @pytest.mark.cuda
-def test_vq_kernel_takes_the_first_index_on_exact_ties(card):
-    """A codebook of two equal halves (K = 8192): every index is in the
-    first half and equal to the kernel's answer on that half alone."""
-    gen = torch.Generator(device=card).manual_seed(7)
-    half = torch.randn((4096, 8), generator=gen, device=card)
-    x = torch.randn((4608, 8), generator=gen, device=card)
-    got = tvq.nearest_codebook_indices(x, torch.cat([half, half]))
-    assert (got < 4096).all()
-    assert torch.equal(got, tvq.nearest_codebook_indices(x, half))
-    n, gap = vq_mismatches(x, half, got, tvq.nearest_codebook_indices_plain(x, half))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vq_kernel_matches_plain_on_near_ties(card, dtype):
+    """At the VAE step's shape on workloads.near_tie_codebook (pairs 2**-18
+    apart, exact duplicates K/2 on): equal to the plain version except
+    within VQ_TIE_REL, never a second copy of a duplicate."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    (call,) = vae_train_calls()
+    x = torch.randn((call.n, call.c), generator=gen, device=card).to(dtype)
+    codebook = near_tie_codebook(call.l, call.c, gen, card)
+    got = _vq_indices(x, codebook)
+    n, gap = vq_mismatches(x, codebook, got, tvq.nearest_codebook_indices_plain(x, codebook))
+    print(dtype, "near-tie mismatches", n, "largest gap", gap)
     assert gap <= VQ_TIE_REL, (n, gap)
+    assert (got < call.l // 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["halves", "next_rank", "mid", "quad", "pair"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vq_kernel_takes_the_first_index_on_exact_ties(card, dtype, layout):
+    """Exact duplicates (K = 8192, N = 4608) half the codebook on, in the
+    next cluster rank's slice (the kernel's own split, vq_slice_codes), in
+    the other warp half of the same rank's slice, in lanes 2-3 of the quad
+    holding their first copy and in the same lane's code pair: never the
+    second copy; on halves, equal to the kernel's answer on the first half
+    alone."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    slice_codes = _build.load("vq").vq_slice_codes(4608, 8192)
+    assert 0 < slice_codes < 8192
+    codebook, copy_of = tie_codebook(8192, 8, layout, gen, card, slice_codes)
+    x = torch.randn((4608, 8), generator=gen, device=card).to(dtype)
+    got = _vq_indices(x, codebook).long()
+    assert torch.equal(copy_of[got], got)
+    n, gap = vq_mismatches(x, codebook, got, tvq.nearest_codebook_indices_plain(x, codebook))
+    assert gap <= VQ_TIE_REL, (n, gap)
+    if layout == "halves":
+        assert torch.equal(got, _vq_indices(x, codebook[:4096].contiguous()).long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", VQ_CALLS, ids=lambda c: c.label)
+def test_vq_writes_only_inside_its_buffers(card, call, dtype):
+    """The kernel's output between sentinel guards: no guard written, and
+    the indices bitwise equal to an unguarded call's."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    x, codebook = make_inputs(call, dtype, card, gen)
+    want = _vq_indices(x, codebook)
+    with GuardedBuffers() as guarded:
+        got = tvq.nearest_codebook_indices(x, codebook)
+        torch.cuda.synchronize()
+    assert guarded.made and guarded.faults() == []
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -662,3 +718,5 @@ def test_vq_wrapper_raises_on_what_the_kernel_does_not_take(card):
         tvq.nearest_codebook_indices(x.t().contiguous().t(), cb)  # not contiguous
     with pytest.raises(ValueError):
         tvq.nearest_codebook_indices(x[:, :4].contiguous(), cb[:, :4].contiguous())
+    with pytest.raises(ValueError):  # indices past 2**24 are not exact in fp32
+        tvq.nearest_codebook_indices(x, torch.empty((tvq.KERNEL_MAX_CODES + 1, 8), device=card))

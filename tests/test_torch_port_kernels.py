@@ -216,6 +216,20 @@ def test_trace_kernels_lists_every_path_shape_of_every_kernel():
         assert trace_kernels.main([]) == 1
 
 
+def test_vq_breakdown_builds_each_part_of_the_loop_out_once():
+    """The vq breakdown times the full kernel and one build per part of
+    its main loop taken out (csrc/vq.cu VQ_DROP: products, compare, both,
+    the whole loop), each build once; it refuses to run without a card."""
+    from ldm_image_generator_tpu_torch.cli import vq_breakdown
+
+    assert vq_breakdown.BUILDS["full"] == 0
+    assert sorted(vq_breakdown.BUILDS.values()) == [0, 1, 2, 3, 4]
+    src = (vq_breakdown._build.CSRC / "vq.cu").read_text()
+    assert "#ifndef VQ_DROP\n#define VQ_DROP 0\n#endif" in src
+    if not torch.cuda.is_available():
+        assert vq_breakdown.main([]) == 1
+
+
 def test_sass_counts_reads_cuobjdump_and_ptxas_output():
     """The SASS report pairs each kernel's HMMA and FFMA counts (FFMA.FTZ
     counted, HMMA's own operands not) with ptxas's registers, stack frame

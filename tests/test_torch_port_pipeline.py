@@ -94,6 +94,7 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.cli.sample_ldm",
     "ldm_image_generator_tpu_torch.cli.train_ldm",
     "ldm_image_generator_tpu_torch.cli.train_vae",
+    "ldm_image_generator_tpu_torch.cli.vq_breakdown",
     "ldm_image_generator_tpu_torch.data.dataset",
     "ldm_image_generator_tpu_torch.data.loader",
     "ldm_image_generator_tpu_torch.diffusion.ddpm",

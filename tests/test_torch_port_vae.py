@@ -102,6 +102,134 @@ def test_vq_mismatch_rule_names_only_near_ties():
     assert n == 1 and gap == 0.0
 
 
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32):
+    the 13 low mantissa bits rounded into the rest of the magnitude."""
+    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _round_toward_zero(d: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 truncated toward zero (the tensor cores'
+    accumulator does not round to nearest)."""
+    f = d.float()
+    over = f.double().abs() > d.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tensor_core_vq(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """The vq kernel's arithmetic in plain PyTorch (csrc/vq.cu): -2e and x
+    split into TF32 heads and tails, the accumulator started at ||e||^2
+    rounded once from float64, then one m16n8k8 product per pass, head *
+    head, head * tail, tail * head (no tail for a bf16 x), each pass's
+    eight products summed exactly and the result truncated to fp32; the
+    first index of the minimum. Only codes whose fp32 score lies within
+    2**-10 of the row's scale of its minimum are emulated: either
+    arithmetic's error is below 2**-18 of it."""
+    xf, e = x.float(), codebook.float()
+    q = (codebook.double() ** 2).sum(-1).float()
+    approx = q[None] - 2.0 * (xf @ e.T)
+    scale = q.max() + 2.0 * xf.abs().sum(1, keepdim=True) * e.abs().max()
+    rows, codes = torch.nonzero(
+        approx <= approx.min(1, keepdim=True).values + 2.0 ** -10 * scale, as_tuple=True)
+    m = -2.0 * e[codes]
+    bh = _tf32(m)
+    a = xf[rows]
+    ah = _tf32(a)
+    passes = [(ah, bh), (ah, _tf32(m - bh))]
+    if x.dtype == torch.float32:
+        passes.append((_tf32(a - ah), bh))
+    acc = q[codes]
+    for pa, pb in passes:
+        acc = _round_toward_zero(acc.double() + (pa.double() * pb.double()).sum(-1))
+    n = x.shape[0]
+    best = torch.full((n,), float("inf")).scatter_reduce(0, rows, acc, "amin")
+    hit = acc == best[rows]
+    first = torch.full((n,), e.shape[0]).scatter_reduce(0, rows[hit], codes[hit], "amin")
+    return first.int()
+
+
+@pytest.mark.parametrize("codebook", ["random", "near_tie"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vq_tensor_core_split_stays_within_the_tie_rule(dtype, codebook):
+    """The kernel's TF32 split (emulated) at the VAE step's shape, 4608
+    latents against K = 8192: its indices equal XLA's except where the
+    two codes' exact scores lie within VQ_TIE_REL of their magnitude. The
+    near-tie codebook holds pairs 2**-18 apart and exact duplicates K/2
+    on (workloads.near_tie_codebook)."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import (
+        VQ_TIE_REL,
+        near_tie_codebook,
+        vae_train_calls,
+        vq_mismatches,
+    )
+
+    (call,) = vae_train_calls()
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(call.n, call.c)).astype(np.float32)
+    if codebook == "random":
+        cb = torch.from_numpy(rng.normal(size=(call.l, call.c)).astype(np.float32))
+    else:
+        cb = near_tie_codebook(call.l, call.c, torch.Generator().manual_seed(3), "cpu")
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    ref = nearest_codebook_indices_xla(jnp.asarray(x).astype(dtype), jnp.asarray(cb.numpy()))
+    got = _tensor_core_vq(tx, cb)
+    n, gap = vq_mismatches(tx, cb, got, torch.from_numpy(np.array(ref)))
+    assert gap <= VQ_TIE_REL, (n, gap)
+    if codebook == "near_tie":
+        # exact duplicates: never the second copy
+        assert (got < call.l // 2).all()
+
+
+@pytest.mark.parametrize("dtype,ms", [(torch.float32, 0.00366), (torch.bfloat16, 0.00244)])
+def test_vq_bound_counts_the_tf32_passes_of_each_dtype(dtype, ms):
+    """The vq bound at the VAE step: TF32 passes of 2 N K D at 495
+    TFLOP/s, three for an fp32 x (0.00366 ms) and two for a bf16 x, exact
+    in TF32 (0.00244 ms), above the score and compare at 67 TFLOP/s and
+    the bytes (x once, the fp32 codebook once, int32 indices out)."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import bound_ms, vae_train_calls, work
+
+    (call,) = vae_train_calls()
+    got, by = bound_ms(call, dtype)
+    assert by == "operations" and got == pytest.approx(ms, abs=5e-6)
+    nbytes, ops = work(call, dtype)
+    x_bytes = {torch.float32: 4, torch.bfloat16: 2}[dtype] * 4608 * 8
+    assert nbytes == x_bytes + 4 * 8192 * 8 + 4 * 4608
+    passes = {torch.float32: 3, torch.bfloat16: 2}[dtype]
+    assert ops == {"tf32": passes * 2 * 4608 * 8192 * 8, torch.float32: 2 * 4608 * 8192}
+
+
+@pytest.mark.parametrize("layout", ["halves", "next_rank", "mid", "quad", "pair"])
+def test_tie_codebook_places_each_copy_as_named(layout):
+    """The card tests' exact-duplicate layouts: each copy equals its first
+    copy and lies after it (K/2 on for halves, one slice on for next_rank,
+    half a slice's tiles on in the same slice for mid, 4 on in the same
+    8-code tile for quad, 1 on in the same pair for pair); the plain
+    version never returns a second copy."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import tie_codebook
+
+    cb, copy_of = tie_codebook(300, 8, layout, torch.Generator().manual_seed(4), "cpu",
+                               slice_codes=40)
+    second = torch.nonzero(copy_of != torch.arange(300)).flatten()
+    first = copy_of[second]
+    assert second.numel() >= 100 and torch.equal(cb[second], cb[first])
+    assert (copy_of[first] == first).all()
+    step = {"halves": 150, "next_rank": 40, "mid": 24, "quad": 4, "pair": 1}[layout]
+    assert ((second - first) == step).all()
+    if layout == "next_rank":
+        assert ((second // 40) == (first // 40) + 1).all()
+    if layout == "mid":  # 5 tiles a slice: tiles 0-2, then 3-4
+        assert ((second // 40) == (first // 40)).all()
+        assert (first % 40 < 24).all() and (second % 40 >= 24).all()
+    if layout == "quad":
+        assert ((second // 8) == (first // 8)).all()
+    if layout == "pair":
+        assert ((second // 2) == (first // 2)).all()
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2000, 8)).astype(np.float32))
+    got = tvq.nearest_codebook_indices(x, cb).long()
+    assert torch.equal(copy_of[got], got)
+    assert torch.isin(got, second).sum() == 0 and torch.isin(got, first).any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantizer_loss_and_grads_match_jax(dtype):
     """The symmetric L1 commitment loss and its gradients with respect to
