@@ -65,6 +65,30 @@ no result line):
      CPU's gradients within 1e-4 of each element's step (plus 1e-6 of
      max abs) of the CPU's updated parameters (see VAE_OPT_STEP_REL); the
      parameters after the two steps are reported.
+  10. class-conditional sampling (the default UNet with num_classes=3,
+     the conditional operating point of QUALITY_COND_r05.json, and the
+     default decoder; 256px, bf16, seeded weights), classifier-free
+     guidance at 3.0, 20 DDIM steps: exactly 1440 block_core and 320
+     window MHA per B=1 sample; at B=4 one call mixing per-sample scales
+     [1, 3, 3, 5], rescales [0, 0, 0.7, 0] and one negative class, 1440
+     ffn_block and 320 window MHA; int8 FFN weights at B=1, 1440 int8
+     block_core; images/s (3 timed calls after a warm-up) and a profile
+     of one sample each; then DPM-Solver++(2M) at 10 steps (360
+     block_core, 80 window MHA) and DeepCache at interval 2 over 20 DDIM
+     steps (420 block_core, 100 window MHA) on the unconditional UNet of
+     phase 3, images/s each;
+  11. one guided fp32 prediction of the conditional UNet (both branches
+     under one routing plan, rescale 0.7) on the card against the CPU, at
+     STEP_REL_TOL of scale;
+  12. parameter files: the conditional UNet written (flax msgpack, under
+     build/) and read into a fresh UNet on the card, every parameter
+     bitwise equal, and a B=1 CFG sample from it bitwise the in-memory
+     weights' sample; write and read seconds; then the sampling CLI on
+     that file (3 classes, class 1, guidance 3, DPM-Solver++ at 10 steps,
+     two 256px PNGs under build/).
+Phase 2 also holds block_core with add_residual=False (every decoder
+block of a conditioned UNet) against its plain version at the B=1
+decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
 Phase 2 also holds the vq kernel against its plain version at the VAE
 step's shape (see workloads.VQ_TIE_REL), with its output between
 sentinel guards, and on a near-tie codebook and exact ties across
@@ -76,6 +100,7 @@ kernels' JSON record.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -214,6 +239,7 @@ def phase_kernels(dev, reps: int) -> dict:
         VQ_TIE_REL,
         bound_ms,
         bwd_scale_err,
+        cond_body_calls,
         make_inputs,
         path_calls,
         train_calls,
@@ -301,7 +327,10 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b1-64") for c in path_calls(1, latent=64, int8=True)
         if c.kernel == "block_core_int8"] + [
         (c, "b4") for c in path_calls(4, int8=True) if c.kernel == "ffn_block_int8"]
-    calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + [
+    # block_core without its residual (a conditioned decoder block) at the
+    # B=1 decoder shapes, both weight types
+    cond = [(c, "b1-cond") for c in cond_body_calls(1) + cond_body_calls(1, int8=True)]
+    calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + cond + [
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
         (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8 + [
@@ -404,6 +433,14 @@ def phase_kernels(dev, reps: int) -> dict:
             f"(bound/kernel {bms / ms:.4f}); ffn_block + grouped conv at the same "
             f"shapes {ffn_ms + conv_ms:.4f} ms ({ffn_ms:.4f} + {conv_ms:.4f}; "
             f"block_core/sum {ms / (ffn_ms + conv_ms):.3f})")
+    # block_core without the residual, per conditioned B=1 UNet call: the
+    # 18 decoder blocks
+    for name in ("block_core", "block_core_int8"):
+        rs = [r for r in rows if r["kernel"] == name and r["tag"] == "b1-cond"]
+        step = lambda k: sum(r[k] * r["per_step"] for r in rs)
+        log(f"{name} b1-cond (add_residual=False, decoder blocks) per UNet call: "
+            f"kernel {step('ms'):.4f} ms, bound {step('bound_ms'):.5f} ms, plain "
+            f"{step('plain_ms'):.4f} ms, max abs err {max(r['max_abs_err'] for r in rs):.3e}")
     # the int8 routes per step of their paths, beside the same kernel with
     # full-precision (bf16) weights at the same shapes in this call
     for name in ("block_core_int8", "ffn_block_int8"):
@@ -676,10 +713,13 @@ def phase_int8_path(dev, ref_pipe) -> dict:
 
 def phase_card_vs_cpu(dev, cfg=None) -> float:
     """One full-width fp32 denoise step of the UNet of `cfg` (default: the
-    default UNet), card kernels vs CPU plain versions."""
+    default UNet), card kernels vs CPU plain versions. A class-conditional
+    UNet gives one guided prediction: class 1 and the null class under one
+    routing plan, guidance 3.0, rescale 0.7."""
     from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.models.layers import RandomMoE
     from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.pipelines import guide
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -690,13 +730,22 @@ def phase_card_vs_cpu(dev, cfg=None) -> float:
     x = torch.randn((1, 32, 32, 8), generator=gen)
     t = torch.tensor([526], dtype=torch.int32)
     plan = torch.randint(0, 6, (cpu.plan_length(),), generator=gen)
+    classes = cpu.cfg.num_classes
+
+    def predict(unet, d):
+        run = lambda cond: unet(x.to(d), t.to(d), cond, moe_plan=plan.to(d)).float()
+        if not classes:
+            return run(None)
+        ids = lambda c: torch.tensor([c], dtype=torch.int32, device=d)
+        return guide(run(ids(1)), run(ids(classes)), 3.0, 0.7)
+
     with torch.no_grad():
-        ref = cpu(x, t, moe_plan=plan)
-        got = card(x.to(dev), t.to(dev), moe_plan=plan.to(dev)).cpu()
+        ref = predict(cpu, "cpu")
+        got = predict(card, dev).cpu()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    log(f"card vs cpu fp32 step (ffn_quant={cpu.cfg.ffn_quant}): max abs err "
-        f"{err:.3e}, output max {scale:.3e}")
+    what = f"guided, {classes} classes" if classes else f"ffn_quant={cpu.cfg.ffn_quant}"
+    log(f"card vs cpu fp32 step ({what}): max abs err {err:.3e}, output max {scale:.3e}")
     if cpu.cfg.ffn_quant == "int8":
         # the int8 weights each side made (quantize_cols on its own device)
         made = [(a.ffn_weights(torch.float32), b.ffn_weights(torch.float32))
@@ -708,6 +757,187 @@ def phase_card_vs_cpu(dev, cfg=None) -> float:
     require(torch.isfinite(got).all(), "card step output finite")
     require(err <= STEP_REL_TOL * scale, (err, scale))
     return err / scale
+
+
+# the conditional operating point of QUALITY_COND_r05.json
+COND_CLASSES = 3
+CFG_SCALE = 3.0
+
+
+def timed_samples(sample, batch: int, calls: int = 3) -> dict:
+    """Host seconds of `calls` synchronised sample() calls after one
+    warm-up, and images/s over their mean."""
+    sample()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return dict(sample_s=times, images_per_s=batch / (sum(times) / len(times)))
+
+
+def run_counted(sample, batch: int, want: dict, what: str) -> dict:
+    """Launch counts of one sample() call (counts set to 0 just before and
+    read just after), gated to equal `want`; uint8 images [batch, 256,
+    256, 3] and a finite [batch, 32, 32, 8] latent."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    img, z = sample()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{what} launches", json.dumps(counts))
+    expect = dict.fromkeys(counts, 0)
+    expect.update(want)
+    require(counts == expect, (what, counts))
+    require(img.dtype == torch.uint8 and tuple(img.shape) == (batch, 256, 256, 3),
+            (what, img.shape))
+    require(tuple(z.shape) == (batch, 32, 32, 8) and torch.isfinite(z).all(),
+            (what, "final latent finite and [B, 32, 32, 8]"))
+    return counts
+
+
+def measure_path(name: str, make_sample, batch: int, want: dict) -> dict:
+    """One sampling path: exact launch counts (fatal), images/s over 3
+    timed calls after a warm-up, device-busy ms of one profiled call.
+    make_sample(seed) -> a call returning (images, latent)."""
+    counts = run_counted(make_sample(0), batch, want, name)
+    out = dict(launches=counts, **timed_samples(make_sample(1), batch))
+    prof = profile_fn(make_sample(2))
+    out.update(device_busy_ms=prof["device_busy_ms"], profiled_wall_ms=prof["wall_ms"])
+    log(f"{name}: images/s {out['images_per_s']:.4f} (sample seconds {out['sample_s']}), "
+        f"device busy {out['device_busy_ms']:.3f} ms")
+    return out
+
+
+def phase_dpm_deepcache(dev, pipe) -> dict:
+    """DPM-Solver++(2M) at 10 steps and DeepCache (interval 2, 20 DDIM
+    steps) at B=1 on the unconditional pipeline of phase 3."""
+    def make(seed, **kw):
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        return lambda: pipe.sample(gen, batch=1, image_size=256, return_latent=True, **kw)
+
+    out = {"dpm10_b1": measure_path(
+        "dpm++2m 10 steps b1", lambda seed: make(seed, num_steps=10, sampler="dpm++2m"), 1,
+        {"block_core": 10 * 36, "window_mha": 10 * 8})}
+    # 10 fresh steps run every block, 10 cached ones enc_stage_0 and
+    # dec_stage_0 only: 3 + 3 blocks, 2 of them attention blocks
+    out["deepcache2_b1"] = measure_path(
+        "deepcache interval 2 b1", lambda seed: make(seed, num_steps=20, cache_interval=2),
+        1, {"block_core": 10 * 36 + 10 * 6, "window_mha": 10 * 8 + 10 * 2})
+    return out
+
+
+def cfg_sample(pipe, dev, batch: int):
+    """make_sample(seed) for phase 10's guided sample at `batch`: class
+    ids, guidance CFG_SCALE, rescale 0; at B=4 per-sample scales,
+    rescales and one negative class."""
+    ids = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    if batch == 1:
+        kw = dict(condition=ids([1]), guidance_scale=CFG_SCALE, cfg_rescale=0.0)
+    else:
+        kw = dict(condition=ids([0, 1, 2, 1]),
+                  guidance_scales=torch.tensor([1.0, 3.0, 3.0, 5.0], device=dev),
+                  cfg_rescales=torch.tensor([0.0, 0.0, 0.7, 0.0], device=dev),
+                  negative_condition=ids([COND_CLASSES] * 3 + [2]))
+
+    def make(seed):
+        gen = torch.Generator(device=dev).manual_seed(200 + 10 * batch + seed)
+        return lambda: pipe.sample(gen, batch=batch, image_size=256, num_steps=20,
+                                   return_latent=True, **kw)
+    return make
+
+
+def phase_cond(dev) -> tuple:
+    """Class-conditional sampling with CFG at B=1 and B=4, then with int8
+    FFN weights at B=1 (phase 10). Returns (results, the bf16 pipeline,
+    its fp32 UNet and decoder)."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.vae import Decoder
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+
+    t0 = time.perf_counter()
+    cfg = UNetConfig(num_classes=COND_CLASSES)
+    # the weights LDMPipeline.random(cfg, seed=0) makes, kept for phase 12
+    gen = torch.Generator(device=dev).manual_seed(0)
+    modules = (UNet(cfg, device=dev, generator=gen),
+               Decoder(VAEConfig(), device=dev, generator=gen))
+    pipe = LDMPipeline(*modules, dtype=torch.bfloat16)
+    log(f"cond: default UNet, {COND_CLASSES} classes, "
+        f"{sum(p.numel() for p in pipe.unet.parameters())} params, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # two UNet calls per step (the class, then the null or negative class)
+    out = {"cfg_b1": measure_path("cfg b1", cfg_sample(pipe, dev, 1), 1,
+                                  {"block_core": 20 * 2 * 36, "window_mha": 20 * 2 * 8}),
+           "cfg_b4": measure_path("cfg b4 mixed", cfg_sample(pipe, dev, 4), 4,
+                                  {"ffn_block": 20 * 2 * 36, "window_mha": 20 * 2 * 8})}
+    int8 = LDMPipeline.random(dataclasses.replace(cfg, ffn_quant="int8"),
+                              dtype=torch.bfloat16, device=dev, seed=0)
+    out["cfg_int8_b1"] = measure_path(
+        "cfg int8 b1", cfg_sample(int8, dev, 1), 1,
+        {"block_core_int8": 20 * 2 * 36, "window_mha": 20 * 2 * 8})
+    del int8
+    return out, pipe, modules
+
+
+def phase_param_files(dev, pipe, unet, decoder) -> dict:
+    """`unet` (the fp32 conditional UNet `pipe` samples) written as a flax
+    parameter file under build/ and read into a fresh UNet on the card:
+    every parameter bitwise equal, and a B=1 CFG sample from it bitwise
+    the in-memory weights' sample."""
+    import os
+
+    from ldm_image_generator_tpu_torch.convert import load_flax_file, save_flax_file
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_cond_unet.msgpack")
+    t0 = time.perf_counter()
+    save_flax_file(unet, path)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    fresh = UNet(unet.cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(99))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_flax_file(fresh, path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want, got = unet.state_dict(), fresh.state_dict()
+    differ = [n for n in want if not torch.equal(want[n], got[n])]
+    require(want.keys() == got.keys() and not differ, ("parameters differ", differ[:5]))
+    samples = []
+    for p in (pipe, LDMPipeline(fresh, decoder, dtype=torch.bfloat16)):
+        img, z = cfg_sample(p, dev, 1)(7)()
+        samples.append((img, z))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*samples))
+    log(f"param files: {size} bytes, write {write_s:.3f} s, read into the card "
+        f"{read_s:.3f} s; {len(want)} tensors bitwise equal; CFG sample from the "
+        f"file bitwise equal: {same}")
+    require(same, "the reloaded weights' CFG sample equals the in-memory weights'")
+    # the sampling CLI on the file: 3 classes, CFG, DPM-Solver++ at 10 steps
+    outdir = os.path.join("build", "chip_smoke_cli")
+    argv = [sys.executable, "-m", "ldm_image_generator_tpu_torch.cli.sample_ldm",
+            "--num-classes", str(COND_CLASSES), "--class-id", "1", "--guidance-scale",
+            str(CFG_SCALE), "--sampler", "dpm++2m", "-t", "10", "-dp", path, "-s", "256",
+            "-n", "2", "-fp16", "true", "-o", outdir]
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cli = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env)
+    cli_s = time.perf_counter() - t0
+    os.remove(path)
+    log(f"param files: sample_ldm CLI exit {cli.returncode} in {cli_s:.2f} s: "
+        f"{cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    pngs = [os.path.join(outdir, f"{i}.png") for i in range(2)]
+    require(cli.returncode == 0 and f"Loaded checkpoint: {path}" in cli.stdout
+            and all(os.path.getsize(p) > 0 for p in pngs), "sample_ldm CLI on the file")
+    return dict(bytes=size, write_s=write_s, read_s=read_s, tensors=len(want),
+                cli_s=cli_s)
 
 
 def launch_counts() -> dict:
@@ -1203,12 +1433,23 @@ def main(argv) -> int:
     kernels["window_mha"]["launches"] = path["launches_b1"]["window_mha"]
     kernels["ffn_block"]["launches"] = path["launches_b4"]["ffn_block"]
     int8_path = phase_int8_path(dev, pipe)
+    fast = phase_dpm_deepcache(dev, pipe)
     del pipe
     kernels["block_core_int8"]["launches"] = int8_path["b1"]["launches"]["block_core_int8"]
     kernels["ffn_block_int8"]["launches"] = int8_path["b4"]["launches"]["ffn_block_int8"]
     rel = phase_card_vs_cpu(dev)
     rel_int8 = phase_card_vs_cpu(dev, UNetConfig(ffn_quant="int8"))
     log(f"sampling phases done at {time.perf_counter() - t_start:.1f} s")
+    cond, cond_pipe, cond_modules = phase_cond(dev)
+    files = phase_param_files(dev, cond_pipe, *cond_modules)
+    del cond_pipe, cond_modules
+    rel_cond = phase_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))
+    paths = dict(fast, **cond)
+    for kernel in ("block_core", "window_mha", "ffn_block", "block_core_int8"):
+        kernels[kernel]["launches_by_path"] = {
+            path: r["launches"][kernel] for path, r in paths.items() if r["launches"][kernel]}
+    log(f"conditional, DPM and DeepCache phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     train = phase_train(dev)
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
     kernels["window_mha_bwd"]["launches"] = train["launches"]["window_mha_bwd"]
@@ -1228,6 +1469,9 @@ def main(argv) -> int:
         "card_vs_cpu_rel_err": rel,
         "int8_path": int8_path,
         "int8_card_vs_cpu_rel_err": rel_int8,
+        "paths": paths,
+        "cond_card_vs_cpu_rel_err": rel_cond,
+        "param_files": files,
         "train_launches": train["launches"],
         "train_steps_per_s": train["steps_per_s"],
         "train_images_per_s": train["images_per_s"],

@@ -1,12 +1,20 @@
 """Sample images from the latent diffusion model on the GPU.
 
     python -m ldm_image_generator_tpu_torch.cli.sample_ldm -s 256 -n 1 \\
-        -t 20 -fp16 true -o ./ddpm_outputs/ [--quant int8]
+        -t 20 -fp16 true -dp ddpm.pt -decp vae_decoder.pt -o ./ddpm_outputs/
 
-Builds seeded random weights (loading checkpoints is not ported yet),
-runs DDIM sampling and writes <outdir>/<i>.png. --quant int8 samples
-with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Runs on
-`cuda` unless `-d cpu` is given; a CUDA request without a card raises.
+The flags of the JAX package's cli/sample_ldm.py, checked in its order.
+-dp / -decp name the UNet and VAE decoder parameter files the trainers
+write (flax msgpack, as the JAX package's); a path that does not exist
+means seeded random weights, and a file of another model config exits
+with the JAX CLI's message. --sampler ddim | dpm++2m; --cache-interval
+N > 1 (DeepCache); --num-classes with --class-id, --guidance-scale,
+--negative-class and --cfg-rescale for class-conditional models;
+--prediction and --zero-snr select the schedule; --quant int8 samples
+with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Writes
+<outdir>/<i>.png. Runs on `cuda` unless `-d cpu` is given; a CUDA
+request without a card raises. img2img and inpainting (--init-image,
+--mask, --strength, -encp) are not ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -44,49 +52,144 @@ def save_png(path: str, img) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Sample LDM (PyTorch/CUDA port)")
-    p.add_argument("--config", default="default", choices=["default", "tiny"],
-                   help="model size preset (tiny = test/debug scale)")
+    p.add_argument("-dp", "--ddpmpath", default="./ddpm.pt")
+    p.add_argument("-decp", "--decpath", default="./vae_decoder.pt")
+    p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("-fp16", default=False, type=str2bool,
+                   help="bfloat16 compute (false: float32)")
     p.add_argument("-s", "--size", default=512, type=int)
     p.add_argument("-n", "--numimages", default=1, type=int)
     p.add_argument("-t", "--timesteps", default=20, type=int)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--eta", default=0.0, type=float)
-    p.add_argument("-fp16", default=False, type=str2bool,
-                   help="bfloat16 compute (false: float32)")
+    p.add_argument("--cache-interval", default=1, type=int,
+                   help="DeepCache: recompute the UNet's deep core every N "
+                        "sampler steps and reuse it in between (1 = off; "
+                        "not with guidance)")
+    p.add_argument("--sampler", default="ddim", choices=["ddim", "dpm++2m"])
+    p.add_argument("-o", "--outdir", default="./ddpm_outputs/")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="print the per-step DDIM sigma schedule")
+    p.add_argument("--config", default="default", choices=["default", "tiny"],
+                   help="model size preset (tiny = test/debug scale)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="int8: per-output-column quantized FFN weights")
-    p.add_argument("-o", "--outdir", default="./ddpm_outputs/")
-    p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--num-classes", default=0, type=int,
+                   help="class count the model was trained with; required "
+                        "for --class-id")
+    p.add_argument("--class-id", default=None, type=int)
+    p.add_argument("--guidance-scale", default=1.0, type=float,
+                   help="classifier-free guidance strength (1 = off)")
+    p.add_argument("--negative-class", default=None, type=int,
+                   help="condition the guidance baseline on this class "
+                        "instead of the null class")
+    p.add_argument("--cfg-rescale", default=0.0, type=float,
+                   help="guidance rescale phi (0 = off)")
+    p.add_argument("--prediction", default="eps", choices=["eps", "v"])
+    p.add_argument("--zero-snr", action="store_true",
+                   help="zero terminal SNR schedule; needs --prediction v")
+    # img2img / inpainting flags of the JAX CLI: refused below
+    p.add_argument("--init-image", default=None)
+    p.add_argument("-encp", "--encpath", default=None)
+    p.add_argument("--strength", default=None, type=float)
+    p.add_argument("--mask", default=None)
     return p
+
+
+def check_args(args) -> None:
+    """The JAX CLI's argument checks, in its order; then the flags this
+    port does not run yet."""
+    if args.mask is not None and args.init_image is None:
+        raise SystemExit("--mask requires --init-image")
+    if args.class_id is not None and args.num_classes <= 0:
+        raise SystemExit("--class-id requires --num-classes > 0")
+    if args.negative_class is not None:
+        if args.class_id is None:
+            raise SystemExit("--negative-class requires --class-id")
+        if args.guidance_scale == 1.0:
+            raise SystemExit("--negative-class has no effect at --guidance-scale 1.0")
+        if not 0 <= args.negative_class < args.num_classes:
+            raise SystemExit(f"--negative-class must be in [0, {args.num_classes})")
+    for flag, value in (("--init-image", args.init_image), ("--mask", args.mask),
+                        ("--strength", args.strength), ("-encp", args.encpath)):
+        if value is not None:
+            raise SystemExit(f"{flag} (img2img / inpainting) is not ported yet: "
+                             "ROADMAP A9")
+
+
+def maybe_load(module, path: str) -> bool:
+    """Load a parameter file into `module` if `path` exists (else leave
+    its seeded weights); a file of another model config exits with the
+    JAX CLI's message."""
+    if not os.path.exists(path):
+        return False
+    from ldm_image_generator_tpu_torch.convert import load_flax_file
+
+    try:
+        load_flax_file(module, path)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(e.args[0]) from e
+    print(f"Loaded checkpoint: {path}")
+    return True
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    check_args(args)
     import torch
 
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
+        DDPMConfig,
         UNetConfig,
         VAEConfig,
         resolve_device,
     )
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.vae import Decoder
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
 
     device = resolve_device(args.device)
     ucfg, vcfg = UNetConfig(), VAEConfig()
     if args.config == "tiny":
         ucfg, vcfg = ucfg.tiny(), vcfg.tiny()
-    ucfg = dataclasses.replace(ucfg, ffn_quant=args.quant)
+    ucfg = dataclasses.replace(ucfg, ffn_quant=args.quant,
+                               num_classes=max(args.num_classes, 0))
     dtype = (DEFAULT_PRECISION if args.fp16 else FULL_PRECISION).compute_dtype
-    pipe = LDMPipeline.random(ucfg, vcfg, dtype=dtype, device=device,
-                              seed=args.seed)
+    dcfg = DDPMConfig(prediction=args.prediction, zero_terminal_snr=args.zero_snr)
+    # seeded weights as LDMPipeline.random makes them, then the files
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    unet = UNet(ucfg, device=device, generator=gen)
+    decoder = Decoder(vcfg, device=device, generator=gen)
+    maybe_load(unet, args.ddpmpath)
+    maybe_load(decoder, args.decpath)
+    pipe = LDMPipeline(unet, decoder, dcfg, dtype=dtype)
+    full = lambda v: None if v is None else torch.full(
+        (args.numimages,), v, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     imgs = pipe.sample(gen, batch=args.numimages, image_size=args.size,
-                       num_steps=args.timesteps, eta=args.eta).cpu().numpy()
+                       num_steps=args.timesteps, eta=args.eta,
+                       sampler=args.sampler, condition=full(args.class_id),
+                       guidance_scale=args.guidance_scale,
+                       cache_interval=args.cache_interval,
+                       cfg_rescale=args.cfg_rescale,
+                       negative_condition=full(args.negative_class)).cpu().numpy()
     os.makedirs(args.outdir, exist_ok=True)
     for i in range(args.numimages):
         save_png(os.path.join(args.outdir, f"{i}.png"), imgs[i])
+    if args.verbose and args.sampler == "ddim":
+        import numpy as np
+
+        from ldm_image_generator_tpu_torch.diffusion.ddpm import ddim_step_pairs
+
+        abar = pipe.schedule.alpha_bar.astype(np.float64)
+        ts, ts_next = ddim_step_pairs(pipe.schedule.num_timesteps, args.timesteps)
+        for t, tn in zip(ts, ts_next):
+            a_t, a_n = abar[t], abar[tn]
+            sigma = (args.eta * np.sqrt((1.0 - a_n) / (1.0 - a_t))
+                     * np.sqrt(max(1.0 - a_t / a_n, 0.0)))
+            print(f"step t={int(t):4d} -> {int(tn):4d}  sigma={sigma:.4f}")
     print(f"saved {args.numimages} images to {args.outdir}")
 
 

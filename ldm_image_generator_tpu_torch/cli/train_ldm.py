@@ -4,20 +4,22 @@
         -s 256 -b 8 -e 1 -fp16 true
 
 The flags are those of the JAX package's cli/train_ldm.py that this port
-covers. The images are encoded once by a VAE Encoder with seeded random
-weights (a reference encoder file is not converted yet), the UNet starts
-from seeded random weights, and each step is AdamW on the eps-prediction
-L1 loss (optionally v-prediction, Min-SNR weighting, gradient clipping,
-an LR schedule, accumulation over -bm steps and an EMA). The loss is
-printed every step; no checkpoint is written yet. Runs on `cuda` unless
-`-d cpu` is given; a CUDA request without a card raises.
+covers. The images are encoded once by the VAE Encoder of the -ep
+parameter file (seeded random weights where it does not exist), the
+UNet starts from the -mp file where it exists (else seeded random
+weights), and each step is AdamW on the eps-prediction L1 loss
+(optionally v-prediction, Min-SNR weighting, gradient clipping, an LR
+schedule, accumulation over -bm steps and an EMA). The loss is printed
+every step; at the end (also after an interrupt) the UNet is written to
+-mp and the EMA to -mp + ".ema", flax parameter files as the JAX
+package's. Runs on `cuda` unless `-d cpu` is given; a CUDA request
+without a card raises.
 """
 from __future__ import annotations
 
 import argparse
-import os
 
-from ldm_image_generator_tpu_torch.cli.sample_ldm import str2bool
+from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -27,6 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("-e", "--epoch", default=1, type=int)
     p.add_argument("-b", "--batch", default=1, type=int)
+    p.add_argument("-mp", "--modelpath", default="./ddpm.pt")
     p.add_argument("-ep", "--encpath", default="./vae_encoder.pt")
     p.add_argument("-fp16", default=False, type=str2bool,
                    help="bfloat16 compute (false: float32); params stay fp32")
@@ -63,14 +66,13 @@ def refusal(args):
     """The message refusing an option this port does not run yet, naming
     the ROADMAP item that brings it, or None."""
     todo = [
-        (args.num_classes != 0, "--num-classes", "A3 (class conditioning)"),
+        (args.num_classes != 0, "--num-classes",
+         "A16 (class-conditional training)"),
         (args.pipeline_stages != 0, "--pipeline-stages", "A13 (parallelism)"),
         (args.zero1, "--zero1", "A13 (parallelism)"),
         (args.fused_steps > 1, "--fused-steps > 1", "A7 (fused train steps)"),
-        (args.ckpt_dir is not None, "--ckpt-dir", "A4 (checkpoint IO)"),
+        (args.ckpt_dir is not None, "--ckpt-dir", "A7 (resume)"),
         (args.val_dir is not None, "--val-dir", "A7 (the validator)"),
-        (os.path.exists(args.encpath), f"-ep {args.encpath}",
-         "A12 (converting reference encoder weights)"),
     ]
     for hit, flag, item in todo:
         if hit:
@@ -93,6 +95,7 @@ def main(argv=None):
         VAEConfig,
         resolve_device,
     )
+    from ldm_image_generator_tpu_torch.convert import save_flax_file
     from ldm_image_generator_tpu_torch.data.dataset import LatentImageDataset
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
@@ -113,6 +116,7 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
 
     encoder = Encoder(vcfg, device=device, generator=gen)
+    maybe_load(encoder, args.encpath)
 
     @torch.no_grad()
     def encode(imgs):
@@ -125,6 +129,7 @@ def main(argv=None):
     del encoder
 
     unet = UNet(ucfg, device=device, generator=gen)
+    maybe_load(unet, args.modelpath)
     schedule = make_schedule(DDPMConfig(prediction=args.prediction,
                                         zero_terminal_snr=args.zero_snr))
     tx = make_optimizer("adamw", args.learningrate,
@@ -140,13 +145,20 @@ def main(argv=None):
         min_snr_gamma=args.min_snr_gamma if args.min_snr_gamma > 0 else None,
         dtype=dtype)
     loader = BatchLoader(ds, args.batch)
-    print("no checkpoint is written: checkpoint IO is ROADMAP A4")
-    for epoch in range(args.epoch):
-        print(f"Epoch #{epoch}")
-        for batch in loader:
-            state, metrics = step_fn(state, torch.from_numpy(batch).to(device),
-                                     generator=gen)
-            print(f"step {state.step} loss {metrics['loss'].item():.6f}")
+    try:
+        for epoch in range(args.epoch):
+            print(f"Epoch #{epoch}")
+            for batch in loader:
+                state, metrics = step_fn(state, torch.from_numpy(batch).to(device),
+                                         generator=gen)
+                print(f"step {state.step} loss {metrics['loss'].item():.6f}")
+    finally:
+        save_flax_file(unet, args.modelpath)
+        saved = [args.modelpath]
+        if state.ema_params is not None:
+            save_flax_file(state.ema_params, args.modelpath + ".ema")
+            saved.append(args.modelpath + ".ema")
+        print("saved " + ", ".join(saved))
     return state
 
 

@@ -7,12 +7,14 @@ The flags are those of the JAX package's cli/train_vae.py. Every step
 takes one random crop of the batch (192px, or the whole image below
 that size), computes loss = recon * 10 + VQ reg + 0.1 * hinge adversarial
 and takes an Adafactor step on the encoder, decoder and codebook, then a
-hinge step on the discriminator, also Adafactor. The models start from
+hinge step on the discriminator, also Adafactor. Each model starts from
+its parameter file (-ep, -dp, -qp, -discp) where it exists, else from
 seeded random weights. The losses are printed every step, and every
 --save-every batches the first reconstruction and the crop it was made
-from are written to the result dir as JPEGs; no parameter file is
-written yet. Runs on `cuda` unless `-d cpu` is given; a CUDA request
-without a card raises.
+from are written to the result dir as JPEGs; at the end (also after an
+interrupt) the four parameter files are written, each {"params": ...}
+as the JAX package's. Runs on `cuda` unless `-d cpu` is given; a CUDA
+request without a card raises.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import os
 
 import numpy as np
 
-from ldm_image_generator_tpu_torch.cli.sample_ldm import str2bool
+from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,14 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refusal(args):
     """The message refusing an option this port does not run yet, naming
     the ROADMAP item that brings it, or None."""
-    todo = [(args.ckpt_dir is not None, "--ckpt-dir", "A4 (checkpoint IO)")]
-    for flag, path in (("-ep", args.encpath), ("-dp", args.decpath),
-                       ("-qp", args.quantizerpath), ("-discp", args.discpath)):
-        todo.append((os.path.exists(path), f"{flag} {path}",
-                     "A12 (loading reference or saved weights)"))
-    for hit, flag, item in todo:
-        if hit:
-            return f"{flag} is not ported yet: ROADMAP {item}"
+    if args.ckpt_dir is not None:
+        return "--ckpt-dir is not ported yet: ROADMAP A7 (resume)"
     return None
 
 
@@ -89,6 +85,7 @@ def main(argv=None):
         VAEConfig,
         resolve_device,
     )
+    from ldm_image_generator_tpu_torch.convert import save_flax_file
     from ldm_image_generator_tpu_torch.data.dataset import ImageDataset
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
     from ldm_image_generator_tpu_torch.models.vae import (
@@ -111,15 +108,19 @@ def main(argv=None):
     dtype = (DEFAULT_PRECISION if args.fp16 else FULL_PRECISION).compute_dtype
     gen = torch.Generator(device=device).manual_seed(0)
 
-    ds = ImageDataset([args.dataset_path], size=args.size, max_len=args.maxdata)
-    print(f"dataset: {len(ds)} images at {args.size}px")
-    crop = 192 if args.size >= 192 else args.size
     vae = nn.ModuleDict({
         "encoder": Encoder(cfg, device=device, generator=gen),
         "decoder": Decoder(cfg, device=device, generator=gen),
         "quantizer": VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim,
                                      device=device, generator=gen)})
     disc = Discriminator(dcfg, device=device, generator=gen)
+    files = ((vae["encoder"], args.encpath), (vae["decoder"], args.decpath),
+             (vae["quantizer"], args.quantizerpath), (disc, args.discpath))
+    for module, path in files:
+        maybe_load(module, path)
+    ds = ImageDataset([args.dataset_path], size=args.size, max_len=args.maxdata)
+    print(f"dataset: {len(ds)} images at {args.size}px")
+    crop = 192 if args.size >= 192 else args.size
     tx_vae, tx_d = make_optimizer("adafactor"), make_optimizer("adafactor")
     state = VAETrainState(vae_params=vae, disc_params=disc,
                           opt_state_vae=tx_vae.init(list(vae.parameters())),
@@ -129,18 +130,24 @@ def main(argv=None):
                                   crop_size=crop, dtype=dtype)
     loader = BatchLoader(ds, args.batch)
     os.makedirs(args.result, exist_ok=True)
-    print("no parameter file is written: checkpoint IO is ROADMAP A4")
-    for epoch in range(args.epoch):
-        print(f"Epoch #{epoch}")
-        for batch_idx, images in enumerate(loader):
-            state, metrics, (recon, cropped) = step_fn(
-                state, torch.from_numpy(images).to(device), generator=gen)
-            print(f"step {state.step} " + " ".join(
-                f"{k} {v.item():.6f}" for k, v in metrics.items()))
-            if batch_idx % args.save_every == 0:
-                for name, img in (("reconstructed", recon[0]), ("input", cropped[0])):
-                    save_jpeg(float_to_image(img.float().cpu().numpy()),
-                              os.path.join(args.result, f"{batch_idx}_{name}.jpg"))
+    try:
+        for epoch in range(args.epoch):
+            print(f"Epoch #{epoch}")
+            for batch_idx, images in enumerate(loader):
+                state, metrics, (recon, cropped) = step_fn(
+                    state, torch.from_numpy(images).to(device), generator=gen)
+                print(f"step {state.step} " + " ".join(
+                    f"{k} {v.item():.6f}" for k, v in metrics.items()))
+                if batch_idx % args.save_every == 0:
+                    for name, img in (("reconstructed", recon[0]),
+                                      ("input", cropped[0])):
+                        save_jpeg(float_to_image(img.float().cpu().numpy()),
+                                  os.path.join(args.result,
+                                               f"{batch_idx}_{name}.jpg"))
+    finally:
+        for module, path in files:
+            save_flax_file(module, path)
+        print("saved " + ", ".join(path for _, path in files))
     return state
 
 

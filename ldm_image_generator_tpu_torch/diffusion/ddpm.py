@@ -134,6 +134,16 @@ def pred_to_eps_x0(pred: torch.Tensor, x_t: torch.Tensor, alpha_bar_t,
     raise ValueError(f"unknown prediction {prediction!r}")
 
 
+def film_schedule_ts(num_timesteps: int, num_steps: int,
+                     steps=None) -> np.ndarray:
+    """The ascending int32 timesteps a sampler run visits (the FiLM
+    schedule's, DPM-Solver++'s): the linspace derived from num_steps, or
+    the deduplicated explicit `steps`."""
+    if steps is None:
+        return np.linspace(0, num_timesteps - 1, num_steps).astype(np.int32)
+    return np.asarray(sorted(set(int(s) for s in steps)), dtype=np.int32)
+
+
 def ddim_step_pairs(num_timesteps: int, num_steps: int = 20,
                     steps: Optional[Sequence[int]] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -145,6 +155,18 @@ def ddim_step_pairs(num_timesteps: int, num_steps: int = 20,
         steps = np.asarray(list(steps), dtype=np.int32)
     steps_next = np.concatenate([[0], steps[:-1]]).astype(np.int32)
     return steps[::-1].copy(), steps_next[::-1].copy()
+
+
+def model_step(denoise_fn, deep_cache, x, t: int, i: int, deep):
+    """(model output, deep features) of sampler step i: denoise_fn, or
+    with deep_cache (fresh_fn, cached_fn, interval) a fresh deep core
+    every interval steps and the cached one in between."""
+    if deep_cache is None:
+        return denoise_fn(x, t), deep
+    fresh_fn, cached_fn, interval = deep_cache
+    if i % interval == 0:
+        return fresh_fn(x, t)
+    return cached_fn(x, t, deep), deep
 
 
 def ddim_sample(
@@ -159,11 +181,17 @@ def ddim_sample(
     init_noise: Optional[torch.Tensor] = None,
     prediction: str = "eps",
     device="cuda",
+    deep_cache=None,
 ) -> torch.Tensor:
     """DDIM reverse sampler. denoise_fn(x, t) -> model output for the
     integer timestep t (shared by the batch). x_T is `init_noise` or
     drawn from `generator`; the per-step noise (eta > 0) is drawn from
-    `generator` too. Returns x0-space samples in `dtype`."""
+    `generator` too. Returns x0-space samples in `dtype`.
+    deep_cache: (fresh_fn, cached_fn, interval) for DeepCache-style
+    deep-feature reuse (models/unet.py deep/with_deep): fresh_fn(x, t)
+    -> (pred, deep) recomputes the UNet's deep core, cached_fn(x, t,
+    deep) -> pred reuses it; step i is fresh when i % interval == 0 (step
+    0 always), and denoise_fn is not called."""
     ts, ts_next = ddim_step_pairs(schedule.num_timesteps, num_steps, steps)
     ab = schedule.alpha_bar
     if init_noise is None:
@@ -174,8 +202,9 @@ def ddim_sample(
     else:
         x = init_noise.to(device=device, dtype=dtype)
     one = np.float32(1.0)
-    for t, t_next in zip(ts.tolist(), ts_next.tolist()):
-        pred = denoise_fn(x, t)
+    deep = None
+    for i, (t, t_next) in enumerate(zip(ts.tolist(), ts_next.tolist())):
+        pred, deep = model_step(denoise_fn, deep_cache, x, t, i, deep)
         eps_hat, x0 = pred_to_eps_x0(pred, x, ab[t], prediction)
         if t == 0:
             x = x0.to(dtype)

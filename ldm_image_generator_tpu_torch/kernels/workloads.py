@@ -41,6 +41,7 @@ class Call:
     l: int = 0             # window_mha: tokens per window; vq: codes K
     heads: int = 0
     masked: bool = False
+    residual: bool = True  # block_core: add_residual (False: a conditioned block)
 
     @property
     def label(self) -> str:
@@ -49,7 +50,8 @@ class Call:
         if self.kernel.startswith("window_mha"):
             return f"[{self.n},{self.l},{self.c}] h{self.heads}" + (
                 " mask" if self.masked else "")
-        return f"[{self.batch},{self.hw},{self.hw},{self.c}]"
+        return f"[{self.batch},{self.hw},{self.hw},{self.c}]" + (
+            "" if self.residual else " no-res")
 
 
 def path_calls(batch: int, latent: int = 32,
@@ -75,6 +77,20 @@ def path_calls(batch: int, latent: int = 32,
                               n=batch * nwin, l=ws * ws, heads=heads,
                               masked=True))
     return calls
+
+
+def cond_body_calls(batch: int = 1, latent: int = 32,
+                    cfg: UNetConfig = UNetConfig(), int8: bool = False) -> list:
+    """The block_core calls (batch <= 2) of a class-conditioned UNet
+    forward that differ from path_calls': every decoder block gets the
+    condition, so none folds its residual into the kernel
+    (add_residual=False), one call shape per decoder stage."""
+    if batch > 2:
+        raise ValueError("cond_body_calls covers the block_core body (batch <= 2)")
+    body = "block_core" + ("_int8" if int8 else "")
+    return [Call(body, batch, (latent // cfg.stem_size) >> i, c, per_step=nb,
+                 residual=False)
+            for i, (c, nb) in enumerate(zip(cfg.channels, cfg.stages))]
 
 
 def train_calls(batch: int = 8, latent: int = 32,
@@ -147,7 +163,8 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
         return (x.reshape(-1, c), mul.reshape(-1, c), bias.reshape(-1, c),
                 *ffn, ids)
     conv_k = w(3, 3, 32, c, fan=9 * 32)
-    return (x, mul, bias, *ffn, conv_k, b(c), ids)
+    # block_core's add_residual, positional after the ids, where it is False
+    return (x, mul, bias, *ffn, conv_k, b(c), ids) + (() if call.residual else (False,))
 
 
 def work(call: Call, dtype: torch.dtype):

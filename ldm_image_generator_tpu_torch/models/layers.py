@@ -115,7 +115,8 @@ class Dense(nn.Module):
 class MultiHeadAttention(nn.Module):
     """MHA with separate biased q/k/v/out projections. Self-attention
     (q_in is kv_in) runs the window_mha kernel wrapper; cross-attention
-    runs a plain composition with the same rounding points."""
+    runs a plain composition with the same rounding points, its k/v
+    projections [kv_channels, C] (the condition tokens' width)."""
 
     def __init__(self, channels: int, num_heads: int, init: ParamInit,
                  kv_channels: Optional[int] = None):
@@ -137,6 +138,7 @@ class MultiHeadAttention(nn.Module):
         if q_in is kv_in:
             return window_mha(q_in, key_padding_mask, *w,
                               num_heads=self.num_heads)
+        kv_in = cast(kv_in, q_in.dtype)
         b, l, c = q_in.shape
         s = kv_in.shape[1]
         h = self.num_heads
@@ -205,9 +207,9 @@ class WindowAttention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Attention of a flattened map against condition tokens. Its
-    parameters exist in every attention block (checkpoints are complete);
-    unconditioned sampling never calls it."""
+    """Attention of a flattened map against condition tokens [B, T,
+    kv_channels]. Its parameters exist in every attention block
+    (checkpoints are complete); an unconditioned forward never calls it."""
 
     def __init__(self, channels: int, num_heads: int, init: ParamInit,
                  kv_channels: Optional[int] = None):
@@ -371,16 +373,20 @@ class GroupedConv2d(nn.Module):
 
 class SwinBlock(nn.Module):
     """ChannelNorm -> FiLM -> (MoE FFN + grouped 3x3 conv [+ window
-    attention]) -> [x stochastic-depth gate] -> + residual. The
-    non-attention body is one block_core call at batch <= 2 (the residual
-    folded in unless a gate applies), ffn_block plus the plain grouped
-    conv above."""
+    attention][+ cross attention on the summed branch]) -> [x
+    stochastic-depth gate] -> + residual. The non-attention body is one
+    block_core call at batch <= 2, ffn_block plus the plain grouped conv
+    above. block_core folds the residual in only where nothing follows
+    on the branch: no gate and no condition (the JAX package's
+    fold_res), since the fold rounds at another point. cond_channels:
+    the condition tokens' width (0: an unconditioned model, whose
+    cross-attention params stay square)."""
 
     def __init__(self, channels: int, init: ParamInit, head_dim: int = 32,
                  window_size: int = 6, shift: int = 0, attention: bool = True,
                  num_experts: int = 4, ffn_mul: int = 1,
                  fixed_expert_indices: Optional[Sequence[int]] = None,
-                 ffn_quant: str = "none"):
+                 ffn_quant: str = "none", cond_channels: int = 0):
         super().__init__()
         c = channels
         heads = max(1, c // head_dim)
@@ -393,18 +399,20 @@ class SwinBlock(nn.Module):
         if attention:
             self.self_attention = WindowAttention(
                 c, heads, init, window_size=window_size, shift=shift)
-            self.cross_attention = CrossAttention(c, heads, init)
+            self.cross_attention = CrossAttention(c, heads, init,
+                                                  kv_channels=cond_channels or None)
 
-    def forward(self, x, t, film=None, expert_ids=None, gate=None):
+    def forward(self, x, t, film=None, expert_ids=None, gate=None, cond=None):
         """film: (mul, bias) replayed from the FiLM schedule, or None to
         run the FiLM tower on t inline; expert_ids: [2] int32 routing, or
         None for the configured fixed indices; gate: the stochastic-depth
-        keep (a 0/1 or bool scalar tensor) of a training forward, or None
-        (deterministic: the residual folds into block_core)."""
+        keep (a 0/1 or bool scalar tensor) of a training forward, or None;
+        cond: condition tokens [B, T, D] (a decoder stack's blocks of a
+        conditioned forward), or None."""
         mul, bias = film if film is not None else self.encodings(
             x, t, return_film=True)
         fused = x.shape[0] <= BLOCK_CORE_MAX_BATCH
-        fold = fused and gate is None
+        fold = fused and gate is None and cond is None
         if fused:
             branch, h = self.ffn(x, mul, bias, conv_kernel=self.conv.kernel,
                                  conv_bias=self.conv.bias, add_residual=fold,
@@ -414,6 +422,8 @@ class SwinBlock(nn.Module):
             branch = branch + self.conv(h)
         if self.attention:
             branch = branch + self.self_attention(h)
+            if cond is not None:
+                branch = branch + self.cross_attention(branch, cond)
         if gate is not None:
             branch = branch * gate.to(branch.dtype)
         return branch if fold else x + branch
@@ -428,7 +438,7 @@ class SwinStack(nn.Module):
                  attention: bool = True, num_experts: int = 4,
                  ffn_mul: int = 1,
                  fixed_expert_indices: Optional[Sequence[int]] = None,
-                 ffn_quant: str = "none"):
+                 ffn_quant: str = "none", cond_channels: int = 0):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
@@ -438,21 +448,22 @@ class SwinStack(nn.Module):
                 attention=attention and i >= num_blocks - 2,
                 num_experts=num_experts, ffn_mul=ffn_mul,
                 fixed_expert_indices=fixed_expert_indices,
-                ffn_quant=ffn_quant,
+                ffn_quant=ffn_quant, cond_channels=cond_channels,
             ))
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_blocks)]
 
-    def forward(self, x, t, film=None, expert_ids=None, gates=None):
+    def forward(self, x, t, film=None, expert_ids=None, gates=None, cond=None):
         """film: {block_i: (mul, bias)} or None; expert_ids: [n, 2] int32
         routing rows (None: each block's fixed indices); gates: [n]
-        stochastic-depth keeps, or None (deterministic)."""
+        stochastic-depth keeps, or None (deterministic); cond: condition
+        tokens for every block, or None."""
         for i, block in enumerate(self.blocks()):
             x = block(x, t,
                       film=None if film is None else film[f"block_{i}"],
                       expert_ids=None if expert_ids is None else expert_ids[i],
-                      gate=None if gates is None else gates[i])
+                      gate=None if gates is None else gates[i], cond=cond)
         return x
 
     def collect_film(self, h: int, w: int, t: torch.Tensor) -> dict:

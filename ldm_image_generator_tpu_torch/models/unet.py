@@ -21,6 +21,19 @@ parameters train in bf16 compute; by default the parameters' dtype.
 FiLM schedule: ``collect_film`` evaluates every block's FiLM tower for a
 batch of timesteps; ``forward(film=...)`` replays one step's slice.
 
+Class conditioning (num_classes > 0): integer class ids [B] are embedded
+(``class_embed``, row num_classes the learned null class of CFG) into
+cond_tokens tokens of cond_channels; prebuilt tokens [B, T, D] pass
+through. The condition reaches every decoder block: cross-attention in
+the attention blocks, and no block folds its residual into block_core.
+
+DeepCache (``with_deep`` / ``deep``, as the JAX package's UNet): the deep
+core is everything between enc_stage_0 and the output of dec_chconv_0;
+``with_deep=True`` also returns that output, and ``deep=`` a previous
+one runs only enc_stage_0, the add and dec_stage_0 in its place. The
+routing plan is drawn at full length either way, so those two stages
+route as the full forward would under the same plan.
+
 int8 FFN weights (``ffn_quant='int8'``, as the JAX package's UNetConfig):
 every block's MoE FFN runs the kernels' int8 routes, with grad mode off;
 ``prepare_ffn`` makes the int8 weights ahead of a sampling run.
@@ -47,7 +60,6 @@ def refusal(cfg: UNetConfig):
     """The message refusing a config field this port would otherwise
     accept and ignore, naming the ROADMAP item that ports it, or None."""
     todo = [
-        (cfg.num_classes, "num_classes > 0 (class conditioning): A3"),
         (cfg.experts_per_call != 2, "experts_per_call != 2: A12"),
         (cfg.ablate_branches, "ablate_branches: A12"),
         (cfg.remat, "remat=True (rematerialized stacks): A7"),
@@ -113,6 +125,15 @@ class StrideConvTranspose(nn.Module):
         return y.reshape(b, h * s, w * s, -1) + cast(self.bias, x.dtype)
 
 
+class ClassEmbed(nn.Module):
+    """flax nn.Embed: a table [num_classes + 1, cond_channels *
+    cond_tokens], normal init with std 1 / sqrt(features)."""
+
+    def __init__(self, rows: int, features: int, init: ParamInit):
+        super().__init__()
+        self.embedding = init.normal(rows, features, std=features ** -0.5)
+
+
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig(), device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -125,6 +146,9 @@ class UNet(nn.Module):
         self.cfg = cfg
         chs, stages = list(cfg.channels), list(cfg.stages)
         n = len(chs)
+        if cfg.num_classes > 0:
+            self.class_embed = ClassEmbed(cfg.num_classes + 1,
+                                          cfg.cond_channels * cfg.cond_tokens, init)
         self.encoder_first = StrideConv(cfg.input_channels, chs[0],
                                         cfg.stem_size, init)
         stack = lambda i, attn: SwinStack(
@@ -132,7 +156,8 @@ class UNet(nn.Module):
             window_size=cfg.window_size, attention=attn,
             num_experts=cfg.num_experts, ffn_mul=cfg.ffn_mul,
             fixed_expert_indices=cfg.fixed_expert_indices,
-            ffn_quant=cfg.ffn_quant)
+            ffn_quant=cfg.ffn_quant,
+            cond_channels=cfg.cond_channels if cfg.num_classes else 0)
         for i in range(n):
             self.add_module(f"enc_stage_{i}", stack(i, False))
             if i != n - 1:
@@ -179,6 +204,12 @@ class UNet(nn.Module):
             off += nb
         return out
 
+    def draw_plan(self, generator: torch.Generator) -> torch.Tensor:
+        """One routing plan: [plan_length] pair ids, uniform, from
+        `generator` (on the UNet's device)."""
+        return torch.randint(0, self.pairs.shape[0], (self.plan_length(),),
+                             generator=generator, device=self.pairs.device)
+
     def routing(self, moe_plan=None, generator=None) -> Optional[dict]:
         """{stage: [n_blocks, 2] int32 expert ids} from an injected plan of
         pair ids or one drawn from `generator`; None when the config pins
@@ -188,10 +219,7 @@ class UNet(nn.Module):
         if moe_plan is None:
             if generator is None:
                 raise ValueError("UNet routing needs moe_plan or a generator")
-            n_pairs = self.pairs.shape[0]
-            moe_plan = torch.randint(0, n_pairs, (self.plan_length(),),
-                                     generator=generator,
-                                     device=self.pairs.device)
+            moe_plan = self.draw_plan(generator)
         return self._per_stage(self.pairs[moe_plan.to(self.pairs.device).long()])
 
     def sd_gates(self, sd_gates=None, generator=None) -> Optional[dict]:
@@ -221,35 +249,65 @@ class UNet(nn.Module):
                 films[name] = getattr(self, name).collect_film(hi, wi, t)
         return films
 
-    def forward(self, x, t, film=None, moe_plan=None, generator=None,
-                sd_gates=None, deterministic: bool = True, dtype=None):
-        """x [B, H, W, Cin]; t [1 or B] timesteps; film: one step's
-        {stage: {block: (mul, bias)}} or None for inline FiLM.
+    def condition_tokens(self, condition, dtype) -> Optional[torch.Tensor]:
+        """[B, cond_tokens, cond_channels] in dtype for integer class ids
+        [B] (id num_classes: the null class); prebuilt tokens pass
+        through; None stays None."""
+        if condition is None or condition.is_floating_point():
+            return condition
+        cfg = self.cfg
+        if cfg.num_classes <= 0:
+            raise ValueError("integer class ids need a UNet with num_classes > 0")
+        table = cast(self.class_embed.embedding, dtype)
+        ids = condition.to(device=table.device, dtype=torch.long)
+        return table[ids].reshape(ids.shape[0], cfg.cond_tokens, cfg.cond_channels)
+
+    def forward(self, x, t, condition=None, film=None, moe_plan=None,
+                generator=None, sd_gates=None, deterministic: bool = True,
+                dtype=None, deep=None, with_deep: bool = False):
+        """x [B, H, W, Cin]; t [1 or B] timesteps; condition: class ids
+        [B] or tokens [B, T, D] for the decoder stacks, or None; film: one
+        step's {stage: {block: (mul, bias)}} or None for inline FiLM.
         deterministic=False is a training forward: stochastic-depth gates
         (`sd_gates` [plan_length] bool, or drawn from `generator`) gate
         each block's branch. dtype: the compute dtype (default: the
-        parameters'); the output is in it."""
+        parameters'); the output is in it. with_deep: also return the
+        deep-core output; deep: a previous step's, reused in place of the
+        deep core (DeepCache)."""
         n = len(self.cfg.channels)
+        dt = dtype or self.dtype
         routes = self.routing(moe_plan, generator)
         gates = None if deterministic else self.sd_gates(sd_gates, generator)
+        cond = self.condition_tokens(condition, dt)
         run = lambda name, x: getattr(self, name)(
             x, t, film=None if film is None else film[name],
             expert_ids=None if routes is None else routes[name],
-            gates=None if gates is None else gates[name])
-        x = self.encoder_first(x.to(dtype or self.dtype))
-        skips = []
-        for i in range(n):
-            x = run(f"enc_stage_{i}", x)
-            if i == n - 1:
-                skips.append(None)  # zero bottleneck skip
-            else:
-                skips.append(x)
-                x = avg_pool_2x(getattr(self, f"enc_chconv_{i}")(x))
-        for i in reversed(range(n)):
-            if i != n - 1:
-                x = getattr(self, f"dec_chconv_{i}")(upsample_nearest_2x(x))
-            if skips[i] is not None:
-                x = x + skips[i]
-            x = run(f"dec_stage_{i}", x)
-        return self.decoder_last(x)
-
+            gates=None if gates is None else gates[name],
+            cond=cond if name.startswith("dec") else None)
+        x = self.encoder_first(x.to(dt))
+        deep_out = None
+        if deep is not None:
+            if n < 2:
+                raise ValueError("deep-feature reuse needs a UNet with >= 2 stages")
+            x = run("enc_stage_0", x)
+            deep_out = deep.to(dt)
+            x = run("dec_stage_0", deep_out + x)
+        else:
+            skips = []
+            for i in range(n):
+                x = run(f"enc_stage_{i}", x)
+                if i == n - 1:
+                    skips.append(None)  # zero bottleneck skip
+                else:
+                    skips.append(x)
+                    x = avg_pool_2x(getattr(self, f"enc_chconv_{i}")(x))
+            for i in reversed(range(n)):
+                if i != n - 1:
+                    x = getattr(self, f"dec_chconv_{i}")(upsample_nearest_2x(x))
+                if i == 0 and n >= 2:
+                    deep_out = x  # the deep core's output
+                if skips[i] is not None:
+                    x = x + skips[i]
+                x = run(f"dec_stage_{i}", x)
+        out = self.decoder_last(x)
+        return (out, deep_out) if with_deep else out

@@ -1,19 +1,24 @@
 """Latent diffusion sampling, the torch counterpart of
-LDMPipeline.sample in ldm_image_generator_tpu/pipelines.py.
+LDMPipeline.sample in ldm_image_generator_tpu/pipelines.py (without
+img2img and inpainting).
 
-init noise -> DDIM over the UNet in latent space (FiLM schedule computed
-once per call) -> VAE decode -> clamp -> uint8. The pipeline samples with
+init noise -> DDIM or DPM-Solver++(2M) over the UNet in latent space ->
+VAE decode -> clamp -> uint8; optionally class-conditional with
+classifier-free guidance (per-sample scales and rescale, a negative
+class) or with DeepCache deep-feature reuse. The pipeline samples with
 copies of the caller's modules cast to the compute dtype (and, with
 ffn_quant='int8', their int8 FFN weights), made once per weight version
-of those modules; the caller's modules are left as they are.
+of those modules, and memoizes the FiLM schedule per (weight version,
+latent, num_steps, steps), as the JAX package's _PrepCache does; the
+caller's modules are left as they are.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import itertools
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ldm_image_generator_tpu_torch.config import (
@@ -22,18 +27,18 @@ from ldm_image_generator_tpu_torch.config import (
     VAEConfig,
     resolve_device,
 )
-from ldm_image_generator_tpu_torch.diffusion.ddpm import ddim_sample, make_schedule
+from ldm_image_generator_tpu_torch.diffusion.ddpm import (
+    ddim_sample,
+    film_schedule_ts,
+    make_schedule,
+)
+from ldm_image_generator_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
 from ldm_image_generator_tpu_torch.models.unet import UNet
 from ldm_image_generator_tpu_torch.models.vae import Decoder
 
-
-def film_schedule_ts(num_timesteps: int, num_steps: int,
-                     steps=None) -> np.ndarray:
-    """The ascending int32 timesteps a sampler run visits: the linspace
-    derived from num_steps, or the deduplicated explicit `steps`."""
-    if steps is None:
-        return np.linspace(0, num_timesteps - 1, num_steps).astype(np.int32)
-    return np.asarray(sorted(set(int(s) for s in steps)), dtype=np.int32)
+SAMPLERS = ("ddim", "dpm++2m")
+# FiLM schedules kept per weight version (the JAX package's _PREP_FILM_MAX)
+FILM_MEMO_MAX = 4
 
 
 def to_uint8(img: torch.Tensor) -> torch.Tensor:
@@ -63,14 +68,38 @@ def cast_copy(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     return copy.deepcopy(module, memo).to(dtype).eval()
 
 
+def guide(pred_c: torch.Tensor, pred_u: torch.Tensor, scale,
+          rescale) -> torch.Tensor:
+    """Classifier-free guidance pred_u + scale (pred_c - pred_u); with a
+    rescale phi (a float > 0, or a [B, 1, 1, 1] tensor whose 0 rows are
+    exact no-ops) the guided prediction's per-sample std is brought back
+    to the conditional one's and blended phi * rescaled + (1 - phi) *
+    guided (arXiv:2305.08891 section 3.4)."""
+    guided = pred_u + scale * (pred_c - pred_u)
+    if isinstance(rescale, torch.Tensor) or rescale > 0.0:
+        dims = tuple(range(1, guided.ndim))
+        std_c = pred_c.std(dim=dims, keepdim=True, correction=0)
+        std_g = guided.std(dim=dims, keepdim=True, correction=0)
+        rescaled = guided * (std_c / (std_g + 1e-6))
+        guided = rescale * rescaled + (1.0 - rescale) * guided
+    return guided
+
+
 class LDMPipeline:
-    """Unconditional DDIM latent diffusion sampler over a UNet and a VAE
-    Decoder. The caller's modules are not changed: the pipeline samples
+    """Latent diffusion sampler over a UNet and a VAE Decoder: DDIM or
+    DPM-Solver++(2M), unconditional or class-conditional (with CFG), and
+    DeepCache. The caller's modules are not changed: the pipeline samples
     with copies cast to `dtype` (the modules themselves where they already
     are in it) and, with the UNet's ffn_quant='int8', their int8 FFN
     weights, all made here and made again only when the modules' weights
     change (memoized per weight version, as the JAX package's _PrepCache):
-    a sample call of unchanged weights casts and quantizes nothing."""
+    a sample call of unchanged weights casts and quantizes nothing, and
+    collects no FiLM schedule it has collected before.
+
+    MoE routing: each denoise step draws one routing plan from the
+    sampling generator (unless the config fixes the experts); both CFG
+    branches of a step take that plan, as the JAX package passes one key
+    to both."""
 
     def __init__(self, unet: UNet, decoder: Decoder,
                  ddpm_cfg: DDPMConfig = DDPMConfig(),
@@ -80,6 +109,8 @@ class LDMPipeline:
         self.dtype = dtype
         self._src = (unet, decoder)
         self._version = None
+        # (weight version, latent, num_steps, steps) -> (index, films), LRU
+        self._films = collections.OrderedDict()
         self._prepare()
 
     def _prepare(self) -> None:
@@ -91,6 +122,8 @@ class LDMPipeline:
         self.unet, self.decoder = (cast_copy(m, self.dtype) for m in self._src)
         self.unet.prepare_ffn(self.dtype)
         self._version = version
+        # a version counter only grows: the old weights' schedules never hit
+        self._films.clear()
 
     @classmethod
     def random(cls, unet_cfg: UNetConfig = UNetConfig(),
@@ -109,38 +142,114 @@ class LDMPipeline:
     def device(self) -> torch.device:
         return self.unet.encoder_first.kernel.device
 
-    def denoise_fn(self, latent: int, num_steps: int, steps=None,
-                   film_cache: bool = True,
-                   generator: Optional[torch.Generator] = None):
-        """denoise(x, t) -> fp32 model output. With film_cache the FiLM
-        towers run once here for every sampler timestep and each step
-        replays its slice; a timestep outside that schedule raises."""
+    def film_schedule(self, latent: int, num_steps: int, steps=None) -> tuple:
+        """({timestep: row}, {stage: {block: (mul, bias)}} of [S, h, w, c])
+        for every timestep of a sampler run, collected once per (weight
+        version, latent, num_steps, steps) and kept (LRU of
+        FILM_MEMO_MAX)."""
         self._prepare()
-        dev = self.device
-        routing_gen = (None if self.unet.cfg.fixed_expert_indices is not None
-                       else generator)
-        if not film_cache:
-            def denoise(x, t):
-                t_vec = torch.full((1,), t, dtype=torch.int32, device=dev)
-                return self.unet(x, t_vec, generator=routing_gen).float()
-            return denoise
-
+        steps = None if steps is None else tuple(int(s) for s in steps)
+        key = (self._version, latent, num_steps, steps)
+        hit = self._films.get(key)
+        if hit is not None:
+            self._films.move_to_end(key)
+            return hit
         ts = film_schedule_ts(self.schedule.num_timesteps, num_steps, steps)[::-1]
         films = self.unet.collect_film(
-            torch.as_tensor(ts.copy(), device=dev), (latent, latent))
-        index = {int(t): i for i, t in enumerate(ts)}
+            torch.as_tensor(ts.copy(), device=self.device), (latent, latent))
+        hit = self._films[key] = ({int(t): i for i, t in enumerate(ts)}, films)
+        while len(self._films) > FILM_MEMO_MAX:
+            self._films.popitem(last=False)
+        return hit
+
+    def _base_fn(self, latent: int, num_steps: int, steps, film_cache: bool):
+        """base(x, t, plan, condition=None, deep=None, with_deep=False) ->
+        the UNet's fp32 output (and deep features) at the integer timestep
+        t under the routing plan. With film_cache each step replays its
+        slice of the FiLM schedule; a timestep outside it raises."""
+        self._prepare()
+        unet, dev = self.unet, self.device
+        index, films = (self.film_schedule(latent, num_steps, steps)
+                        if film_cache else (None, None))
+
+        def base(x, t, plan, condition=None, deep=None, with_deep=False):
+            film = None
+            if films is not None:
+                i = index.get(int(t))
+                if i is None:
+                    raise KeyError(f"timestep {t} is not in the FiLM schedule "
+                                   f"{sorted(index)}")
+                film = {stage: {blk: (mul[i:i + 1], bias[i:i + 1])
+                                for blk, (mul, bias) in blocks.items()}
+                        for stage, blocks in films.items()}
+            t_vec = torch.full((1,), t, dtype=torch.int32, device=dev)
+            out = unet(x, t_vec, condition, film=film, moe_plan=plan, deep=deep,
+                       with_deep=with_deep)
+            return (out[0].float(), out[1]) if with_deep else out.float()
+        return base
+
+    def _plan_fn(self, generator: Optional[torch.Generator]):
+        """draw() -> one step's routing plan from `generator`, or None
+        when the config fixes the experts."""
+        if self.unet.cfg.fixed_expert_indices is not None:
+            return lambda: None
+        if generator is None:
+            raise ValueError("sampling with drawn MoE routing needs a generator")
+        return lambda: self.unet.draw_plan(generator)
+
+    def _denoise_fns(self, latent: int, num_steps: int, steps=None,
+                    film_cache: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    condition: Optional[torch.Tensor] = None,
+                    guidance_scale=1.0, cfg_rescale=0.0,
+                    negative_condition: Optional[torch.Tensor] = None):
+        """(denoise(x, t), step(x, t, condition=None, deep=None,
+        with_deep=False), use_cfg): the sampler's model call, plain or with
+        classifier-free guidance, and the unguided UNet call under a plan
+        drawn per call.
+
+        CFG applies when integer class ids are given to a class-conditional
+        UNet and guidance_scale (a float, or a per-sample [B] tensor) is
+        not 1.0: each step runs the UNet on `condition` and on the null
+        class, or on `negative_condition` ids [B] (the null id is a
+        per-sample no-op), both under one plan, and combines them with
+        `guide` (cfg_rescale: a float or a per-sample [B] tensor)."""
+        base = self._base_fn(latent, num_steps, steps, film_cache)
+        draw = self._plan_fn(generator)
+        dev = self.device
+        per_sample = isinstance(guidance_scale, torch.Tensor)
+        cfg = self.unet.cfg
+        if condition is not None:
+            condition = condition.to(dev)
+        use_cfg = (condition is not None and not condition.is_floating_point()
+                   and cfg.num_classes > 0 and (per_sample or guidance_scale != 1.0))
+
+        def step(x, t, condition=None, deep=None, with_deep=False):
+            return base(x, t, draw(), condition, deep, with_deep)
+
+        if not use_cfg:
+            return (lambda x, t: step(x, t, condition)), step, False
+        per_sample_dims = lambda v: v.to(dev, torch.float32).reshape(-1, 1, 1, 1)
+        scale = per_sample_dims(guidance_scale) if per_sample else guidance_scale
+        rescale = (per_sample_dims(cfg_rescale) if isinstance(cfg_rescale, torch.Tensor)
+                   else cfg_rescale)
+        baseline = (torch.full_like(condition, cfg.num_classes)
+                    if negative_condition is None
+                    else negative_condition.to(dev, condition.dtype))
 
         def denoise(x, t):
-            i = index.get(int(t))
-            if i is None:
-                raise KeyError(f"timestep {t} is not in the FiLM schedule "
-                               f"{sorted(index)}")
-            film = {stage: {blk: (mul[i:i + 1], bias[i:i + 1])
-                            for blk, (mul, bias) in blocks.items()}
-                    for stage, blocks in films.items()}
-            t_vec = torch.full((1,), t, dtype=torch.int32, device=dev)
-            return self.unet(x, t_vec, film=film, generator=routing_gen).float()
-        return denoise
+            plan = draw()
+            pred_c = base(x, t, plan, condition)
+            pred_u = base(x, t, plan, baseline)
+            return guide(pred_c, pred_u, scale, rescale)
+        return denoise, step, True
+
+    def denoise_fn(self, latent: int, num_steps: int, steps=None,
+                   film_cache: bool = True,
+                   generator: Optional[torch.Generator] = None, **guidance):
+        """denoise(x, t) -> fp32 model output (see _denoise_fns)."""
+        return self._denoise_fns(latent, num_steps, steps, film_cache, generator,
+                                **guidance)[0]
 
     @torch.no_grad()
     def sample(self, generator: Optional[torch.Generator] = None,
@@ -148,18 +257,62 @@ class LDMPipeline:
                eta: float = 0.0, film_cache: bool = True,
                init_noise: Optional[torch.Tensor] = None,
                steps: Optional[Sequence[int]] = None,
-               return_latent: bool = False):
+               return_latent: bool = False, sampler: str = "ddim",
+               condition: Optional[torch.Tensor] = None,
+               guidance_scale: float = 1.0,
+               guidance_scales: Optional[torch.Tensor] = None,
+               cache_interval: int = 1, cfg_rescale: float = 0.0,
+               negative_condition: Optional[torch.Tensor] = None,
+               cfg_rescales: Optional[torch.Tensor] = None):
         """uint8 images [batch, image_size, image_size, 3] (and the final
         latent with return_latent). `generator` (on the pipeline's
         device) draws x_T unless init_noise is given, the per-step noise
-        at eta > 0, and the MoE routing unless the config fixes it."""
+        at eta > 0 (DDIM), and the MoE routing unless the config fixes it.
+
+        sampler: 'ddim' or 'dpm++2m' (DPM-Solver++(2M), one UNet call per
+        timestep). condition: class ids [batch] (a UNet with num_classes >
+        0) or condition tokens [batch, T, D]; guidance_scale != 1, or
+        per-sample guidance_scales [batch], applies classifier-free
+        guidance against the null class or negative_condition [batch];
+        cfg_rescale / per-sample cfg_rescales [batch]: guidance rescale
+        phi (see `guide`). cache_interval > 1: DeepCache, the UNet's deep
+        core recomputed every cache_interval steps and reused in between
+        (an approximation; not with CFG)."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
+        if negative_condition is not None:
+            if condition is None or self.unet.cfg.num_classes <= 0:
+                raise ValueError("negative_condition requires a class-conditional "
+                                 "model and a condition")
+            if guidance_scales is None and guidance_scale == 1.0:
+                raise ValueError("negative_condition has no effect at guidance "
+                                 "1.0: pass guidance_scale != 1 or guidance_scales")
+        if cache_interval < 1:
+            raise ValueError(f"cache_interval {cache_interval}: 1 (off) or more")
         latent = image_size // self.decoder.cfg.downscale
         shape = (batch, latent, latent, self.unet.cfg.input_channels)
-        denoise = self.denoise_fn(latent, num_steps, steps, film_cache,
-                                  generator)
-        z = ddim_sample(denoise, self.schedule, shape, generator=generator,
-                        num_steps=num_steps, eta=eta, steps=steps,
-                        init_noise=init_noise, prediction=self.prediction,
-                        device=self.device)
+        denoise, step, use_cfg = self._denoise_fns(
+            latent, num_steps, steps, film_cache, generator, condition,
+            guidance_scale if guidance_scales is None else guidance_scales,
+            cfg_rescale if cfg_rescales is None else cfg_rescales,
+            negative_condition)
+        deep_cache = None
+        if cache_interval > 1:
+            if use_cfg:
+                raise ValueError("cache_interval > 1 is not supported with "
+                                 "classifier-free guidance")
+            if len(self.unet.cfg.stages) < 2:
+                raise ValueError("cache_interval > 1 needs a UNet with >= 2 stages")
+            cond = None if condition is None else condition.to(self.device)
+            deep_cache = (lambda x, t: step(x, t, cond, with_deep=True),
+                          lambda x, t, deep: step(x, t, cond, deep=deep),
+                          cache_interval)
+        run = dict(generator=generator, num_steps=num_steps, steps=steps,
+                   init_noise=init_noise, prediction=self.prediction,
+                   device=self.device, deep_cache=deep_cache)
+        if sampler == "dpm++2m":
+            z = dpm_solver_sample(denoise, self.schedule, shape, **run)
+        else:
+            z = ddim_sample(denoise, self.schedule, shape, eta=eta, **run)
         img = to_uint8(self.decoder(z))
         return (img, z) if return_latent else img

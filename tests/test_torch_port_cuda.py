@@ -22,6 +22,7 @@ from ldm_image_generator_tpu_torch.kernels.workloads import (
     Call,
     GuardedBuffers,
     bwd_scale_err,
+    cond_body_calls,
     make_inputs,
     near_tie_codebook,
     path_calls,
@@ -483,6 +484,71 @@ def test_block_core_tensor_cores_match_plain_rerun_bitwise_inside_their_buffers(
                 assert torch.equal(a, b), i
     for g, w in zip(first, tbc.block_core_plain(*args, add_residual=add_residual)):
         torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+
+
+# a class-conditioned UNet: every decoder block runs block_core without
+# its residual (cond_body_calls: one shape per decoder stage, B=1)
+COND_CALLS = cond_body_calls(1) + cond_body_calls(1, int8=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", COND_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
+def test_block_core_without_residual_at_the_conditioned_decoder_shapes(
+        card, monkeypatch, call):
+    """bf16 block_core with add_residual=False (the argument make_inputs
+    appends), full-precision and int8 FFN weights: every wrapper buffer
+    between sentinel guards, two reruns with the same bits, the plain
+    version's result, and the launch counted on its weight type's
+    counter."""
+    assert not call.residual
+    gen = torch.Generator(device=card).manual_seed(23)
+    args = make_inputs(call, torch.bfloat16, card, gen)
+    assert args[-1] is False
+    int8 = call.kernel.endswith("_int8")
+    monkeypatch.setattr(tffn, "_counters", {})
+    before = (tbc.launches, tbc.int8_launches)
+    with torch.no_grad():
+        with GuardedBuffers() as guarded:
+            first = tbc.block_core(*args)
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert guarded.made and guarded.faults() == []
+        for _ in range(2):
+            for i, (a, b) in enumerate(zip(first, tbc.block_core(*args))):
+                assert torch.equal(a, b), i
+    assert (tbc.launches - before[0], tbc.int8_launches - before[1]) == (
+        (0, 3) if int8 else (3, 0))
+    for g, w in zip(first, tbc.block_core_plain(*args)):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_conditional_unet_guided_step_card_vs_cpu(card):
+    """One guided fp32 prediction of a class-conditional UNet (two stages
+    of 128 and 256 channels, 3 classes; class 1 and the null class under
+    one routing plan, guidance 3, rescale 0.7) on the card against the
+    CPU's plain versions, within 1e-3 of the output's scale."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.pipelines import guide
+
+    cfg = UNetConfig(num_classes=3, stages=(2, 2), channels=(128, 256))
+    cpu = UNet(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    dev = UNet(cfg, device=card)
+    dev.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((1, 16, 16, 8), generator=gen)
+    t = torch.tensor([611], dtype=torch.int32)
+    plan = cpu.draw_plan(gen)
+    outs = []
+    for unet, d in ((cpu, "cpu"), (dev, card)):
+        run = lambda c: unet(x.to(d), t.to(d), torch.tensor([c], device=d),
+                             moe_plan=plan.to(d)).float()
+        with torch.no_grad():
+            outs.append(guide(run(1), run(3), 3.0, 0.7).cpu())
+    ref, got = outs
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
 
 
 def _device_kernels(fn) -> dict:

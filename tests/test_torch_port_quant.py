@@ -309,9 +309,10 @@ def test_pipeline_leaves_the_callers_modules_unchanged():
                                          ("attention_backend", "xla")])
 def test_unet_refuses_config_fields_it_would_ignore(field, value):
     """Fields the port accepted and ignored raise until they are ported;
-    the default config (which the trainers' CLIs build) and int8 build."""
+    the default config (which the trainers' CLIs build), int8 and a
+    class-conditional one build."""
     with pytest.raises(NotImplementedError, match=field):
         UNet(dataclasses.replace(UNetConfig(), **{field: value}), device="meta")
-    for cfg in (UNetConfig(), UNetConfig(ffn_quant="int8"),
+    for cfg in (UNetConfig(), UNetConfig(ffn_quant="int8"), UNetConfig(num_classes=3),
                 UNetConfig(ffn_backend="pallas", attention_backend="pallas")):
         UNet(cfg, device="meta")

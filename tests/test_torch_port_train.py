@@ -355,7 +355,9 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
                             "--zero-snr", "--min-snr-gamma", "5"])
     out = capsys.readouterr().out
     assert "dataset: 4 latents (16px, 8ch)" in out
-    assert "no checkpoint is written" in out
+    assert "saved ./ddpm.pt, ./ddpm.pt.ema" in out
+    assert (tmp_path / "ddpm.pt").stat().st_size > 0
+    assert (tmp_path / "ddpm.pt.ema").stat().st_size > 0
     losses = [float(line.split()[-1]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 4 and np.isfinite(losses).all()
@@ -364,15 +366,17 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-classes", "3"], "A3"), (["--pipeline-stages", "2"], "A13"),
+    (["--num-classes", "3"], "A16"), (["--pipeline-stages", "2"], "A13"),
     (["--zero1"], "A13"), (["--fused-steps", "4"], "A7"),
-    (["--ckpt-dir", "ck"], "A4"), (["--val-dir", "v"], "A7"),
+    (["--ckpt-dir", "ck"], "A7"), (["--val-dir", "v"], "A7"),
     (["-ep", "enc.pt"], "A12")])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
+    """Unported flags, and a reference (torch zip) encoder file: the
+    port reads the JAX package's parameter files, not torch ones."""
     from ldm_image_generator_tpu_torch.cli import train_ldm
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "enc.pt").write_bytes(b"")
+    (tmp_path / "enc.pt").write_bytes(b"PK\x03\x04")
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train_ldm.main([str(tmp_path), "-d", "cpu", *flags])
 

@@ -563,7 +563,11 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
                             "-b", "2", "-e", "1", "-r", "out", "--save-every", "1"])
     out = capsys.readouterr().out
     assert "dataset: 4 images at 32px" in out
-    assert "no parameter file is written" in out
+    assert "saved ./vae_encoder.pt, ./vae_decoder.pt, vae_quantizer.pt, " \
+           "./discriminator.pt" in out
+    for name in ("vae_encoder.pt", "vae_decoder.pt", "vae_quantizer.pt",
+                 "discriminator.pt"):
+        assert (tmp_path / name).stat().st_size > 0
     lines = [line.split() for line in out.splitlines() if line.startswith("step ")]
     assert len(lines) == 2 and state.step == 2
     for words in lines:
@@ -578,14 +582,16 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "ck"], "A4"), (["-ep", "enc.pt"], "A12"),
+    (["--ckpt-dir", "ck"], "A7"), (["-ep", "enc.pt"], "A12"),
     (["-dp", "enc.pt"], "A12"), (["-qp", "enc.pt"], "A12"),
     (["-discp", "enc.pt"], "A12")])
 def test_train_vae_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
+    """--ckpt-dir, and a reference (torch pickle) file for any of the four
+    models: the port reads the JAX package's parameter files."""
     from ldm_image_generator_tpu_torch.cli import train_vae
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "enc.pt").write_bytes(b"")
+    (tmp_path / "enc.pt").write_bytes(b"\x80\x02")
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train_vae.main([str(tmp_path), "-d", "cpu", *flags])
 
