@@ -86,6 +86,29 @@ no result line):
      weights' sample; write and read seconds; then the sampling CLI on
      that file (3 classes, class 1, guidance 3, DPM-Solver++ at 10 steps,
      two 256px PNGs under build/).
+  13. serving: the port's SamplerServer over cli/serve.make_variants on
+     the conditional UNet of phase 10 with a seeded default encoder
+     (256px, bf16, buckets 1 2 4 8, a step tier 10 beside the default 20,
+     img2img strength 0.6). Four fixed groups, each queued before its
+     server's worker starts: 8 unconditional seeds (one bucket-8
+     dispatch, 720 ffn_block, 160 window MHA), 3 guided requests (scales
+     3, 3, 5, one rescale 0.7, one negative class; bucket 4 with one
+     padded row, 1440 ffn_block, 320 window MHA), one request at tier 10
+     (bucket 1, 360 block_core, 80 window MHA), and 2 img2img requests,
+     one with a kept region (bucket 2, 36 block_core and 8 window MHA per
+     UNet call of the sub-schedule): exact launch counts and stats per
+     group, and every served image bitwise the direct LDMPipeline.sample
+     or img2img call at that bucket with the same noise rows and padding.
+     The img2img path's new work (the Encoder at 256px, q_sample, the mask
+     resize, one projected DDIM step) in fp32 on the card against the CPU
+     at STEP_REL_TOL of scale. HTTP on loopback with PNG bodies: GET
+     /sample decodes to the server's own image for that seed, POST
+     /sample_batch with 4 mixed items returns X-Index 0-3, /metrics,
+     /healthz, a class_id out of range is 400 and a full queue 503.
+     Reported: 64 requests queued at once (images/s, mean batch, which
+     must be 8, p50/p99 latency, the card's busy share from a profiled
+     second run) and the largest uint8 difference between a seed served
+     at bucket 1 and inside bucket 8.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -940,6 +963,311 @@ def phase_param_files(dev, pipe, unet, decoder) -> dict:
                 cli_s=cli_s)
 
 
+# phase 13: the served model (phase 10's), its buckets, the step tier
+# beside the default 20 steps and the img2img strength
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_TIER = 10
+SERVE_STRENGTH = 0.6
+SERVE_LOAD = 64
+
+
+def png_pixels(data: bytes):
+    """uint8 [H, W, 3] of an 8-bit RGB PNG whose rows all use filter 0 (the
+    files cli/sample_ldm.png_bytes writes)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, kind = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    require((depth, kind) == (8, 2), ("PNG type", depth, kind))
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    require(not rows[:, 0].any(), "PNG rows use filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_serving(dev) -> dict:
+    """Phase 13 (see the module docstring)."""
+    import numpy as np
+
+    from ldm_image_generator_tpu_torch.cli import serve
+    from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.diffusion.ddpm import ddim_step_pairs
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline, img2img_steps
+    from ldm_image_generator_tpu_torch.serving import SamplerServer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pipe = LDMPipeline(UNet(UNetConfig(num_classes=COND_CLASSES), device=dev, generator=gen),
+                       Decoder(VAEConfig(), device=dev, generator=gen),
+                       dtype=torch.bfloat16,
+                       encoder=Encoder(VAEConfig(), device=dev, generator=gen))
+    variants, tiers = serve.make_variants(pipe, [256], num_steps=20, step_tiers=[SERVE_TIER],
+                                          img2img_strength=SERVE_STRENGTH)
+    log(f"serving: variants {list(variants)}, built in {time.perf_counter() - t0:.2f} s")
+    server = lambda **kw: SamplerServer(variants, batch_buckets=SERVE_BUCKETS, max_wait_ms=5,
+                                        num_classes=COND_CLASSES, device=dev, **kw)
+    null = COND_CLASSES
+    rows = lambda seeds: torch.stack([serve.draw_noise(s, (32, 32, 8)) for s in seeds]).to(dev)
+    ids = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    routing = lambda: torch.Generator(device=dev).manual_seed(0)
+    # two img2img payloads: seeded images in [-1, 1]; the second keeps its
+    # left half (keep channel 1 there)
+    pix = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(3)) * 2 - 1
+    payloads = np.concatenate([pix.numpy(), np.zeros((2, 256, 256, 1), np.float32)], -1)
+    payloads[1, :, :128, 3] = 1.0
+    i2i_calls = len(ddim_step_pairs(1000, 20, img2img_steps(1000, SERVE_STRENGTH, 20))[0])
+
+    def direct_i2i(seeds):
+        keep = payloads[..., 3:]
+        return pipe.img2img(torch.from_numpy(payloads[..., :3]), routing(),
+                            strength=SERVE_STRENGTH, num_steps=20,
+                            mask=torch.from_numpy(1.0 - keep), condition=ids([null] * 2),
+                            fwd_noise=rows(seeds))
+
+    groups = [  # name, variant, bucket, requests, launches, direct call(seeds)
+        ("serve_uncond_b8", 256, 8, [dict(seed=100 + i) for i in range(8)],
+         {"ffn_block": 720, "window_mha": 160},
+         lambda seeds: pipe.sample(routing(), batch=8, image_size=256, num_steps=20,
+                                   init_noise=rows(seeds), condition=ids([null] * 8))),
+        ("serve_cfg_b4", ("cfg", 256), 4,
+         [dict(seed=200, class_id=0, guidance=3.0),
+          dict(seed=201, class_id=1, guidance=3.0, cfg_rescale=0.7),
+          dict(seed=202, class_id=2, guidance=5.0, negative_class=0)],
+         {"ffn_block": 1440, "window_mha": 320},
+         lambda seeds: pipe.sample(
+             routing(), batch=4, image_size=256, num_steps=20, init_noise=rows(seeds),
+             condition=ids([0, 1, 2, null]),
+             guidance_scales=torch.tensor([3.0, 3.0, 5.0, 1.0], device=dev),
+             cfg_rescales=torch.tensor([0.0, 0.7, 0.0, 0.0], device=dev),
+             negative_condition=ids([null, null, 0, null]))),
+        ("serve_tier10_b1", ("steps", SERVE_TIER, 256), 1, [dict(seed=300)],
+         {"block_core": SERVE_TIER * 36, "window_mha": SERVE_TIER * 8},
+         lambda seeds: pipe.sample(routing(), batch=1, image_size=256, num_steps=SERVE_TIER,
+                                   init_noise=rows(seeds), condition=ids([null]))),
+        ("serve_img2img_b2", ("img2img", 256), 2,
+         [dict(seed=400, payload=payloads[0]), dict(seed=401, payload=payloads[1])],
+         {"block_core": 36 * i2i_calls, "window_mha": 8 * i2i_calls}, direct_i2i),
+    ]
+    out, served = {}, {}
+    for name, variant, bucket, reqs, want, direct in groups:
+        srv = server()
+        futs = [srv.submit(variant=variant, **r) for r in reqs]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with srv:
+            imgs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update(want)
+        snap = srv.stats.snapshot()
+        log(f"{name}: launches {json.dumps(counts)}; stats batches {snap['batches']} "
+            f"images {snap['images']} padded {snap['padded_images']}; {wall:.3f} s")
+        require(counts == expect, (name, counts))
+        require((snap["batches"], snap["images"], snap["padded_images"])
+                == (1, len(reqs), bucket - len(reqs)), (name, snap))
+        seeds = [r["seed"] for r in reqs] + [0] * (bucket - len(reqs))
+        ref = direct(seeds).cpu().numpy()
+        same = all(img.shape == (256, 256, 3) and img.dtype == np.uint8
+                   and np.array_equal(img, ref[i]) for i, img in enumerate(imgs))
+        log(f"{name}: served images bitwise the direct call's: {same}")
+        require(same, (name, "served images equal the direct pipeline call's"))
+        out[name] = dict(launches=counts, wall_s=wall, stats=snap)
+        served[name] = imgs
+    out["img2img_unet_calls"] = i2i_calls
+    # the same seed alone at bucket 1 against inside bucket 8
+    srv = server()
+    fut = srv.submit(100)
+    with srv:
+        alone = fut.result(timeout=600)
+    out["b1_vs_b8_max_uint8_diff"] = int(np.abs(
+        alone.astype(np.int32) - served["serve_uncond_b8"][0].astype(np.int32)).max())
+    log(f"serving: seed 100 at bucket 1 vs inside bucket 8: max uint8 difference "
+        f"{out['b1_vs_b8_max_uint8_diff']}")
+    out["http"] = check_http(dev, server, tiers)
+    out["load"] = serve_load(server)
+    return out
+
+
+def check_http(dev, server, tiers) -> dict:
+    """The HTTP handler on loopback with PNG bodies (phase 13)."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from ldm_image_generator_tpu_torch.cli import serve
+    from ldm_image_generator_tpu_torch.cli.sample_ldm import png_bytes
+
+    def fetch(port, path, method="GET", body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path, body)
+            r = conn.getresponse()
+            return r.status, r.getheader("Content-Type"), r.read()
+        finally:
+            conn.close()
+
+    def serving_http(srv):
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(
+            srv, png_bytes, 256, step_tiers=tiers, default_steps=20,
+            content_type="image/png"))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+
+        def close():
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+            require(not thread.is_alive(), "HTTP server thread stopped")
+        return httpd.server_address[1], close
+
+    out = {}
+    srv = server()
+    port, close = serving_http(srv)
+    srv.start()
+    try:
+        status, ctype, body = fetch(port, "/sample?seed=500")
+        require(status == 200 and ctype == "image/png", ("GET /sample", status, ctype))
+        mine = srv.submit(500).result(timeout=600)
+        require((png_pixels(body) == mine).all(), "GET /sample PNG equals the served image")
+        items = [{"seed": 600}, {"seed": 601, "class_id": 1, "guidance_scale": 3.0},
+                 {"seed": 602, "steps": SERVE_TIER}, {"seed": 603, "class_id": 2}]
+        status, ctype, raw = fetch(port, "/sample_batch", "POST", json.dumps({"items": items}))
+        require(status == 200 and ctype.startswith("multipart/mixed"), ("batch", status))
+        index = set()
+        for part in raw.split(b"--ldmframe"):
+            if b"X-Index: " in part:
+                head, data = part.split(b"\r\n\r\n", 1)
+                require(b"Content-Type: image/png" in head, head)
+                require(png_pixels(data[:-2]).shape == (256, 256, 3), "part image")
+                index.add(int(head.split(b"X-Index: ")[1].split(b"\r\n")[0]))
+        require(index == {0, 1, 2, 3}, ("X-Index", index))
+        status, _, text = fetch(port, "/metrics")
+        require(status == 200 and b"ldm_images_total" in text, "/metrics")
+        status, _, health = fetch(port, "/healthz")
+        require(status == 200 and json.loads(health)["ok"] is True, "/healthz")
+        status, _, body = fetch(port, f"/sample?seed=1&class_id={COND_CLASSES + 4}")
+        require(status == 400 and b"out of range" in body, ("class_id out of range", status))
+        out["images_served"] = srv.stats.images
+    finally:
+        close()
+        srv.stop()
+    full = server(max_queue=1)  # no worker: one request fills the queue
+    full.submit(0)
+    port, close = serving_http(full)
+    try:
+        status, _, body = fetch(port, "/sample?seed=2&priority=high")
+        require(status == 503, ("a full queue is 503", status, body))
+    finally:
+        close()
+    log("serving http: GET /sample PNG equal, POST /sample_batch X-Index 0-3, /metrics, "
+        "/healthz, 400 on a class_id out of range, 503 on a full queue")
+    return out
+
+
+def serve_load(server) -> dict:
+    """SERVE_LOAD unconditional requests queued at once: images/s from
+    the worker's start to the last result, the stats' mean batch (8) and
+    latency percentiles; then the same again under the profiler for the
+    card's busy share."""
+    def run():
+        srv = server()
+        futs = [srv.submit(1000 + i) for i in range(SERVE_LOAD)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with srv:
+            for f in futs:
+                f.result(timeout=600)
+        return time.perf_counter() - t0, srv.stats.snapshot()
+
+    wall, snap = run()
+    require(snap["mean_batch"] == 8.0 and snap["images"] == SERVE_LOAD, snap)
+    prof = profile_fn(run)
+    out = dict(images_per_s=SERVE_LOAD / wall, wall_s=wall, mean_batch=snap["mean_batch"],
+               p50_ms=snap["latency"]["p50_ms"], p99_ms=snap["latency"]["p99_ms"],
+               mean_latency_ms=snap["latency"]["mean_ms"],
+               device_busy_ms=prof["device_busy_ms"], profiled_wall_ms=prof["wall_ms"],
+               busy_share=prof["device_busy_ms"] / prof["wall_ms"],
+               busy_share_of_unprofiled_wall=prof["device_busy_ms"] / (wall * 1e3))
+    log(f"serving load ({card_line()}): {SERVE_LOAD} requests in {wall:.3f} s, "
+        f"{out['images_per_s']:.4f} images/s, mean batch {out['mean_batch']}, latency "
+        f"p50 {out['p50_ms']} ms p99 {out['p99_ms']} ms (histogram bucket edges), mean "
+        f"{out['mean_latency_ms']} ms; card busy {out['device_busy_ms']:.3f} ms, "
+        f"{out['busy_share']:.3f} of the profiled window, "
+        f"{out['busy_share_of_unprofiled_wall']:.3f} of the unprofiled one")
+    return out
+
+
+def phase_img2img_card_vs_cpu(dev) -> dict:
+    """The img2img path's new work in fp32, card vs CPU: the default
+    Encoder at 256px, q_sample to t_start, the mask resize and one
+    projected DDIM step (t_start -> 0) of the default UNet under one
+    routing plan, each at STEP_REL_TOL of its scale."""
+    from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.diffusion.ddpm import (
+        ddim_sample,
+        make_schedule,
+        q_sample,
+    )
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.vae import Encoder
+    from ldm_image_generator_tpu_torch.pipelines import (
+        img2img_steps,
+        inpaint_projection,
+        resize_mask,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    enc = Encoder(VAEConfig(), device="cpu", generator=gen).eval()
+    unet = UNet(UNetConfig(), device="cpu", generator=gen).eval()
+    image = torch.rand((1, 256, 256, 3), generator=gen) * 2 - 1
+    mask = torch.zeros((1, 256, 256, 1))
+    mask[:, :, 100:] = 1.0
+    eps, proj = (torch.randn((1, 32, 32, 8), generator=gen) for _ in range(2))
+    plan = torch.randint(0, 6, (unet.plan_length(),), generator=gen)
+    schedule = make_schedule(DDPMConfig())
+    t_start = img2img_steps(1000, SERVE_STRENGTH, 20)[-1]
+
+    def run(d, enc, unet):
+        z0 = enc(image.to(d)).float()
+        x = q_sample(schedule, z0, torch.full((1,), t_start, dtype=torch.int32, device=d),
+                     eps.to(d))
+        m = resize_mask(mask.to(d), 32)
+        denoise = lambda x, t: unet(x, torch.tensor([t], dtype=torch.int32, device=d),
+                                    moe_plan=plan.to(d)).float()
+        z = ddim_sample(denoise, schedule, tuple(z0.shape), steps=[t_start], init_noise=x,
+                        device=d, project_fn=inpaint_projection(schedule, z0, m),
+                        project_noise=proj[None].to(d))
+        return dict(encoder=z0, q_sample=x, mask=m, projected_step=z)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = run("cpu", enc, unet)
+        cpu_s = time.perf_counter() - t0
+        got = run(dev, copy.deepcopy(enc).to(dev), copy.deepcopy(unet).to(dev))
+    out = {}
+    for name, want in ref.items():
+        err = (got[name].cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"img2img card vs cpu fp32 {name}: max abs err {err:.3e}, max {scale:.3e}")
+        require(torch.isfinite(got[name]).all() and err <= STEP_REL_TOL * scale,
+                (name, err, scale))
+        out[name] = err / scale
+    out["cpu_s"] = cpu_s
+    return out
+
+
 def launch_counts() -> dict:
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
@@ -1444,12 +1772,15 @@ def main(argv) -> int:
     files = phase_param_files(dev, cond_pipe, *cond_modules)
     del cond_pipe, cond_modules
     rel_cond = phase_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))
-    paths = dict(fast, **cond)
+    log(f"conditional phases done at {time.perf_counter() - t_start:.1f} s")
+    serving = phase_serving(dev)
+    img2img_vs_cpu = phase_img2img_card_vs_cpu(dev)
+    paths = dict(fast, **cond, **{k: v for k, v in serving.items()
+                                  if isinstance(v, dict) and "launches" in v})
     for kernel in ("block_core", "window_mha", "ffn_block", "block_core_int8"):
         kernels[kernel]["launches_by_path"] = {
             path: r["launches"][kernel] for path, r in paths.items() if r["launches"][kernel]}
-    log(f"conditional, DPM and DeepCache phases done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
     train = phase_train(dev)
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
     kernels["window_mha_bwd"]["launches"] = train["launches"]["window_mha_bwd"]
@@ -1472,6 +1803,8 @@ def main(argv) -> int:
         "paths": paths,
         "cond_card_vs_cpu_rel_err": rel_cond,
         "param_files": files,
+        "serving": serving,
+        "img2img_card_vs_cpu": img2img_vs_cpu,
         "train_launches": train["launches"],
         "train_steps_per_s": train["steps_per_s"],
         "train_images_per_s": train["images_per_s"],

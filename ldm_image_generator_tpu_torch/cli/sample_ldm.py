@@ -12,9 +12,11 @@ N > 1 (DeepCache); --num-classes with --class-id, --guidance-scale,
 --negative-class and --cfg-rescale for class-conditional models;
 --prediction and --zero-snr select the schedule; --quant int8 samples
 with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Writes
-<outdir>/<i>.png. Runs on `cuda` unless `-d cpu` is given; a CUDA
-request without a card raises. img2img and inpainting (--init-image,
---mask, --strength, -encp) are not ported yet (ROADMAP A9).
+<outdir>/<i>.png. --init-image (with -encp the VAE encoder's file and
+--strength) samples img2img from that image, tiled over -n; --mask (a
+grayscale image, white = regenerate, black = keep) inpaints, DDIM only.
+Runs on `cuda` unless `-d cpu` is given; a CUDA request without a card
+raises.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ def str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
-def save_png(path: str, img) -> None:
-    """Write a uint8 [H, W, 3] array as an 8-bit RGB PNG (stdlib only)."""
+def png_bytes(img) -> bytes:
+    """A uint8 [H, W, 3] array as an 8-bit RGB PNG file's bytes (stdlib
+    only)."""
     h, w, _ = img.shape
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
@@ -43,11 +46,15 @@ def save_png(path: str, img) -> None:
         return struct.pack(">I", len(data)) + body + struct.pack(
             ">I", zlib.crc32(body) & 0xFFFFFFFF)
 
+    return b"".join((b"\x89PNG\r\n\x1a\n",
+                     chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+                     chunk(b"IDAT", zlib.compress(raw)), chunk(b"IEND", b"")))
+
+
+def save_png(path: str, img) -> None:
+    """Write a uint8 [H, W, 3] array as an 8-bit RGB PNG (stdlib only)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw)))
-        f.write(chunk(b"IEND", b""))
+        f.write(png_bytes(img))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,17 +95,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prediction", default="eps", choices=["eps", "v"])
     p.add_argument("--zero-snr", action="store_true",
                    help="zero terminal SNR schedule; needs --prediction v")
-    # img2img / inpainting flags of the JAX CLI: refused below
-    p.add_argument("--init-image", default=None)
-    p.add_argument("-encp", "--encpath", default=None)
-    p.add_argument("--strength", default=None, type=float)
-    p.add_argument("--mask", default=None)
+    p.add_argument("--init-image", default=None,
+                   help="img2img: start from this image (encoded, diffused to "
+                        "--strength of the schedule, then denoised)")
+    p.add_argument("-encp", "--encpath", default="./vae_encoder.pt",
+                   help="VAE encoder parameter file (img2img only)")
+    p.add_argument("--strength", default=0.6, type=float,
+                   help="img2img: fraction of the forward process applied (0..1]")
+    p.add_argument("--mask", default=None,
+                   help="inpainting: grayscale mask image, white regenerated, "
+                        "black kept (needs --init-image and the ddim sampler)")
     return p
 
 
 def check_args(args) -> None:
-    """The JAX CLI's argument checks, in its order; then the flags this
-    port does not run yet."""
+    """The JAX CLI's argument checks, in its order, then its pipeline's
+    img2img checks (here before any model is built)."""
     if args.mask is not None and args.init_image is None:
         raise SystemExit("--mask requires --init-image")
     if args.class_id is not None and args.num_classes <= 0:
@@ -110,11 +122,11 @@ def check_args(args) -> None:
             raise SystemExit("--negative-class has no effect at --guidance-scale 1.0")
         if not 0 <= args.negative_class < args.num_classes:
             raise SystemExit(f"--negative-class must be in [0, {args.num_classes})")
-    for flag, value in (("--init-image", args.init_image), ("--mask", args.mask),
-                        ("--strength", args.strength), ("-encp", args.encpath)):
-        if value is not None:
-            raise SystemExit(f"{flag} (img2img / inpainting) is not ported yet: "
-                             "ROADMAP A9")
+    if args.init_image is not None:
+        if not 0.0 < args.strength <= 1.0:
+            raise SystemExit(f"strength must be in (0, 1], got {args.strength}")
+        if args.mask is not None and args.sampler != "ddim":
+            raise SystemExit("inpainting (mask=) requires sampler='ddim'")
 
 
 def maybe_load(module, path: str) -> bool:
@@ -133,9 +145,37 @@ def maybe_load(module, path: str) -> bool:
     return True
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    check_args(args)
+def read_image(path: str, size: int, n: int, device):
+    """The image at `path` preprocessed as the trainers' data (float32 in
+    [-1, 1]), tiled to [n, size, size, 3] on `device`."""
+    import torch
+
+    from ldm_image_generator_tpu_torch.data.dataset import preprocess_image
+
+    img = torch.from_numpy(preprocess_image(path, size))
+    return img[None].repeat(n, 1, 1, 1).to(device)
+
+
+def read_mask(path, size: int, n: int, device):
+    """The grayscale mask at `path` (None: no mask), NEAREST-resized to
+    size x size, as float32 [n, size, size, 1] in [0, 1] on `device`."""
+    if path is None:
+        return None
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    m = Image.open(path).convert("L").resize((size, size), Image.NEAREST)
+    m = torch.from_numpy(np.asarray(m, dtype=np.float32) / 255.0)
+    return m[None, :, :, None].repeat(n, 1, 1, 1).to(device)
+
+
+def build_pipeline(args, seed: int, with_encoder: bool):
+    """The LDMPipeline of a sampling CLI's args (--config, --quant,
+    --num-classes, -fp16, --prediction, --zero-snr, -d): weights seeded
+    with `seed` (the UNet, the decoder, then the encoder when
+    with_encoder), then the parameter files of -dp, -decp and -encp that
+    exist."""
     import torch
 
     from ldm_image_generator_tpu_torch.config import (
@@ -147,7 +187,7 @@ def main(argv=None):
         resolve_device,
     )
     from ldm_image_generator_tpu_torch.models.unet import UNet
-    from ldm_image_generator_tpu_torch.models.vae import Decoder
+    from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
 
     device = resolve_device(args.device)
@@ -159,22 +199,44 @@ def main(argv=None):
     dtype = (DEFAULT_PRECISION if args.fp16 else FULL_PRECISION).compute_dtype
     dcfg = DDPMConfig(prediction=args.prediction, zero_terminal_snr=args.zero_snr)
     # seeded weights as LDMPipeline.random makes them, then the files
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     unet = UNet(ucfg, device=device, generator=gen)
     decoder = Decoder(vcfg, device=device, generator=gen)
     maybe_load(unet, args.ddpmpath)
     maybe_load(decoder, args.decpath)
-    pipe = LDMPipeline(unet, decoder, dcfg, dtype=dtype)
+    encoder = None
+    if with_encoder:
+        encoder = Encoder(vcfg, device=device, generator=gen)
+        maybe_load(encoder, args.encpath)
+    return LDMPipeline(unet, decoder, dcfg, dtype=dtype, encoder=encoder)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_args(args)
+    import torch
+
+    pipe = build_pipeline(args, args.seed, args.init_image is not None)
+    device = pipe.device
     full = lambda v: None if v is None else torch.full(
         (args.numimages,), v, dtype=torch.int32, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    imgs = pipe.sample(gen, batch=args.numimages, image_size=args.size,
-                       num_steps=args.timesteps, eta=args.eta,
-                       sampler=args.sampler, condition=full(args.class_id),
-                       guidance_scale=args.guidance_scale,
-                       cache_interval=args.cache_interval,
-                       cfg_rescale=args.cfg_rescale,
-                       negative_condition=full(args.negative_class)).cpu().numpy()
+    guidance = dict(condition=full(args.class_id), guidance_scale=args.guidance_scale,
+                    cfg_rescale=args.cfg_rescale,
+                    negative_condition=full(args.negative_class))
+    if args.init_image is not None:
+        imgs = pipe.img2img(
+            read_image(args.init_image, args.size, args.numimages, device), gen,
+            strength=args.strength, num_steps=args.timesteps, eta=args.eta,
+            sampler=args.sampler, mask=read_mask(args.mask, args.size, args.numimages,
+                                                 device),
+            **guidance)
+    else:
+        imgs = pipe.sample(gen, batch=args.numimages, image_size=args.size,
+                           num_steps=args.timesteps, eta=args.eta,
+                           sampler=args.sampler, cache_interval=args.cache_interval,
+                           **guidance)
+    imgs = imgs.cpu().numpy()
     os.makedirs(args.outdir, exist_ok=True)
     for i in range(args.numimages):
         save_png(os.path.join(args.outdir, f"{i}.png"), imgs[i])

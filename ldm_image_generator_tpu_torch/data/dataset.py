@@ -33,9 +33,10 @@ def find_images(source_dirs: Sequence[str]) -> List[str]:
     return paths
 
 
-def preprocess_image(path: str, size: int) -> np.ndarray:
-    """Decode -> aspect-preserving NEAREST resize (+ blur when downscaling)
-    -> centered black square pad -> float32 [size, size, 3] in [-1, 1]."""
+def preprocess_image(path, size: int) -> np.ndarray:
+    """Decode (a path or a binary file object) -> aspect-preserving
+    NEAREST resize (+ blur when downscaling) -> centered black square pad
+    -> float32 [size, size, 3] in [-1, 1]."""
     from PIL import Image, ImageFile, ImageFilter
 
     ImageFile.LOAD_TRUNCATED_IMAGES = True

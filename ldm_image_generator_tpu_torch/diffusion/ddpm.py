@@ -182,6 +182,8 @@ def ddim_sample(
     prediction: str = "eps",
     device="cuda",
     deep_cache=None,
+    project_fn=None,
+    project_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DDIM reverse sampler. denoise_fn(x, t) -> model output for the
     integer timestep t (shared by the batch). x_T is `init_noise` or
@@ -191,7 +193,13 @@ def ddim_sample(
     deep-feature reuse (models/unet.py deep/with_deep): fresh_fn(x, t)
     -> (pred, deep) recomputes the UNet's deep core, cached_fn(x, t,
     deep) -> pred reuses it; step i is fresh when i % interval == 0 (step
-    0 always), and denoise_fn is not called."""
+    0 always), and denoise_fn is not called.
+    project_fn(x, t_next, final, noise) -> x is applied after every
+    update (latent inpainting): a projection at the new noise level
+    t_next, `final` True on the terminal t == 0 step (x already in x0
+    space, noise None). Step i's noise ~ N(0, 1) of x_shape is
+    project_noise[i] when given ([steps, *x_shape]), else drawn from
+    `generator` after that step's model call and eta noise."""
     ts, ts_next = ddim_step_pairs(schedule.num_timesteps, num_steps, steps)
     ab = schedule.alpha_bar
     if init_noise is None:
@@ -208,15 +216,22 @@ def ddim_sample(
         eps_hat, x0 = pred_to_eps_x0(pred, x, ab[t], prediction)
         if t == 0:
             x = x0.to(dtype)
-            continue
-        a_t, a_n = ab[t], ab[t_next]
-        sigma = np.float32(eta) * np.sqrt((one - a_n) / (one - a_t)) * np.sqrt(
-            np.maximum(one - a_t / a_n, np.float32(0.0)))
-        c_eps = np.sqrt(np.maximum(one - a_n - sigma * sigma, np.float32(0.0)))
-        x_new = float(np.sqrt(a_n)) * x0 + float(c_eps) * eps_hat
-        if sigma != 0.0:
-            noise = torch.randn(x_shape, generator=generator, device=x.device,
-                                dtype=torch.float32)
-            x_new = x_new + float(sigma) * noise
-        x = x_new.to(dtype)
+        else:
+            a_t, a_n = ab[t], ab[t_next]
+            sigma = np.float32(eta) * np.sqrt((one - a_n) / (one - a_t)) * np.sqrt(
+                np.maximum(one - a_t / a_n, np.float32(0.0)))
+            c_eps = np.sqrt(np.maximum(one - a_n - sigma * sigma, np.float32(0.0)))
+            x_new = float(np.sqrt(a_n)) * x0 + float(c_eps) * eps_hat
+            if sigma != 0.0:
+                noise = torch.randn(x_shape, generator=generator, device=x.device,
+                                    dtype=torch.float32)
+                x_new = x_new + float(sigma) * noise
+            x = x_new.to(dtype)
+        if project_fn is not None:
+            noise = None
+            if t != 0:
+                noise = (project_noise[i].to(x.device) if project_noise is not None
+                         else torch.randn(x_shape, generator=generator,
+                                          device=x.device, dtype=torch.float32))
+            x = project_fn(x, int(t_next), t == 0, noise).to(dtype)
     return x

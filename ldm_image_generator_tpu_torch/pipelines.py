@@ -1,11 +1,14 @@
 """Latent diffusion sampling, the torch counterpart of
-LDMPipeline.sample in ldm_image_generator_tpu/pipelines.py (without
-img2img and inpainting).
+LDMPipeline.sample and LDMPipeline.img2img in
+ldm_image_generator_tpu/pipelines.py.
 
 init noise -> DDIM or DPM-Solver++(2M) over the UNet in latent space ->
 VAE decode -> clamp -> uint8; optionally class-conditional with
 classifier-free guidance (per-sample scales and rescale, a negative
-class) or with DeepCache deep-feature reuse. The pipeline samples with
+class) or with DeepCache deep-feature reuse. img2img encodes an image
+with the VAE encoder, diffuses it part of the way and samples over the
+rest of the schedule, optionally keeping a masked region (inpainting).
+The pipeline samples with
 copies of the caller's modules cast to the compute dtype (and, with
 ffn_quant='int8', their int8 FFN weights), made once per weight version
 of those modules, and memoizes the FiLM schedule per (weight version,
@@ -19,7 +22,9 @@ import copy
 import itertools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ldm_image_generator_tpu_torch.config import (
     DDPMConfig,
@@ -31,10 +36,11 @@ from ldm_image_generator_tpu_torch.diffusion.ddpm import (
     ddim_sample,
     film_schedule_ts,
     make_schedule,
+    q_sample,
 )
 from ldm_image_generator_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
 from ldm_image_generator_tpu_torch.models.unet import UNet
-from ldm_image_generator_tpu_torch.models.vae import Decoder
+from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
 
 SAMPLERS = ("ddim", "dpm++2m")
 # FiLM schedules kept per weight version (the JAX package's _PREP_FILM_MAX)
@@ -85,6 +91,36 @@ def guide(pred_c: torch.Tensor, pred_u: torch.Tensor, scale,
     return guided
 
 
+def resize_mask(mask: torch.Tensor, latent: int) -> torch.Tensor:
+    """A pixel mask [B, H, W, 1] resized to the latent grid [B, latent,
+    latent, 1] in fp32: bilinear with half-pixel centres, antialiased when
+    shrinking, as the JAX package's jax.image.resize(..., "linear")."""
+    m = F.interpolate(mask.float().permute(0, 3, 1, 2), size=(latent, latent),
+                      mode="bilinear", antialias=True, align_corners=False)
+    return m.permute(0, 2, 3, 1)
+
+
+def img2img_steps(num_timesteps: int, strength: float, num_steps: int) -> tuple:
+    """The ascending timesteps img2img samples over: t_start =
+    strength (T - 1) rounded (at least 1), round(strength num_steps) (at
+    least 2) points of linspace(0, t_start) truncated to int, deduplicated."""
+    t_start = max(1, int(round(strength * (num_timesteps - 1))))
+    n = max(2, int(round(strength * num_steps)))
+    return tuple(np.unique(np.linspace(0, t_start, n).astype(np.int32)).tolist())
+
+
+def inpaint_projection(schedule, z0: torch.Tensor, m: torch.Tensor):
+    """project_fn(x, t_next, final, noise) of ddim_sample for inpainting:
+    the known latent z0 diffused to t_next with `noise` (z0 itself on the
+    final step) where the latent mask m is 0, x where it is 1."""
+    def project(x, t_next, final, noise):
+        known = z0 if final else q_sample(
+            schedule, z0, torch.full((z0.shape[0],), t_next, dtype=torch.int32,
+                                     device=z0.device), noise)
+        return m * x + (1.0 - m) * known
+    return project
+
+
 class LDMPipeline:
     """Latent diffusion sampler over a UNet and a VAE Decoder: DDIM or
     DPM-Solver++(2M), unconditional or class-conditional (with CFG), and
@@ -99,15 +135,18 @@ class LDMPipeline:
     MoE routing: each denoise step draws one routing plan from the
     sampling generator (unless the config fixes the experts); both CFG
     branches of a step take that plan, as the JAX package passes one key
-    to both."""
+    to both. `encoder` (a VAE Encoder) is needed by img2img only; its cast
+    copy is memoized with the others'."""
 
     def __init__(self, unet: UNet, decoder: Decoder,
                  ddpm_cfg: DDPMConfig = DDPMConfig(),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 encoder: Optional[Encoder] = None):
         self.schedule = make_schedule(ddpm_cfg)
         self.prediction = ddpm_cfg.prediction
         self.dtype = dtype
-        self._src = (unet, decoder)
+        self._src = (unet, decoder) + ((encoder,) if encoder is not None else ())
+        self.encoder = None
         self._version = None
         # (weight version, latent, num_steps, steps) -> (index, films), LRU
         self._films = collections.OrderedDict()
@@ -119,7 +158,8 @@ class LDMPipeline:
         version = weight_version(*self._src)
         if version == self._version:
             return
-        self.unet, self.decoder = (cast_copy(m, self.dtype) for m in self._src)
+        self.unet, self.decoder, *enc = (cast_copy(m, self.dtype) for m in self._src)
+        self.encoder = enc[0] if enc else None
         self.unet.prepare_ffn(self.dtype)
         self._version = version
         # a version counter only grows: the old weights' schedules never hit
@@ -314,5 +354,76 @@ class LDMPipeline:
             z = dpm_solver_sample(denoise, self.schedule, shape, **run)
         else:
             z = ddim_sample(denoise, self.schedule, shape, eta=eta, **run)
+        img = to_uint8(self.decoder(z))
+        return (img, z) if return_latent else img
+
+    @torch.no_grad()
+    def img2img(self, image: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                strength: float = 0.6, num_steps: int = 20, eta: float = 0.0,
+                sampler: str = "ddim", film_cache: bool = True,
+                mask: Optional[torch.Tensor] = None,
+                condition: Optional[torch.Tensor] = None,
+                guidance_scale: float = 1.0,
+                fwd_noise: Optional[torch.Tensor] = None,
+                guidance_scales: Optional[torch.Tensor] = None,
+                cfg_rescale: float = 0.0,
+                negative_condition: Optional[torch.Tensor] = None,
+                cfg_rescales: Optional[torch.Tensor] = None,
+                project_noise: Optional[torch.Tensor] = None,
+                return_latent: bool = False):
+        """Image-to-image and inpainting (SDEdit, arXiv:2108.01073), as the
+        JAX package's img2img: encode `image` (float NHWC in [-1, 1],
+        [B, S, S, 3]), diffuse it to t_start = strength (T - 1) with
+        `fwd_noise` ([B, latent, latent, C], else drawn from `generator`),
+        then sample over the sub-schedule img2img_steps(...) below it.
+        strength in (0, 1]: 1 is a full generation. mask [B, H, W, 1] (1 =
+        regenerate, 0 = keep; resized to the latent grid by resize_mask)
+        keeps the known region, re-noised to each step's level and pasted
+        exactly on the last (inpaint_projection; DDIM only); its
+        per-step noise is `project_noise` ([steps, B, latent, latent, C])
+        or drawn from `generator`. Guidance and routing as in `sample`.
+        Returns uint8 images like `sample` (and the final latent with
+        return_latent)."""
+        if not 0.0 < strength <= 1.0:
+            raise ValueError(f"strength must be in (0, 1], got {strength}")
+        if mask is not None and sampler != "ddim":
+            raise ValueError("inpainting (mask=) requires sampler='ddim'")
+        if negative_condition is not None:
+            if condition is None or self.unet.cfg.num_classes <= 0:
+                raise ValueError("negative_condition requires a class-conditional "
+                                 "model and a condition")
+            if guidance_scales is None and guidance_scale == 1.0:
+                raise ValueError("negative_condition has no effect at guidance "
+                                 "1.0: pass guidance_scale != 1 or guidance_scales")
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
+        self._prepare()
+        if self.encoder is None:
+            raise ValueError("img2img needs a pipeline built with an encoder")
+        sub_steps = img2img_steps(self.schedule.num_timesteps, strength, num_steps)
+        dev = self.device
+        z0 = self.encoder(image.to(dev)).float()
+        b, latent = z0.shape[0], z0.shape[1]
+        eps = (torch.randn(z0.shape, generator=generator, device=dev)
+               if fwd_noise is None else fwd_noise.to(dev, torch.float32))
+        x_init = q_sample(self.schedule, z0, torch.full(
+            (b,), sub_steps[-1], dtype=torch.int32, device=dev), eps)
+        denoise, _, _ = self._denoise_fns(
+            latent, num_steps, sub_steps, film_cache, generator, condition,
+            guidance_scale if guidance_scales is None else guidance_scales,
+            cfg_rescale if cfg_rescales is None else cfg_rescales,
+            negative_condition)
+        run = dict(generator=generator, num_steps=num_steps, steps=sub_steps,
+                   init_noise=x_init, prediction=self.prediction, device=dev)
+        if sampler == "dpm++2m":
+            z = dpm_solver_sample(denoise, self.schedule, z0.shape, **run)
+        else:
+            project_fn = None
+            if mask is not None:
+                project_fn = inpaint_projection(
+                    self.schedule, z0, resize_mask(mask.to(dev), latent))
+            z = ddim_sample(denoise, self.schedule, z0.shape, eta=eta,
+                            project_fn=project_fn, project_noise=project_noise, **run)
         img = to_uint8(self.decoder(z))
         return (img, z) if return_latent else img

@@ -271,8 +271,9 @@ def test_deepcache_refuses_a_one_stage_unet():
      "no effect at --guidance-scale 1.0"),
     (["--num-classes", "3", "--class-id", "0", "--guidance-scale", "3",
       "--negative-class", "3"], r"must be in \[0, 3\)"),
-    (["--init-image", "x.png"], "ROADMAP A9"),
-    (["-encp", "enc.pt"], "ROADMAP A9"),
+    (["--init-image", "x.png", "--strength", "0"], r"strength must be in \(0, 1\]"),
+    (["--init-image", "x.png", "--mask", "m.png", "--sampler", "dpm++2m"],
+     "requires sampler='ddim'"),
 ])
 def test_sample_cli_checks_arguments_in_the_jax_order(flags, match):
     with pytest.raises(SystemExit, match=match):
