@@ -109,6 +109,34 @@ no result line):
      must be 8, p50/p99 latency, the card's busy share from a profiled
      second run) and the largest uint8 difference between a seed served
      at bucket 1 and inside bucket 8.
+  14. the training surface at full width: the default UNet with 3
+     classes, B=8, bf16 compute, AdamW 1e-4, EMA 0.999, labels 0-2 at
+     cond-drop 0.1. (1) a warm-up and 5 conditional train steps: exactly
+     36 ffn_block, 36 ffn_block_bwd, 8 window MHA and 8 backward per
+     step, finite losses, parameters and EMA, a gradient on class_embed;
+     steps/s, peak memory and a profile of one step. (4, run next on that
+     state) TrainCheckpointer writes it (~6.2 GB under build/) and restores
+     it into fresh modules on the card: every tensor, the step and the
+     generator's state bitwise; one more step from each within the train
+     tolerances; bytes, write and read seconds; then the default VAE and
+     discriminator with Adafactor after one step, the same round trip,
+     bitwise. (2) phase 7 on the conditional UNet with class ids (the
+     null class among them) injected. (3) one step with remat=True from
+     the same weights and draws as one without: 72 ffn_block, 36
+     backward, 16 window MHA and 8 backward; the loss equal and each
+     gradient within 1e-3 of its max abs (largest reported); the memory
+     the forward keeps for the backward must be lower with remat; 3 timed
+     steps each (time, peak above their starting memory, a profile); one
+     step each at B=32, whose peak of forward and backward must be lower
+     with remat (at B=8 the gradients set that peak either way). (5) cli/train_ldm.train_loop over in-memory seeded
+     latents, 12 steps at --fused-steps 2 --save-every 6 --val-every 6
+     --val-batches 2: saves at steps 2, 8 and 12 (the JAX trainer's
+     cadence on the batch index), the last two checkpoints kept and read
+     back (the last bitwise), the parameter and EMA files read back
+     bitwise, one JSON record at step 10 (with loss_gmax), validations at
+     steps 6 and 12 with finite val_loss and val_loss_ema and exactly
+     2 x 8 x 2 x (36 ffn_block + 8 window MHA) launches each (parameters
+     and EMA, 8 grid points, 2 batches).
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -126,6 +154,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -910,8 +939,6 @@ def phase_param_files(dev, pipe, unet, decoder) -> dict:
     parameter file under build/ and read into a fresh UNet on the card:
     every parameter bitwise equal, and a B=1 CFG sample from it bitwise
     the in-memory weights' sample."""
-    import os
-
     from ldm_image_generator_tpu_torch.convert import load_flax_file, save_flax_file
     from ldm_image_generator_tpu_torch.models.unet import UNet
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
@@ -1294,7 +1321,8 @@ def reset_launch_counts() -> None:
 def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
     """(state, step) for the UNet of `cfg` (default: the default UNet) on
     dev: fp32 parameters from `seed`, AdamW lr 1e-4, eps-prediction L1,
-    stochastic depth on."""
+    stochastic depth on; a conditional UNet's step takes labels (dropped
+    to the null class at COND_DROP) or class ids (`cond`)."""
     from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1305,13 +1333,15 @@ def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
         make_optimizer,
     )
 
-    unet = UNet(cfg or UNetConfig(), device=dev,
+    cfg = cfg or UNetConfig()
+    unet = UNet(cfg, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(seed))
     tx = make_optimizer("adamw", 1e-4)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if ema else None)
     step = make_ldm_train_step(unet, make_schedule(DDPMConfig()), tx,
-                               ema_decay=0.999 if ema else None, dtype=dtype)
+                               ema_decay=0.999 if ema else None, dtype=dtype,
+                               num_classes=cfg.num_classes, cond_drop=COND_DROP)
     return state, step
 
 
@@ -1464,8 +1494,8 @@ def explain_flip(name: str, over: torch.Tensor, units: dict, cpu_rec: dict,
 
 def phase_train_card_vs_cpu(dev, cfg=None) -> dict:
     """One fp32 train step at B=4, card kernels vs CPU plain versions,
-    with t, noise, routing and stochastic-depth gates injected (TF32 off,
-    as main sets it)."""
+    with t, noise, routing, stochastic-depth gates and (a conditional
+    `cfg`) class ids injected (TF32 off, as main sets it)."""
     cpu_state, cpu_step = make_trainer("cpu", seed=3, dtype=torch.float32,
                                        ema=False, cfg=cfg)
     card_state, card_step = make_trainer(dev, seed=3, dtype=torch.float32,
@@ -1480,6 +1510,9 @@ def phase_train_card_vs_cpu(dev, cfg=None) -> dict:
                                          generator=gen),
                   sd_gates=torch.rand(cpu_state.params.plan_length(),
                                       generator=gen) > 0.25)
+    if cpu_state.params.cfg.num_classes:
+        # class ids after the drop, the null class among them
+        inject["cond"] = torch.arange(b) % (cpu_state.params.cfg.num_classes + 1)
     cpu_rec, hooks = record_preactivations(cpu_state.params)
     card_rec, card_hooks = record_preactivations(card_state.params)
     t0 = time.perf_counter()
@@ -1734,6 +1767,468 @@ def phase_vae_card_vs_cpu(dev) -> dict:
                 codebook_rows=rows, cpu_step_s=cpu_s)
 
 
+# phase 14: the training surface at full width (the default UNet with
+# phase 10's 3 classes, B=8, bf16 compute, AdamW 1e-4, EMA 0.999)
+COND_DROP = 0.1
+# launches of one remat train step at B=8: each stack's forward runs again
+# in the backward
+REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=72, window_mha=16)
+REMAT_STEPS = 3
+# the batch at which remat's peak of forward and backward is compared. At
+# B=8 a plain forward keeps 0.88 GiB for the backward (0.72 of it the bf16
+# casts of the weights), below the 1.44 GiB of fp32 gradients, which set
+# that peak with or without remat (~1.52-1.59 GiB either way on the
+# H100); at B=32 it keeps 1.74 GiB, and remat lowers the peak (1.860 ->
+# 1.807 GiB)
+REMAT_PEAK_BATCH = 32
+# the run loop: cli/train_ldm.train_loop over in-memory seeded latents
+RUN_STEPS = 12
+RUN_FUSED = 2
+RUN_SAVE_EVERY = 6
+RUN_VAL_EVERY = 6
+RUN_VAL_BATCHES = 2
+VAL_NUM_T = 8
+# one validation with an EMA evaluates the parameters and the EMA: per
+# set, VAL_NUM_T grid points x RUN_VAL_BATCHES batches of one B=8 forward
+VAL_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=2 * VAL_NUM_T * RUN_VAL_BATCHES * 36,
+                    ffn_block_bwd=0, window_mha=2 * VAL_NUM_T * RUN_VAL_BATCHES * 8,
+                    window_mha_bwd=0)
+# checkpoints the run loop keeps (each ~6.2 GB at full width)
+RUN_KEEP = 2
+SURFACE_DIR = os.path.join("build", "chip_smoke_train_surface")
+
+
+def cond_labels(dev) -> torch.Tensor:
+    return torch.arange(TRAIN_BATCH, device=dev) % COND_CLASSES
+
+
+def state_leaves(state) -> dict:
+    """{path: tensor or number} over a train state (the checkpoint's tree)."""
+    from ldm_image_generator_tpu_torch.utils.checkpoint import state_tree
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}.{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}[{i}]")
+        else:
+            out[path] = tree
+
+    walk(state_tree(state), "state")
+    return out
+
+
+def require_bitwise(a, b, what: str) -> None:
+    la, lb = state_leaves(a), state_leaves(b)
+    require(set(la) == set(lb), f"{what}: other leaves")
+    for k, v in la.items():
+        w = lb[k]
+        same = torch.equal(v, w) if isinstance(v, torch.Tensor) else v == w
+        require(same, f"{what}: {k} differs")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def grad_rel(a: dict, b: dict) -> tuple:
+    """(largest max|a - b| over max|a| of any gradient, its name)."""
+    worst, name = 0.0, ""
+    for n, g in a.items():
+        scale = g.abs().max().item()
+        diff = (b[n] - g).abs().max().item()
+        rel = diff / scale if scale else diff
+        if rel > worst:
+            worst, name = rel, n
+    return worst, name
+
+
+def grads_of(unet) -> dict:
+    return {n: p.grad.detach().clone() for n, p in unet.named_parameters()}
+
+
+def phase_cond_train(dev):
+    """14.1: the conditional train step at B=8 (labels 0-2, cond-drop
+    COND_DROP): launches, finiteness, a gradient on the class table,
+    steps/s, peak memory and a profile. Returns (results, state, step,
+    generator) for the resume check."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+
+    cfg = UNetConfig(num_classes=COND_CLASSES)
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, cfg=cfg)
+    unet = state.params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    labels = cond_labels(dev)
+    batch = lambda: torch.randn((TRAIN_BATCH, 32, 32, 8), generator=data, device=dev)
+    state, _ = step(state, batch(), generator=gen, labels=labels)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch(), generator=gen, labels=labels)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    log("cond train launches", json.dumps(counts), f"over {TRAIN_STEPS} steps")
+    require(counts == {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}, counts)
+    losses = [x.item() for x in losses]
+    log("cond train losses", losses)
+    require(all(math.isfinite(x) for x in losses), losses)
+    require(all(p.grad is not None for p in unet.parameters()), "a gradient everywhere")
+    require(unet.class_embed.embedding.grad.abs().max().item() > 0,
+            "a gradient on class_embed")
+    require(all(torch.isfinite(p).all() for p in unet.parameters()), "finite parameters")
+    require(all(torch.isfinite(e).all() for e in state.ema_params.values()), "finite EMA")
+    out = dict(launches=counts, losses=losses, train_s=dt,
+               steps_per_s=TRAIN_STEPS / dt,
+               images_per_s=TRAIN_STEPS * TRAIN_BATCH / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"cond train: {TRAIN_STEPS} steps in {dt:.4f} s, {out['steps_per_s']:.4f} "
+        f"steps/s, peak {out['peak_gib']:.3f} GiB")
+    x = batch()
+    box = {}
+
+    def one():
+        box["state"] = step(state, x, generator=gen, labels=labels)[0]
+
+    out["profile"] = profile_fn(one)
+    return out, box["state"], step, gen
+
+
+def phase_resume(dev, state, step, gen) -> dict:
+    """14.4: the conditional state saved with TrainCheckpointer and
+    restored into fresh modules on the card, bitwise (every tensor, the
+    step, the generator's state); one more step from each within the
+    train tolerances. Then the default VAE + discriminator with Adafactor
+    through the same round trip, bitwise."""
+    import shutil
+
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    root = os.path.join(SURFACE_DIR, "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    ck = TrainCheckpointer(root, max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ck.save(state.step, state, [gen])
+    write_s = time.perf_counter() - t0
+    nbytes = dir_bytes(path)
+    fresh, fresh_step = make_trainer(dev, seed=7, dtype=torch.bfloat16, ema=True,
+                                     cfg=UNetConfig(num_classes=COND_CLASSES))
+    fresh_gen = torch.Generator(device=dev).manual_seed(99)
+    t0 = time.perf_counter()
+    fresh = ck.restore(fresh, [fresh_gen])
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    require(fresh.step == state.step, (fresh.step, state.step))
+    require_bitwise(state, fresh, "LDM resume")
+    require(torch.equal(gen.get_state(), fresh_gen.get_state()), "generator state")
+    log(f"resume: {nbytes} bytes at step {state.step}, write {write_s:.3f} s, "
+        f"read {read_s:.3f} s; every tensor, the step and the generator bitwise")
+    x = torch.randn((TRAIN_BATCH, 32, 32, 8), generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev)
+    labels = cond_labels(dev)
+    state, m_a = step(state, x, generator=gen, labels=labels)
+    grads_a = grads_of(state.params)
+    fresh, m_b = fresh_step(fresh, x, generator=fresh_gen, labels=labels)
+    grads_b = grads_of(fresh.params)
+    la, lb = m_a["loss"].item(), m_b["loss"].item()
+    loss_rel = abs(la - lb) / abs(la)
+    worst, name = grad_rel(grads_a, grads_b)
+    log(f"resume: next step loss {la:.8f} vs {lb:.8f} (rel {loss_rel:.3e}), "
+        f"largest gradient difference {worst:.3e} of max abs ({name})")
+    require(loss_rel <= TRAIN_LOSS_REL_TOL, ("resume loss", la, lb))
+    require(worst <= TRAIN_GRAD_REL_TOL, ("resume grads", worst, name))
+    del fresh, grads_a, grads_b
+    shutil.rmtree(root)
+
+    vstate, vstep = make_vae_trainer(dev, seed=0, dtype=torch.bfloat16)
+    vgen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.rand((VAE_BATCH, VAE_IMAGE, VAE_IMAGE, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)) * 2 - 1
+    vstate, _, _ = vstep(vstate, images, generator=vgen)
+    vck = TrainCheckpointer(os.path.join(SURFACE_DIR, "vae"), max_to_keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vpath = vck.save(vstate.step, vstate, [vgen])
+    vwrite_s = time.perf_counter() - t0
+    vbytes = dir_bytes(vpath)
+    vfresh, _ = make_vae_trainer(dev, seed=3, dtype=torch.bfloat16)
+    vfresh_gen = torch.Generator(device=dev).manual_seed(9)
+    t0 = time.perf_counter()
+    vfresh = vck.restore(vfresh, [vfresh_gen])
+    torch.cuda.synchronize()
+    vread_s = time.perf_counter() - t0
+    require(vfresh.step == vstate.step == 1, vfresh.step)
+    require_bitwise(vstate, vfresh, "VAE resume")
+    require(torch.equal(vgen.get_state(), vfresh_gen.get_state()), "VAE generator state")
+    factored = sum(r is not None for r in vstate.opt_state_vae.v_row)
+    log(f"vae resume: {vbytes} bytes, write {vwrite_s:.3f} s, read {vread_s:.3f} s, "
+        f"{factored} factored Adafactor tensors; bitwise")
+    shutil.rmtree(os.path.join(SURFACE_DIR, "vae"))
+    return dict(ckpt_bytes=nbytes, write_s=write_s, read_s=read_s,
+                next_loss_rel=loss_rel, next_grad_rel=worst, next_grad_rel_name=name,
+                vae_ckpt_bytes=vbytes, vae_write_s=vwrite_s, vae_read_s=vread_s,
+                vae_factored=factored)
+
+
+def memory_marks(unet, marks: dict) -> list:
+    """Hooks that record, for a train step of `unet`, the memory its
+    forward leaves allocated for the backward ("saved", bytes) and the
+    peak of forward and backward above the forward's start ("fwd_bwd_peak",
+    read when AdamW.apply begins). Returns the undo callables."""
+    from ldm_image_generator_tpu_torch.train import steps as tsteps
+
+    def pre(mod, args):
+        marks["start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def post(mod, args, out):
+        marks["saved"] = torch.cuda.memory_allocated() - marks["start"]
+
+    apply = tsteps.AdamW.apply
+
+    def measured_apply(self, *a, **k):
+        marks["fwd_bwd_peak"] = torch.cuda.max_memory_allocated() - marks["start"]
+        return apply(self, *a, **k)
+
+    tsteps.AdamW.apply = measured_apply
+    hooks = [unet.register_forward_pre_hook(pre), unet.register_forward_hook(post)]
+    return [h.remove for h in hooks] + [lambda: setattr(tsteps.AdamW, "apply", apply)]
+
+
+def phase_remat(dev) -> dict:
+    """14.3: one bf16 B=8 conditional step with remat=True against the
+    same step without it, from the same weights and draws: launches, the
+    loss equal, gradients within TRAIN_GRAD_REL_TOL (largest reported),
+    and the memory the forward keeps for the backward lower with remat;
+    REMAT_STEPS timed steps of each with their peak above the memory
+    they started with; then one step at REMAT_PEAK_BATCH, whose peak of
+    forward and backward must be lower with remat (see memory_marks)."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+
+    cfg = UNetConfig(num_classes=COND_CLASSES)
+    x = torch.randn((TRAIN_BATCH, 32, 32, 8), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    labels = cond_labels(dev)
+    out = {}
+    for name, remat in (("plain", False), ("remat", True)):
+        state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=False,
+                                   cfg=dataclasses.replace(cfg, remat=remat))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        marks = {}
+        undo = memory_marks(state.params, marks)
+        try:
+            state, m = step(state, x, generator=gen, labels=labels)
+        finally:
+            for u in undo:
+                u()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        grads = grads_of(state.params)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            state, _ = step(state, x, generator=gen, labels=labels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(loss=m["loss"].item(), launches=counts, grads=grads,
+                         saved_gib=marks["saved"] / 2 ** 30,
+                         fwd_bwd_peak_gib=marks["fwd_bwd_peak"] / 2 ** 30,
+                         step_s=dt / REMAT_STEPS, peak_gib=peak / 2 ** 30,
+                         step_peak_gib=(peak - start) / 2 ** 30)
+        prof = profile_fn(lambda: step(state, x, generator=gen, labels=labels))
+        out[name]["device_busy_ms"] = prof["device_busy_ms"]
+        big = torch.randn((REMAT_PEAK_BATCH, 32, 32, 8), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(4))
+        big_marks = {}
+        undo = memory_marks(state.params, big_marks)
+        try:
+            step(state, big, generator=gen,
+                 labels=torch.arange(REMAT_PEAK_BATCH, device=dev) % COND_CLASSES)
+        finally:
+            for u in undo:
+                u()
+        out[name]["big_saved_gib"] = big_marks["saved"] / 2 ** 30
+        out[name]["big_fwd_bwd_peak_gib"] = big_marks["fwd_bwd_peak"] / 2 ** 30
+        del state, step, big
+        torch.cuda.empty_cache()
+    plain, remat = out["plain"], out["remat"]
+    log("remat launches", json.dumps(remat["launches"]))
+    require(plain["launches"] == TRAIN_LAUNCHES, plain["launches"])
+    require(remat["launches"] == REMAT_LAUNCHES, remat["launches"])
+    require(remat["loss"] == plain["loss"], (remat["loss"], plain["loss"]))
+    worst, name = grad_rel(plain.pop("grads"), remat.pop("grads"))
+    log(f"remat: loss {remat['loss']:.8f} (equal), largest gradient difference "
+        f"{worst:.3e} of max abs ({name}); step {plain['step_s']:.4f} -> "
+        f"{remat['step_s']:.4f} s, kept for the backward "
+        f"{plain['saved_gib']:.3f} -> {remat['saved_gib']:.3f} GiB, forward and "
+        f"backward peak {plain['fwd_bwd_peak_gib']:.3f} -> "
+        f"{remat['fwd_bwd_peak_gib']:.3f} GiB above the forward's start (at "
+        f"B={REMAT_PEAK_BATCH}: kept {plain['big_saved_gib']:.3f} -> "
+        f"{remat['big_saved_gib']:.3f}, peak {plain['big_fwd_bwd_peak_gib']:.3f} -> "
+        f"{remat['big_fwd_bwd_peak_gib']:.3f} GiB), step "
+        f"peak {plain['step_peak_gib']:.3f} -> {remat['step_peak_gib']:.3f} GiB "
+        f"above the step's start (peak {plain['peak_gib']:.3f} -> "
+        f"{remat['peak_gib']:.3f} GiB), device busy {plain['device_busy_ms']:.3f} "
+        f"-> {remat['device_busy_ms']:.3f} ms")
+    require(worst <= TRAIN_GRAD_REL_TOL, ("remat grads", worst, name))
+    for key in ("saved_gib", "big_fwd_bwd_peak_gib"):
+        require(remat[key] < plain[key], (key, remat[key], plain[key]))
+    return dict(plain=plain, remat=remat, grad_rel=worst, grad_rel_name=name)
+
+
+class SeededLatents:
+    """n seeded 32x32x8 latents in memory (numpy, as the trainer's
+    dataset serves them) with labels i % COND_CLASSES."""
+
+    def __init__(self, n: int, seed: int):
+        import numpy as np
+
+        self.items = np.random.default_rng(seed).normal(
+            size=(n, 32, 32, 8)).astype(np.float32)
+        self.labels = [i % COND_CLASSES for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def phase_run_loop(dev) -> dict:
+    """14.5: cli/train_ldm.train_loop on in-memory seeded latents: RUN_STEPS
+    steps at --fused-steps RUN_FUSED --save-every RUN_SAVE_EVERY
+    --val-every RUN_VAL_EVERY --val-batches RUN_VAL_BATCHES. The save
+    cadence is the JAX trainer's, on the batch index (after the first
+    group and after batch 7, and at the end: steps 2, 8 and 12; RUN_KEEP
+    kept); JSON records at the logger's cadence; two validations with
+    exact launches."""
+    import io
+    import shutil
+
+    from ldm_image_generator_tpu_torch.cli.train_ldm import train_loop
+    from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
+    from ldm_image_generator_tpu_torch.convert import load_flax_file, save_flax_file
+    from ldm_image_generator_tpu_torch.data.loader import BatchLoader
+    from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.train.eval import Validator
+    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from ldm_image_generator_tpu_torch.utils.metrics import MetricLogger
+
+    cfg = UNetConfig(num_classes=COND_CLASSES)
+    state, step_fn = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, cfg=cfg)
+    unet = state.params
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step(state, item):
+        x, lb = item
+        return step_fn(state, torch.from_numpy(x).to(dev), generator=gen,
+                       labels=torch.from_numpy(lb).to(dev))
+
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    ck = TrainCheckpointer(os.path.join(SURFACE_DIR, "ck"), max_to_keep=RUN_KEEP)
+    mp = os.path.join(SURFACE_DIR, "ddpm.pt")
+    saves = []
+
+    def save_all(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_flax_file(state.params, mp)
+        save_flax_file(state.ema_params, mp + ".ema")
+        t1 = time.perf_counter()
+        ck.save(state.step, state, [gen])
+        saves.append(dict(step=state.step, files_s=t1 - t0,
+                          ckpt_s=time.perf_counter() - t1))
+
+    validator = Validator(SeededLatents(RUN_VAL_BATCHES * TRAIN_BATCH, seed=2), unet,
+                          make_schedule(DDPMConfig()), batch=TRAIN_BATCH,
+                          max_batches=RUN_VAL_BATCHES, num_t=VAL_NUM_T,
+                          dtype=torch.bfloat16)
+    validations = []
+    run_validator = validator.run
+
+    def counted_run(state):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = run_validator(state)
+        after = launch_counts()
+        validations.append(dict(res, step=state.step, s=time.perf_counter() - t0,
+                                launches={k: after[k] - before[k] for k in after}))
+        return res
+
+    validator.run = counted_run
+    stream = io.StringIO()
+    loader = BatchLoader(SeededLatents(RUN_STEPS * TRAIN_BATCH, seed=1), TRAIN_BATCH,
+                         with_labels=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_loop(state, step, loader, epochs=1, batch_size=TRAIN_BATCH,
+                       save_all=save_all, save_every=RUN_SAVE_EVERY,
+                       fused_steps=RUN_FUSED, validator=validator,
+                       val_every=RUN_VAL_EVERY,
+                       logger=MetricLogger(log_every=10, stream=stream))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    records = [json.loads(line) for line in stream.getvalue().splitlines()]
+    log("run loop records", json.dumps(records))
+    log("run loop saves", json.dumps(saves))
+    log("run loop validations", json.dumps(validations))
+    require(state.step == RUN_STEPS, state.step)
+    want = {k: v * RUN_STEPS + 2 * VAL_LAUNCHES[k] for k, v in TRAIN_LAUNCHES.items()}
+    require(counts == want, (counts, want))
+    require([v["step"] for v in validations] == [6, 12], validations)
+    for v in validations:
+        require(v["launches"] == VAL_LAUNCHES, v["launches"])
+        require(math.isfinite(v["val_loss"]) and math.isfinite(v["val_loss_ema"]), v)
+    train_recs = [r for r in records if "loss" in r]
+    require([r["step"] for r in train_recs] == [10], records)
+    require({"loss", "loss_gmax", "steps_per_s", "images_per_s"} <= set(train_recs[0]),
+            train_recs)
+    require([r["step"] for r in records if "val_loss" in r] == [6, 12], records)
+    require([s["step"] for s in saves] == [2, 8, 12], saves)
+    require(ck.steps() == [8, 12], ck.steps())
+    back = UNet(cfg, device=dev)
+    load_flax_file(back, mp)
+    require(all(torch.equal(p, q) for p, q in zip(back.parameters(), unet.parameters())),
+            "the parameter file reads back bitwise")
+    ema_back = UNet(cfg, device=dev)
+    load_flax_file(ema_back, mp + ".ema")
+    require(all(torch.equal(p, state.ema_params[n])
+                for n, p in ema_back.named_parameters()), "the EMA file reads back")
+    del back, ema_back
+    fresh, _ = make_trainer(dev, seed=9, dtype=torch.bfloat16, ema=True, cfg=cfg)
+    fresh_gen = torch.Generator(device=dev)
+    fresh = ck.restore(fresh, [fresh_gen])
+    require_bitwise(state, fresh, "the step-12 checkpoint")
+    require(torch.equal(fresh_gen.get_state(), gen.get_state()), "generator state")
+    older = torch.load(os.path.join(ck.path(8), "train_state.pt"), map_location="cpu",
+                       weights_only=True)
+    require(older["step"] == 8 and older["state"]["step"] == 8, older["step"])
+    del fresh, older
+    shutil.rmtree(SURFACE_DIR)
+    return dict(run_s=dt, steps=state.step, launches=counts, records=records,
+                saves=saves, validations=validations)
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1789,6 +2284,21 @@ def main(argv) -> int:
     vae = phase_vae_train(dev)
     kernels["vq"]["launches"] = vae["launches"]["vq"]
     vae_vs_cpu = phase_vae_card_vs_cpu(dev)
+    log(f"VAE training phases done at {time.perf_counter() - t_start:.1f} s")
+    cond_train, state, step, gen = phase_cond_train(dev)
+    resume = phase_resume(dev, state, step, gen)
+    del state, step, gen
+    torch.cuda.empty_cache()
+    cond_train_vs_cpu = phase_train_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))
+    remat = phase_remat(dev)
+    run_loop = phase_run_loop(dev)
+    log(f"training surface phases done at {time.perf_counter() - t_start:.1f} s")
+    surface_paths = {f"cond_train_{TRAIN_STEPS}_steps": cond_train["launches"],
+                     "remat_step": remat["remat"]["launches"],
+                     "validation": run_loop["validations"][0]["launches"]}
+    for kernel in ("ffn_block", "ffn_block_bwd", "window_mha", "window_mha_bwd"):
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in surface_paths.items() if c[kernel]})
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -1818,7 +2328,12 @@ def main(argv) -> int:
         "vae_train_peak_gib": vae["peak_gib"],
         "vae_train_device_busy_ms": vae["profile"]["device_busy_ms"],
         "vae_train_profiled_wall_ms": vae["profile"]["wall_ms"],
-        "vae_card_vs_cpu": vae_vs_cpu}}))
+        "vae_card_vs_cpu": vae_vs_cpu,
+        "cond_train": cond_train,
+        "cond_train_card_vs_cpu": cond_train_vs_cpu,
+        "remat": remat,
+        "resume": resume,
+        "run_loop": run_loop}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -9,12 +9,17 @@ that size), computes loss = recon * 10 + VQ reg + 0.1 * hinge adversarial
 and takes an Adafactor step on the encoder, decoder and codebook, then a
 hinge step on the discriminator, also Adafactor. Each model starts from
 its parameter file (-ep, -dp, -qp, -discp) where it exists, else from
-seeded random weights. The losses are printed every step, and every
---save-every batches the first reconstruction and the crop it was made
-from are written to the result dir as JPEGs; at the end (also after an
-interrupt) the four parameter files are written, each {"params": ...}
-as the JAX package's. Runs on `cuda` unless `-d cpu` is given; a CUDA
-request without a card raises.
+seeded random weights; --ckpt-dir resumes from the latest full training
+state there (both optimizers' states, the step and the generator; the
+port's own format, utils/checkpoint.py TrainCheckpointer). The losses go
+to stdout as JSON lines every 10 steps and are checked for NaN/Inf every
+50. Every --save-every batches the four parameter files are written,
+each {"params": ...} as the JAX package's (and a checkpoint to
+--ckpt-dir), with the first reconstruction and the crop it was made from
+as JPEGs in the result dir; at the end the files are written again, also
+after an interrupt or a SIGTERM, which ends the run after the step in
+progress. Runs on `cuda` unless `-d cpu` is given; a CUDA request
+without a card raises.
 """
 from __future__ import annotations
 
@@ -43,19 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--maxdata", default=-1, type=int)
     p.add_argument("--recon", default=10, type=float)
     p.add_argument("--save-every", default=100, type=int)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="full training-state checkpoints (resume from the "
+                        "latest step there)")
     p.add_argument("--config", default="default", choices=["default", "tiny"],
                    help="model size preset (tiny = test/debug scale)")
-    # flag of the JAX trainer whose path is not ported: refused below
-    p.add_argument("--ckpt-dir", default=None)
     return p
-
-
-def refusal(args):
-    """The message refusing an option this port does not run yet, naming
-    the ROADMAP item that brings it, or None."""
-    if args.ckpt_dir is not None:
-        return "--ckpt-dir is not ported yet: ROADMAP A7 (resume)"
-    return None
 
 
 def float_to_image(arr) -> np.ndarray:
@@ -72,9 +70,6 @@ def save_jpeg(img: np.ndarray, path: str) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    why = refusal(args)
-    if why:
-        raise SystemExit(why)
     import torch
     from torch import nn
 
@@ -99,6 +94,12 @@ def main(argv=None):
         make_optimizer,
         make_vae_train_step,
     )
+    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from ldm_image_generator_tpu_torch.utils.debug import (
+        GracefulShutdown,
+        assert_finite_metrics,
+    )
+    from ldm_image_generator_tpu_torch.utils.metrics import MetricLogger
 
     device = resolve_device(args.device)
     cfg, dcfg = VAEConfig(), DiscriminatorConfig()
@@ -125,29 +126,56 @@ def main(argv=None):
     state = VAETrainState(vae_params=vae, disc_params=disc,
                           opt_state_vae=tx_vae.init(list(vae.parameters())),
                           opt_state_disc=tx_d.init(list(disc.parameters())))
+    ckpt = None
+    if args.ckpt_dir:
+        try:
+            ckpt = TrainCheckpointer(args.ckpt_dir)
+        except ValueError as e:
+            raise SystemExit(e.args[0]) from e
+        restored = ckpt.restore(state, [gen])
+        if restored is not None:
+            state = restored
+            print(f"Resumed from step {state.step}")
     step_fn = make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
                                   disc, tx_vae, tx_d, weight_recon=args.recon,
                                   crop_size=crop, dtype=dtype)
     loader = BatchLoader(ds, args.batch)
+    logger = MetricLogger(log_every=10)
     os.makedirs(args.result, exist_ok=True)
+
+    def save_all(state):
+        for module, path in files:
+            save_flax_file(module, path)
+        saved = [path for _, path in files]
+        if ckpt is not None:
+            saved.append(ckpt.save(state.step, state, [gen]))
+        print("saved " + ", ".join(saved), flush=True)
+
+    shutdown = GracefulShutdown()
     try:
         for epoch in range(args.epoch):
-            print(f"Epoch #{epoch}")
+            print(f"Epoch #{epoch}", flush=True)
             for batch_idx, images in enumerate(loader):
                 state, metrics, (recon, cropped) = step_fn(
                     state, torch.from_numpy(images).to(device), generator=gen)
-                print(f"step {state.step} " + " ".join(
-                    f"{k} {v.item():.6f}" for k, v in metrics.items()))
+                logger.log(state.step, metrics, batch_size=args.batch)
+                if state.step % 50 == 0:
+                    assert_finite_metrics(metrics, state.step)
+                if shutdown.requested:
+                    print("SIGTERM received — saving and exiting", flush=True)
+                    raise KeyboardInterrupt
                 if batch_idx % args.save_every == 0:
+                    save_all(state)
                     for name, img in (("reconstructed", recon[0]),
                                       ("input", cropped[0])):
                         save_jpeg(float_to_image(img.float().cpu().numpy()),
                                   os.path.join(args.result,
                                                f"{batch_idx}_{name}.jpg"))
+    except KeyboardInterrupt:
+        print("interrupted — saving", flush=True)
     finally:
-        for module, path in files:
-            save_flax_file(module, path)
-        print("saved " + ", ".join(path for _, path in files))
+        shutdown.restore()
+        save_all(state)
     return state
 
 

@@ -8,14 +8,15 @@ preprocessed as the JAX package's PIL path does (aspect-preserving
 NEAREST resize, GaussianBlur(1) when downscaling, a centered black
 square pad, x / 127.5 - 1 as float32). Images, or the latents the given
 encoder makes of them in batches, are kept in memory as float16, as the
-JAX package's cache stores them. The content-addressed disk cache and
-the native decoder are not ported yet.
+JAX package's cache stores them. Each dataset's `labels` give every
+item's source-dir index. The content-addressed disk cache and the
+native decoder are not ported yet.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -23,14 +24,18 @@ import numpy as np
 ENCODE_BATCH = 16
 
 
-def find_images(source_dirs: Sequence[str]) -> List[str]:
-    """The .jpg files under each dir (recursively) and its top-level .png
-    files, dir by dir."""
+def find_images(source_dirs: Sequence[str]) -> Tuple[List[str], List[int]]:
+    """(paths, labels): the .jpg files under each dir (recursively) and
+    its top-level .png files, dir by dir; labels[i] is the index of the
+    dir paths[i] came from (the class id of dir-per-class conditioning)."""
     paths: List[str] = []
-    for d in source_dirs:
-        paths += glob.glob(os.path.join(d, "**/*.jpg"), recursive=True)
-        paths += glob.glob(os.path.join(d, "*.png"))
-    return paths
+    labels: List[int] = []
+    for di, d in enumerate(source_dirs):
+        found = glob.glob(os.path.join(d, "**/*.jpg"), recursive=True)
+        found += glob.glob(os.path.join(d, "*.png"))
+        paths += found
+        labels += [di] * len(found)
+    return paths, labels
 
 
 def preprocess_image(path, size: int) -> np.ndarray:
@@ -62,7 +67,7 @@ class ImageDataset:
 
     def __init__(self, source_dirs: Sequence[str], size: int = 512,
                  max_len: int = -1):
-        self.paths = _paths(source_dirs, max_len)
+        self.paths, self.labels = _paths(source_dirs, max_len)
         self.size = size
         self.images = np.stack([preprocess_image(p, size).astype(np.float16)
                                 for p in self.paths])
@@ -74,11 +79,14 @@ class ImageDataset:
         return self.images[index]
 
 
-def _paths(source_dirs: Sequence[str], max_len: int) -> List[str]:
-    paths = find_images(source_dirs)
+def _paths(source_dirs: Sequence[str], max_len: int):
+    """find_images' (paths, labels), both cut to max_len (> 0)."""
+    paths, labels = find_images(source_dirs)
     if not paths:
         raise ValueError(f"no .jpg/.png images found under {list(source_dirs)}")
-    return paths[:max_len] if max_len and max_len > 0 else paths
+    if max_len and max_len > 0:
+        return paths[:max_len], labels[:max_len]
+    return paths, labels
 
 
 class LatentImageDataset:
@@ -88,7 +96,7 @@ class LatentImageDataset:
 
     def __init__(self, source_dirs: Sequence[str], encode_fn: Callable,
                  size: int = 512, max_len: int = -1):
-        self.paths = _paths(source_dirs, max_len)
+        self.paths, self.labels = _paths(source_dirs, max_len)
         chunks = []
         for start in range(0, len(self.paths), ENCODE_BATCH):
             imgs = np.stack([preprocess_image(p, size)

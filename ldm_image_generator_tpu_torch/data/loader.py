@@ -1,27 +1,91 @@
-"""A minimal batch loader, the torch counterpart of BatchLoader in
-ldm_image_generator_tpu/data/loader.py: the indices shuffled every epoch
-(numpy RandomState seeded 0, as the JAX package's default) and full
-batches only (the trailing partial batch is dropped). The threaded
-prefetch, host sharding and labels are not ported yet."""
+"""Batched, shuffled loader with a background prefetch thread: the torch
+counterpart of BatchLoader in ldm_image_generator_tpu/data/loader.py.
+
+The indices are shuffled every epoch by numpy's RandomState(seed), so the
+order is the JAX package's; the trailing partial batch is dropped (the
+JAX loader's defaults). A daemon thread makes up to `prefetch` batches
+ahead; it stops when the consumer stops iterating, and an exception
+raised while making a batch reaches the consumer. with_labels=True
+yields (batch, int32 labels) from the dataset's per-source-dir labels.
+Host sharding is not ported yet (ROADMAP A13).
+"""
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
 
+# how long the producer waits on a full queue before it checks whether
+# the consumer has stopped
+_PUT_POLL_S = 0.1
+_DONE = object()
+
+
+class _Failed:
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
 
 class BatchLoader:
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 2,
+                 with_labels: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.rng = np.random.RandomState(0)
+        self.rng = np.random.RandomState(seed)
+        self.prefetch = prefetch
+        self.with_labels = with_labels
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
 
-    def __iter__(self) -> Iterator[np.ndarray]:
+    def _make(self, sl):
+        batch = np.stack([np.asarray(self.dataset[int(i)]) for i in sl])
+        if self.with_labels:
+            labels = np.asarray([self.dataset.labels[int(i)] for i in sl],
+                                dtype=np.int32)
+            return batch, labels
+        return batch
+
+    def __iter__(self) -> Iterator:
         idx = np.arange(len(self.dataset))
         self.rng.shuffle(idx)
-        for b in range(len(self)):
-            sl = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield np.stack([self.dataset[int(i)] for i in sl])
+        n_batches = len(self)
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=_PUT_POLL_S)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for b in range(n_batches):
+                    if stop.is_set():
+                        return
+                    sl = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                    if not put(self._make(sl)):
+                        return
+            except Exception as e:  # handed to the consumer, which raises it
+                put(_Failed(e))
+                return
+            put(_DONE)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _DONE:
+                    return
+                if isinstance(item, _Failed):
+                    raise item.exc
+                yield item
+        finally:
+            stop.set()

@@ -34,6 +34,15 @@ one runs only enc_stage_0, the add and dec_stage_0 in its place. The
 routing plan is drawn at full length either way, so those two stages
 route as the full forward would under the same plan.
 
+remat (``remat=True``, as the JAX package's ``nn.remat`` per stack): each
+SwinStack of a forward with grad mode on runs under
+``torch.utils.checkpoint`` (non-reentrant), keeping only its input and
+recomputing its activations in the backward; the kernels launch again
+for the recompute. The routing plan and the stochastic-depth gates are
+drawn before any stack runs, so no draw is repeated (checkpoint restores
+the global RNG, not an explicit generator). ``collect_film`` (FiLM towers
+only) is not rematerialized.
+
 int8 FFN weights (``ffn_quant='int8'``, as the JAX package's UNetConfig):
 every block's MoE FFN runs the kernels' int8 routes, with grad mode off;
 ``prepare_ffn`` makes the int8 weights ahead of a sampling run.
@@ -44,6 +53,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ldm_image_generator_tpu_torch.config import UNetConfig, resolve_device
 from ldm_image_generator_tpu_torch.models.layers import (
@@ -62,7 +72,6 @@ def refusal(cfg: UNetConfig):
     todo = [
         (cfg.experts_per_call != 2, "experts_per_call != 2: A12"),
         (cfg.ablate_branches, "ablate_branches: A12"),
-        (cfg.remat, "remat=True (rematerialized stacks): A7"),
         (cfg.ffn_backend not in ("auto", "pallas"),
          f"ffn_backend={cfg.ffn_backend!r} (the JAX package's XLA "
          "composition, which rounds bf16 at other points than the kernels)"),
@@ -279,11 +288,20 @@ class UNet(nn.Module):
         routes = self.routing(moe_plan, generator)
         gates = None if deterministic else self.sd_gates(sd_gates, generator)
         cond = self.condition_tokens(condition, dt)
-        run = lambda name, x: getattr(self, name)(
-            x, t, film=None if film is None else film[name],
-            expert_ids=None if routes is None else routes[name],
-            gates=None if gates is None else gates[name],
-            cond=cond if name.startswith("dec") else None)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+
+        def run(name, x):
+            kwargs = dict(film=None if film is None else film[name],
+                          expert_ids=None if routes is None else routes[name],
+                          gates=None if gates is None else gates[name],
+                          cond=cond if name.startswith("dec") else None)
+            stack = getattr(self, name)
+            if remat:
+                # every draw (routing, gates) was made above: the recompute
+                # replays the stack on the same ids and gates
+                return checkpoint(stack, x, t, use_reentrant=False, **kwargs)
+            return stack(x, t, **kwargs)
+
         x = self.encoder_first(x.to(dt))
         deep_out = None
         if deep is not None:

@@ -381,12 +381,21 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
                         prediction: str = "eps",
                         ema_decay: Optional[float] = None,
                         min_snr_gamma: Optional[float] = None,
-                        dtype: Optional[torch.dtype] = None) -> Callable:
+                        dtype: Optional[torch.dtype] = None,
+                        num_classes: int = 0,
+                        cond_drop: float = 0.1) -> Callable:
     """Returns step(state, latents, generator=None, t=None, eps=None,
-    moe_plan=None, sd_gates=None) -> (state, {"loss": scalar tensor}).
+    moe_plan=None, sd_gates=None, labels=None, cond=None) -> (state,
+    {"loss": scalar tensor}).
 
-    state.params must be `unet`. The generator draws t, the noise, the routing
-    plan and the stochastic-depth gates, in that order, unless given. The
+    state.params must be `unet`. Class-conditional training (num_classes
+    > 0 and int labels [B]): each label is replaced by the null class
+    num_classes with probability cond_drop (one uniform per label, drawn
+    first, and only when labels are given, so an unconditional step
+    draws what it always did), and the UNet conditions on the result;
+    `cond` injects those class ids in place of labels and the draw. The
+    generator draws the drop, t, the noise, the routing plan and the
+    stochastic-depth gates, in that order, unless given. The
     loss is value-and-grad of ddpm_loss; every parameter then holds a
     gradient tensor (zeros where the loss does not reach it, as jax.grad
     gives), the optimizer updates in place, and the EMA follows with
@@ -396,17 +405,22 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
     def step(state: LDMTrainState, x: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              t: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None,
-             moe_plan=None, sd_gates=None):
+             moe_plan=None, sd_gates=None, labels=None, cond=None):
         if state.params is not unet:
             raise ValueError("state.params is not the UNet this step was made for")
         x = x.float()
+        if cond is None and labels is not None and num_classes > 0:
+            labels = torch.as_tensor(labels, device=x.device).long()
+            dev = generator.device if generator is not None else x.device
+            drop = torch.rand(labels.shape, generator=generator, device=dev) < cond_drop
+            cond = torch.where(drop.to(x.device), num_classes, labels)
         model = unet
         params = list(model.parameters())
         for p in params:
             p.grad = None
 
         def denoise(x_t, tt):
-            return model(x_t, tt, moe_plan=moe_plan, generator=generator,
+            return model(x_t, tt, cond, moe_plan=moe_plan, generator=generator,
                          sd_gates=sd_gates, deterministic=not stochastic_depth,
                          dtype=dtype).float()
 

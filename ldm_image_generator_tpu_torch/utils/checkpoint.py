@@ -16,6 +16,11 @@ copy per array); a bfloat16 leaf (numpy has no such type) loads as a
 torch.bfloat16 tensor over its raw bytes. ``save_params`` takes numpy
 arrays and torch tensors (bfloat16 included) and streams each array's
 bytes to the file.
+
+Full training states (``TrainCheckpointer``, for the trainers'
+--ckpt-dir) are the port's own format: one directory per step holding a
+torch.save file of plain dicts, lists and tensors, read back with
+weights_only=True.
 """
 from __future__ import annotations
 
@@ -293,3 +298,170 @@ def save_params(path: str, tree: Mapping[str, Any]) -> None:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+# -- training state ------------------------------------------------------
+
+# the file of a step directory of TrainCheckpointer
+STATE_FILE = "train_state.pt"
+# what orbax (the JAX package's TrainCheckpointer) leaves in a directory
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt", "default")
+
+
+def state_tree(obj):
+    """A train state as torch.load(weights_only=True) reads it back: a
+    module -> {parameter name: tensor}, a dataclass -> {field: ...},
+    lists, dicts, tensors, ints and None as they are."""
+    import dataclasses
+
+    from torch import nn
+
+    if isinstance(obj, nn.Module):
+        return {n: p.detach() for n, p in obj.named_parameters()}
+    if dataclasses.is_dataclass(obj):
+        return {f.name: state_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, list):
+        return [state_tree(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: state_tree(v) for k, v in obj.items()}
+    if obj is None or isinstance(obj, (torch.Tensor, int)):
+        return obj
+    raise TypeError(f"a train state cannot hold a {type(obj).__name__}")
+
+
+def load_state_tree(template, tree, where: str = "state"):
+    """`template` (a train state built as the run builds it) with the
+    values of `tree` (state_tree's form): tensors and parameters are
+    copied in place, bitwise, on the template's device; ints are taken
+    from the tree. Any difference of structure, name or shape
+    raises."""
+    import dataclasses
+
+    from torch import nn
+
+    if isinstance(template, nn.Module):
+        params = dict(template.named_parameters())
+        if not isinstance(tree, dict) or set(tree) != set(params):
+            raise ValueError(f"{where}: the checkpoint's parameter names differ "
+                             "from the model's")
+        with torch.no_grad():
+            for n, p in params.items():
+                _copy_into(p, tree[n], f"{where}.{n}")
+        return template
+    if dataclasses.is_dataclass(template):
+        names = [f.name for f in dataclasses.fields(template)]
+        if not isinstance(tree, dict) or set(tree) != set(names):
+            raise ValueError(f"{where}: the checkpoint holds another state")
+        return dataclasses.replace(template, **{
+            n: load_state_tree(getattr(template, n), tree[n], f"{where}.{n}")
+            for n in names})
+    if isinstance(template, list):
+        if not isinstance(tree, list) or len(tree) != len(template):
+            raise ValueError(f"{where}: the checkpoint's list differs in length")
+        return [load_state_tree(t, v, f"{where}[{i}]")
+                for i, (t, v) in enumerate(zip(template, tree))]
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            raise ValueError(f"{where}: the checkpoint's keys differ")
+        return {k: load_state_tree(template[k], tree[k], f"{where}.{k}")
+                for k in template}
+    if isinstance(template, torch.Tensor):
+        with torch.no_grad():
+            _copy_into(template, tree, where)
+        return template
+    if template is None or isinstance(template, int):
+        if (template is None) != (tree is None):
+            raise ValueError(f"{where}: None in one of the state and the checkpoint")
+        return tree
+    raise TypeError(f"{where}: a train state cannot hold a {type(template).__name__}")
+
+
+def _copy_into(dst: torch.Tensor, src, where: str) -> None:
+    if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
+            or src.dtype != dst.dtype:
+        raise ValueError(f"{where}: the checkpoint's tensor differs in shape or "
+                         "dtype")
+    dst.copy_(src)
+
+
+class TrainCheckpointer:
+    """Step-numbered training-state checkpoints in the port's own format
+    (the JAX package keeps orbax directories; this package imports no
+    orbax and resumes only from its own).
+
+    directory/<step>/train_state.pt holds {"step", "state", "generators"}:
+    the state as state_tree makes it (parameters, optimizer state, EMA),
+    and the get_state() of each torch.Generator the run draws from. A step
+    is written under a temporary name and renamed into place, so a crash
+    leaves no half checkpoint that latest_step would pick; the oldest
+    steps beyond max_to_keep are deleted after each save."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+        for name in os.listdir(self.directory):
+            if name in ORBAX_MARKERS or (
+                    name.isdigit() and not os.path.exists(
+                        os.path.join(self.directory, name, STATE_FILE))):
+                raise ValueError(
+                    f"{self.directory} holds a checkpoint this package did not "
+                    f"write ({name!r}; orbax writes such directories): the "
+                    "PyTorch port resumes only from its own checkpoints")
+
+    def steps(self) -> list:
+        return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit())
+
+    def latest_step(self):
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, state, generators=()) -> str:
+        """Write `state` and the generators' states as step `step`
+        (replacing an earlier checkpoint of that step); returns its
+        directory."""
+        import shutil
+
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        try:
+            with open(os.path.join(tmp, STATE_FILE), "wb") as f:
+                torch.save({"step": int(step), "state": state_tree(state),
+                            "generators": [g.get_state() for g in generators]}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            final = self.path(step)
+            if os.path.exists(final):
+                old = os.path.join(self.directory, f".old-{step}-{os.getpid()}")
+                os.rename(final, old)
+                os.rename(tmp, final)
+                shutil.rmtree(old)
+            else:
+                os.rename(tmp, final)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for old_step in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.path(old_step))
+        return final
+
+    def restore(self, state, generators=(), step=None):
+        """`state` (built as the run builds it) holding the checkpoint of
+        `step` (default: the latest), with each generator's state set;
+        None when the directory holds no checkpoint."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        data = torch.load(os.path.join(self.path(step), STATE_FILE),
+                          map_location="cpu", weights_only=True)
+        if len(data["generators"]) != len(generators):
+            raise ValueError(f"checkpoint {step} holds {len(data['generators'])} "
+                             f"generator states, the run draws from {len(generators)}")
+        state = load_state_tree(state, data["state"])
+        for g, s in zip(generators, data["generators"]):
+            g.set_state(s)
+        return state

@@ -90,6 +90,7 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.config",
     "ldm_image_generator_tpu_torch.convert",
     "ldm_image_generator_tpu_torch.pipelines",
+    "ldm_image_generator_tpu_torch.cli.common",
     "ldm_image_generator_tpu_torch.cli.sample_ab",
     "ldm_image_generator_tpu_torch.cli.sample_ldm",
     "ldm_image_generator_tpu_torch.cli.train_ldm",
@@ -111,8 +112,11 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.ops.norm",
     "ldm_image_generator_tpu_torch.ops.sinusoidal",
     "ldm_image_generator_tpu_torch.ops.window",
+    "ldm_image_generator_tpu_torch.train.eval",
     "ldm_image_generator_tpu_torch.train.steps",
     "ldm_image_generator_tpu_torch.utils.checkpoint",
+    "ldm_image_generator_tpu_torch.utils.debug",
+    "ldm_image_generator_tpu_torch.utils.metrics",
 ]
 
 
@@ -120,8 +124,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n in ('jax', 'flax', 'optax', 'msgpack')\n"
-        "             or n.startswith(('jax.', 'flax.', 'optax.', 'msgpack.'))\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'flax', 'optax', 'orbax', 'msgpack')\n"
+        "             or n.startswith(('jax.', 'flax.', 'optax.', 'orbax.', 'msgpack.'))\n"
         "             or n == 'ldm_image_generator_tpu'\n"
         "             or n.startswith('ldm_image_generator_tpu.'))\n"
         "assert not bad, bad\n"

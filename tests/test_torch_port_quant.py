@@ -305,14 +305,15 @@ def test_pipeline_leaves_the_callers_modules_unchanged():
     assert unet.dec_stage_0.block_0.ffn.gwa.dtype == torch.float32
 
 
-@pytest.mark.parametrize("field,value", [("remat", True), ("ffn_backend", "xla"),
+@pytest.mark.parametrize("field,value", [("ffn_backend", "xla"),
                                          ("attention_backend", "xla")])
 def test_unet_refuses_config_fields_it_would_ignore(field, value):
     """Fields the port accepted and ignored raise until they are ported;
-    the default config (which the trainers' CLIs build), int8 and a
-    class-conditional one build."""
+    the default config (which the trainers' CLIs build), int8, a
+    class-conditional one and remat build."""
     with pytest.raises(NotImplementedError, match=field):
         UNet(dataclasses.replace(UNetConfig(), **{field: value}), device="meta")
     for cfg in (UNetConfig(), UNetConfig(ffn_quant="int8"), UNetConfig(num_classes=3),
+                UNetConfig(remat=True),
                 UNetConfig(ffn_backend="pallas", attention_backend="pallas")):
         UNet(cfg, device="meta")

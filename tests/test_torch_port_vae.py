@@ -5,6 +5,7 @@ loss and gradients, the discriminator and feature matching, vae_loss,
 Adafactor against optax, two VAE train steps, the converters, the image
 dataset and the trainer CLI."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -560,7 +561,7 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
     imgs = _images(tmp_path)
     state = train_vae.main([imgs, "--config", "tiny", "-d", "cpu", "-s", "32",
-                            "-b", "2", "-e", "1", "-r", "out", "--save-every", "1"])
+                            "-b", "2", "-e", "5", "-r", "out", "--save-every", "1"])
     out = capsys.readouterr().out
     assert "dataset: 4 images at 32px" in out
     assert "saved ./vae_encoder.pt, ./vae_decoder.pt, vae_quantizer.pt, " \
@@ -568,12 +569,13 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     for name in ("vae_encoder.pt", "vae_decoder.pt", "vae_quantizer.pt",
                  "discriminator.pt"):
         assert (tmp_path / name).stat().st_size > 0
-    lines = [line.split() for line in out.splitlines() if line.startswith("step ")]
-    assert len(lines) == 2 and state.step == 2
-    for words in lines:
-        metrics = dict(zip(words[2::2], map(float, words[3::2])))
-        assert set(metrics) == {"loss", "recon", "reg", "adv", "d_loss"}
-        assert np.isfinite(list(metrics.values())).all()
+    # the JSON metric lines come every 10 steps
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert [r["step"] for r in records] == [10] and state.step == 10
+    metrics = {k: v for k, v in records[0].items()
+               if k not in ("step", "time", "steps_per_s", "images_per_s")}
+    assert set(metrics) == {"loss", "recon", "reg", "adv", "d_loss"}
+    assert np.isfinite(list(metrics.values())).all()
     for i in range(2):
         for name in ("reconstructed", "input"):
             assert (tmp_path / "out" / f"{i}_{name}.jpg").stat().st_size > 0
@@ -582,12 +584,12 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt-dir", "ck"], "A7"), (["-ep", "enc.pt"], "A12"),
+    (["-ep", "enc.pt"], "A12"),
     (["-dp", "enc.pt"], "A12"), (["-qp", "enc.pt"], "A12"),
     (["-discp", "enc.pt"], "A12")])
 def test_train_vae_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
-    """--ckpt-dir, and a reference (torch pickle) file for any of the four
-    models: the port reads the JAX package's parameter files."""
+    """A reference (torch pickle) file for any of the four models: the
+    port reads the JAX package's parameter files."""
     from ldm_image_generator_tpu_torch.cli import train_vae
 
     monkeypatch.chdir(tmp_path)
