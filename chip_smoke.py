@@ -137,6 +137,31 @@ no result line):
      steps 6 and 12 with finite val_loss and val_loss_ema and exactly
      2 x 8 x 2 x (36 ffn_block + 8 window MHA) launches each (parameters
      and EMA, 8 grid points, 2 batches).
+  15. the pixel DDPM and the reference's torch files at full width: the
+     default UNet with input_channels=3 at 32px (its maps are the latent
+     path's). Phase 2 holds ffn_block, ffn_block_bwd and window MHA both
+     ways at every call shape of a B=16 train step (workloads.train_calls
+     (16)) as at its other shapes, each call rerun bitwise and once more
+     between sentinel guards, with its per-step time and bound. (1) a
+     warm-up and 5 train steps at B=16 (seeded images in [-1, 1], bf16
+     compute, RAdam 1e-4, EMA 0.999; the 6th step in all RAdam's first
+     rectified one): exactly 36 ffn_block, 36 ffn_block_bwd, 8 window MHA
+     and 8 backward per step, finite losses, parameters and EMA, a
+     gradient on every parameter; steps/s, peak memory and a profile of
+     one step; the trainer's save writes the parameter and EMA files.
+     (2) cli/sample_ddpm on that file (-n 2 -t 20): the file's weights
+     bitwise in its UNet, exactly 720 block_core and 160 window MHA per
+     image, two 32px PNGs; then DDPMPipeline at B=1 (DDIM-20), B=4 (720
+     ffn_block), DPM-Solver++ 10 steps (360 + 80) and DeepCache interval
+     2 (420 + 100), images/s and device busy each. (3) the DDPM UNet
+     written with torch_export.export_ddpm and read back through
+     sample_ddpm's loader: every parameter bitwise, and its B=1 sample
+     bitwise the in-memory weights'; cli/convert .pt -> msgpack ->
+     --to-torch bitwise; the same round trip for the default VAE's four
+     models through the trainers' loader; write and read seconds. (4)
+     phase 7 on the 3-channel UNet with RAdam, then RAdam on the card
+     over the CPU's gradients for 7 steps (1-5 unrectified, 6-7
+     rectified) against the CPU's, at phase 9's per-element tolerance.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -192,8 +217,18 @@ TRAIN_GRAD_REL_TOL = 1e-3
 FLIP_REL_TOL = 2e-2
 FLIP_COLS = 6
 FLIP_TENSORS = 12
+# ...and on the pixel DDPM's 3-channel UNet (phase 15, B=4, these seeds),
+# measured on the H100: 15 of 792 gradients touched (seven units'
+# weight and bias, one tensor downstream of a flip in its block), each
+# in 1-2 columns, the worst at 1.15e-2 of its max abs; a unit that may
+# have flipped is as likely there as on the latent UNet (8152 of 123648
+# units against 8158)
+DDPM_FLIP_TENSORS = 18
 TRAIN_BATCH = 8
 TRAIN_STEPS = 5
+# phase 15: the pixel DDPM trainer's default batch and image side
+DDPM_BATCH = 16
+DDPM_SIZE = 32
 # launches per train step at B=8 on the default UNet
 TRAIN_LAUNCHES = dict(block_core=0, ffn_block=36, ffn_block_bwd=36,
                       window_mha=8, window_mha_bwd=8, vq=0, block_core_int8=0,
@@ -386,7 +421,10 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
         (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8 + [
-        (c, "split-64") for c in cross64]
+        (c, "split-64") for c in cross64] + [
+        # phase 15: every call of a pixel DDPM train step at B=16 (its maps
+        # are the latent path's: 32/16/8/4)
+        (c, "ddpm_train") for c in train_calls(DDPM_BATCH)]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -416,7 +454,8 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
-            if call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq"):
+            if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq")
+                    or tag == "ddpm_train"):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -460,7 +499,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # window MHA and the FFN kernels per step of every path they are on:
     # kernel, library (where there is one), bound
     for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
-        for tag in ("b1", "b4", "train"):
+        for tag in ("b1", "b4", "train", "ddpm_train"):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
@@ -507,6 +546,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 f"(bound/kernel {bms / ms:.4f}); bf16 weights {fp_ms:.4f} ms, bound "
                 f"{step(bf16, 'bound_ms'):.5f} ms (int8/bf16 {ms / fp_ms:.3f})")
     summary = {}
+    ddpm_rows = [r for r in rows if r["tag"] == "ddpm_train"]
     for name in fns:
         main = [r for r in rows if r["kernel"] == name and r["tag"] == main_tag[name]]
         per_step = lambda key: sum(r[key] * r["per_step"] for r in main)
@@ -525,6 +565,15 @@ def phase_kernels(dev, reps: int) -> dict:
             library_ms=None if None in libs else per_step("library_ms"),
             per=f"one {step} of its path: sum over its call shapes of calls "
                 "x cold-L2 ms per call, bf16")
+        ddpm = [r for r in ddpm_rows if r["kernel"] == name]
+        if ddpm:
+            summary[name]["ddpm_train_step"] = dict(
+                batch=DDPM_BATCH, **{k: sum(r[k] * r["per_step"] for r in ddpm)
+                                     for k in ("ms", "plain_ms", "bound_ms")},
+                max_abs_err=max(r["max_abs_err"] for r in ddpm),
+                max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in ddpm),
+                library_ms=(None if ddpm[0]["library_ms"] is None
+                            else sum(r["library_ms"] * r["per_step"] for r in ddpm)))
     return summary
 
 
@@ -830,10 +879,12 @@ def timed_samples(sample, batch: int, calls: int = 3) -> dict:
     return dict(sample_s=times, images_per_s=batch / (sum(times) / len(times)))
 
 
-def run_counted(sample, batch: int, want: dict, what: str) -> dict:
+def run_counted(sample, batch: int, want: dict, what: str, image: int = 256,
+                latent=(32, 32, 8)) -> dict:
     """Launch counts of one sample() call (counts set to 0 just before and
-    read just after), gated to equal `want`; uint8 images [batch, 256,
-    256, 3] and a finite [batch, 32, 32, 8] latent."""
+    read just after), gated to equal `want`; uint8 images [batch, image,
+    image, 3] and a finite [batch, *latent] latent (latent None: a
+    pixel-space sample, no latent)."""
     torch.cuda.synchronize()
     reset_launch_counts()
     img, z = sample()
@@ -843,18 +894,20 @@ def run_counted(sample, batch: int, want: dict, what: str) -> dict:
     expect = dict.fromkeys(counts, 0)
     expect.update(want)
     require(counts == expect, (what, counts))
-    require(img.dtype == torch.uint8 and tuple(img.shape) == (batch, 256, 256, 3),
+    require(img.dtype == torch.uint8 and tuple(img.shape) == (batch, image, image, 3),
             (what, img.shape))
-    require(tuple(z.shape) == (batch, 32, 32, 8) and torch.isfinite(z).all(),
-            (what, "final latent finite and [B, 32, 32, 8]"))
+    if latent is not None:
+        require(tuple(z.shape) == (batch, *latent) and torch.isfinite(z).all(),
+                (what, f"final latent finite and [B, {latent}]"))
     return counts
 
 
-def measure_path(name: str, make_sample, batch: int, want: dict) -> dict:
+def measure_path(name: str, make_sample, batch: int, want: dict, **shapes) -> dict:
     """One sampling path: exact launch counts (fatal), images/s over 3
     timed calls after a warm-up, device-busy ms of one profiled call.
-    make_sample(seed) -> a call returning (images, latent)."""
-    counts = run_counted(make_sample(0), batch, want, name)
+    make_sample(seed) -> a call returning (images, latent); `shapes`:
+    run_counted's image and latent."""
+    counts = run_counted(make_sample(0), batch, want, name, **shapes)
     out = dict(launches=counts, **timed_samples(make_sample(1), batch))
     prof = profile_fn(make_sample(2))
     out.update(device_busy_ms=prof["device_busy_ms"], profiled_wall_ms=prof["wall_ms"])
@@ -1318,11 +1371,12 @@ def reset_launch_counts() -> None:
     tbc.int8_launches = tffn.int8_launches = 0
 
 
-def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
+def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "adamw"):
     """(state, step) for the UNet of `cfg` (default: the default UNet) on
-    dev: fp32 parameters from `seed`, AdamW lr 1e-4, eps-prediction L1,
-    stochastic depth on; a conditional UNet's step takes labels (dropped
-    to the null class at COND_DROP) or class ids (`cond`)."""
+    dev: fp32 parameters from `seed`, `optimizer` (AdamW, or the pixel
+    DDPM's RAdam) lr 1e-4, eps-prediction L1, stochastic depth on; a
+    conditional UNet's step takes labels (dropped to the null class at
+    COND_DROP) or class ids (`cond`)."""
     from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1336,7 +1390,7 @@ def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None):
     cfg = cfg or UNetConfig()
     unet = UNet(cfg, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(seed))
-    tx = make_optimizer("adamw", 1e-4)
+    tx = make_optimizer(optimizer, 1e-4)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if ema else None)
     step = make_ldm_train_step(unet, make_schedule(DDPMConfig()), tx,
@@ -1492,18 +1546,22 @@ def explain_flip(name: str, over: torch.Tensor, units: dict, cpu_rec: dict,
     return None
 
 
-def phase_train_card_vs_cpu(dev, cfg=None) -> dict:
+def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
+                            flip_tensors: int = FLIP_TENSORS) -> dict:
     """One fp32 train step at B=4, card kernels vs CPU plain versions,
     with t, noise, routing, stochastic-depth gates and (a conditional
-    `cfg`) class ids injected (TF32 off, as main sets it)."""
+    `cfg`) class ids injected (TF32 off, as main sets it), at most
+    flip_tensors gradients flip-touched; with RAdam, check_radam_replay
+    after it."""
     cpu_state, cpu_step = make_trainer("cpu", seed=3, dtype=torch.float32,
-                                       ema=False, cfg=cfg)
+                                       ema=False, cfg=cfg, optimizer=optimizer)
     card_state, card_step = make_trainer(dev, seed=3, dtype=torch.float32,
-                                         ema=False, cfg=cfg)
+                                         ema=False, cfg=cfg, optimizer=optimizer)
     card_state.params.load_state_dict(cpu_state.params.state_dict())
+    start = {n: p.detach().clone() for n, p in cpu_state.params.named_parameters()}
     gen = torch.Generator().manual_seed(4)
     b = 4
-    x = torch.randn((b, 32, 32, 8), generator=gen)
+    x = torch.randn((b, 32, 32, cpu_state.params.cfg.input_channels), generator=gen)
     inject = dict(t=torch.randint(1, 1000, (b,), generator=gen),
                   eps=torch.randn(x.shape, generator=gen),
                   moe_plan=torch.randint(0, 6, (cpu_state.params.plan_length(),),
@@ -1569,9 +1627,56 @@ def phase_train_card_vs_cpu(dev, cfg=None) -> dict:
         flipped.append(name)
     log(f"train card vs cpu: {len(flipped)} of {len(cpu_params)} gradients "
         f"flip-touched; the rest within {worst:.3e} of max abs ({worst_name})")
-    require(len(flipped) <= FLIP_TENSORS, flipped)
-    return dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
-                flip_touched=flipped)
+    require(len(flipped) <= flip_tensors, flipped)
+    out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
+               flip_touched=flipped)
+    if optimizer == "radam":
+        out["radam_replay"] = check_radam_replay(
+            dev, start, {n: p.grad for n, p in cpu_params.items()})
+    return out
+
+
+# RAdam's steps replayed on the card over the CPU's gradients: 1-5 its
+# bias-corrected momentum, 6-7 its rectified update
+RADAM_REPLAY_STEPS = 7
+
+
+def check_radam_replay(dev, start: dict, grads: dict) -> dict:
+    """RAdam (lr 1e-4) from the parameters `start`, applied to the same
+    gradients RADAM_REPLAY_STEPS times on the CPU and on the card: after
+    each step every card parameter within VAE_OPT_STEP_REL of that
+    element's CPU step plus VAE_OPT_REL_TOL of the tensor's max abs of
+    the CPU's (phase 9's optimizer tolerance)."""
+    from ldm_image_generator_tpu_torch.train.steps import make_optimizer
+
+    names = list(start)
+    cpu = [start[n].clone() for n in names]
+    card = [start[n].to(dev) for n in names]
+    g_cpu = [grads[n] for n in names]
+    g_card = [g.to(dev) for g in g_cpu]
+    tx_cpu, tx_card = make_optimizer("radam", 1e-4), make_optimizer("radam", 1e-4)
+    st_cpu, st_card = tx_cpu.init(cpu), tx_card.init(card)
+    worst, bitwise, rectified = (0.0, ""), 0, []
+    for k in range(1, RADAM_REPLAY_STEPS + 1):
+        before = [p.clone() for p in cpu]
+        st_cpu = tx_cpu.apply(cpu, g_cpu, st_cpu)
+        st_card = tx_card.apply(card, g_card, st_card)
+        rectified.append(tx_cpu.rectifier(k) is not None)
+        for name, b, want, got in zip(names, before, cpu, card):
+            got = got.cpu()
+            diff = (got - want).abs()
+            bound = VAE_OPT_STEP_REL * (want - b).abs() + VAE_OPT_REL_TOL * want.abs().max()
+            used = torch.where(diff == 0, 0.0, diff / bound).max().item()
+            require(used <= 1.0, ("radam card vs cpu", k, name, diff.max().item(), used))
+            bitwise += int(torch.equal(got, want))
+            if used > worst[0]:
+                worst = (used, f"step {k} {name}")
+    require(rectified == [False] * 5 + [True] * (RADAM_REPLAY_STEPS - 5), rectified)
+    log(f"radam card vs cpu over the CPU's gradients, {RADAM_REPLAY_STEPS} steps "
+        f"(rectified from step 6): at most {worst[0]:.3f} of the bound ({worst[1]}); "
+        f"{bitwise} of {RADAM_REPLAY_STEPS * len(names)} tensor-steps bitwise")
+    return dict(steps=RADAM_REPLAY_STEPS, bound_used=worst, bitwise=bitwise,
+                tensor_steps=RADAM_REPLAY_STEPS * len(names))
 
 
 def make_vae_trainer(dev, seed: int, dtype):
@@ -2229,6 +2334,237 @@ def phase_run_loop(dev) -> dict:
                 saves=saves, validations=validations)
 
 
+# phase 15: the pixel DDPM (the default UNet with input_channels=3 at
+# 32px, seeded) and the reference's torch files
+DDPM_DIR = os.path.join("build", "chip_smoke_ddpm")
+
+
+def ddpm_cfg():
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+
+    return UNetConfig(input_channels=3)
+
+
+def phase_ddpm_train(dev) -> tuple:
+    """DDPM training at B=16 (seeded images in [-1, 1], bf16 compute, fp32
+    parameters, RAdam 1e-4, EMA 0.999): a warm-up step, then TRAIN_STEPS
+    timed steps, the 6th step in all RAdam's first rectified one, with
+    exact launch counts, finite losses, parameters and EMA, a gradient on
+    every parameter; steps/s, peak memory, a profile of one step. Then
+    the trainer's save (cli/train_ldm.saver) writes the parameter and EMA
+    files. Returns (results, state, path of the parameter file)."""
+    from ldm_image_generator_tpu_torch.cli.train_ldm import saver
+
+    t0 = time.perf_counter()
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True,
+                               cfg=ddpm_cfg(), optimizer="radam")
+    unet = state.params
+    log(f"ddpm train: UNet(input_channels=3) "
+        f"{sum(p.numel() for p in unet.parameters())} fp32 params, RAdam + EMA "
+        f"state built in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    batch = lambda: torch.rand((DDPM_BATCH, DDPM_SIZE, DDPM_SIZE, 3), generator=data,
+                               device=dev) * 2 - 1
+    state, m = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    log("ddpm train launches", json.dumps(counts), f"over {TRAIN_STEPS} steps")
+    require(counts == {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}, counts)
+    require(state.opt_state.count == TRAIN_STEPS + 1 and state.step == TRAIN_STEPS + 1,
+            ("radam count", state.opt_state.count))
+    from ldm_image_generator_tpu_torch.train.steps import RAdam
+
+    radam = RAdam(1e-4)
+    require(radam.rectifier(TRAIN_STEPS) is None
+            and radam.rectifier(TRAIN_STEPS + 1) is not None,
+            "the last timed step is RAdam's first rectified one")
+    losses = [x.item() for x in losses]
+    log("ddpm train losses", losses)
+    require(all(math.isfinite(x) for x in losses), losses)
+    params = list(unet.named_parameters())
+    missing = [n for n, p in params if p.grad is None]
+    require(not missing, f"parameters without a gradient: {missing[:5]}")
+    require(all(torch.isfinite(p).all() for _, p in params), "finite parameters")
+    require(all(torch.isfinite(e).all() for e in state.ema_params.values()), "finite EMA")
+    out = dict(launches=counts, losses=losses, train_s=dt,
+               steps_per_s=TRAIN_STEPS / dt, images_per_s=TRAIN_STEPS * DDPM_BATCH / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"ddpm train: {TRAIN_STEPS} steps in {dt:.4f} s, {out['steps_per_s']:.4f} "
+        f"steps/s, {out['images_per_s']:.4f} images/s at B={DDPM_BATCH}, peak "
+        f"{out['peak_gib']:.3f} GiB")
+    out["profile"] = profile_fn(lambda: step(state, batch(), generator=gen))
+    os.makedirs(DDPM_DIR, exist_ok=True)
+    path = os.path.join(DDPM_DIR, "ddpm.pt")
+    t0 = time.perf_counter()
+    saver(path, None, gen)(state)
+    out["save_s"] = time.perf_counter() - t0
+    return out, state, path
+
+
+def phase_ddpm_sample(dev, unet, path: str) -> dict:
+    """cli/sample_ddpm on the trainer's file (-n 2 -t 20, bf16, 32px): the
+    file's weights bitwise in the CLI's UNet, exactly 720 block_core and
+    160 window MHA per image, two 32px PNGs; then DDPMPipeline over the
+    trained UNet: B=1 DDIM-20, B=4, DPM-Solver++ 10 steps and DeepCache
+    interval 2, each with exact launch counts, images/s over 3 timed
+    calls after a warm-up and device busy of one profiled call."""
+    from ldm_image_generator_tpu_torch.cli import sample_ddpm
+    from ldm_image_generator_tpu_torch.pipelines import DDPMPipeline
+
+    flags = ["-dp", path, "-n", "2", "-t", "20", "-o", os.path.join(DDPM_DIR, "png")]
+    cli_unet = sample_ddpm.build_pipeline(sample_ddpm.build_parser().parse_args(flags))._src[0]
+    want, got = unet.state_dict(), cli_unet.state_dict()
+    require(want.keys() == got.keys() and all(torch.equal(want[n], got[n]) for n in want),
+            "the CLI's UNet holds the trainer's file bitwise")
+    del cli_unet
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sample_ddpm.main(flags)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log("ddpm sample_ddpm CLI launches", json.dumps(counts), f"in {cli_s:.3f} s")
+    expect = dict.fromkeys(counts, 0)
+    expect.update(block_core=2 * 720, window_mha=2 * 160)
+    require(counts == expect, ("sample_ddpm CLI", counts))
+    pngs = []
+    for i in range(2):
+        with open(os.path.join(DDPM_DIR, "png", f"{i}.png"), "rb") as f:
+            pngs.append(png_pixels(f.read()))
+    require(all(p.shape == (DDPM_SIZE, DDPM_SIZE, 3) for p in pngs), "32px PNGs")
+    out = dict(cli=dict(launches=counts, seconds=cli_s))
+
+    pipe = DDPMPipeline(unet, dtype=torch.bfloat16)
+
+    def make(batch, **kw):
+        def make_sample(seed):
+            gen = torch.Generator(device=dev).manual_seed(200 + seed)
+            return lambda: (pipe.sample(gen, batch=batch, image_size=DDPM_SIZE, **kw), None)
+        return make_sample
+
+    pixel = dict(image=DDPM_SIZE, latent=None)
+    out["ddpm_sample_b1"] = measure_path("ddpm ddim-20 b1", make(1), 1,
+                                         {"block_core": 720, "window_mha": 160}, **pixel)
+    out["ddpm_sample_b4"] = measure_path("ddpm ddim-20 b4", make(4), 4,
+                                         {"ffn_block": 720, "window_mha": 160}, **pixel)
+    out["ddpm_dpm10"] = measure_path(
+        "ddpm dpm++2m 10 steps b1", make(1, num_steps=10, sampler="dpm++2m"), 1,
+        {"block_core": 10 * 36, "window_mha": 10 * 8}, **pixel)
+    out["ddpm_deepcache2"] = measure_path(
+        "ddpm deepcache interval 2 b1", make(1, cache_interval=2), 1,
+        {"block_core": 10 * 36 + 10 * 6, "window_mha": 10 * 8 + 10 * 2}, **pixel)
+    return out
+
+
+def torch_file_round_trip(kind: str, module, export, read) -> dict:
+    """`module` exported with torch_export (`export`: flax tree -> state
+    dict) and torch.save'd under DDPM_DIR; read(path) loads it through a
+    CLI's loader into a fresh module, every parameter bitwise; then
+    cli/convert .pt -> msgpack -> --to-torch, every tensor bitwise. Write
+    and read seconds."""
+    from ldm_image_generator_tpu_torch.cli import convert as cconvert
+    from ldm_image_generator_tpu_torch.convert import flax_tree
+    from ldm_image_generator_tpu_torch.utils import torch_export as te
+
+    pt = os.path.join(DDPM_DIR, f"{kind}.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    te.save_state_dict(pt, export(flax_tree(module)))
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(pt)
+    t0 = time.perf_counter()
+    fresh = read(pt)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want, got = module.state_dict(), fresh.state_dict()
+    differ = [n for n in want if not torch.equal(want[n], got[n])]
+    require(want.keys() == got.keys() and not differ, (kind, "parameters differ", differ[:5]))
+    ckpt, back = pt[:-3] + ".ckpt", pt[:-3] + "_back.pt"
+    t0 = time.perf_counter()
+    cconvert.main([pt, "--kind", kind, "-o", ckpt])
+    cconvert.main([ckpt, "--kind", kind, "--to-torch", "-o", back])
+    convert_s = time.perf_counter() - t0
+    ref, rt = torch.load(pt, weights_only=True), torch.load(back, weights_only=True)
+    require(list(ref) == list(rt) and all(torch.equal(ref[k], rt[k]) for k in ref),
+            (kind, "cli/convert round trip bitwise"))
+    for f in (pt, ckpt, back):
+        os.remove(f)
+    log(f"torch file {kind}: {size} bytes, {len(want)} tensors, write {write_s:.3f} s, "
+        f"read into the card {read_s:.3f} s (bitwise); cli/convert both ways "
+        f"{convert_s:.3f} s (bitwise)")
+    return dict(bytes=size, tensors=len(want), write_s=write_s, read_s=read_s,
+                convert_s=convert_s)
+
+
+def phase_torch_files(dev, unet) -> dict:
+    """The reference's torch state_dict files at full width
+    (torch_file_round_trip): the DDPM UNet (export_ddpm) read back
+    through cli/sample_ddpm's loader, whose B=1 sample must then equal the
+    in-memory weights' bitwise, and the default VAE's four models read
+    back through the trainers' loader (cli/sample_ldm.maybe_load with
+    their converters)."""
+    from ldm_image_generator_tpu_torch.cli import sample_ddpm
+    from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load
+    from ldm_image_generator_tpu_torch.config import DiscriminatorConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.models.vae import (
+        Decoder,
+        Discriminator,
+        Encoder,
+        VectorQuantizer,
+    )
+    from ldm_image_generator_tpu_torch.pipelines import DDPMPipeline
+    from ldm_image_generator_tpu_torch.utils import torch_export as te
+    from ldm_image_generator_tpu_torch.utils import torch_import as ti
+
+    os.makedirs(DDPM_DIR, exist_ok=True)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)
+    pipes = []
+
+    def read_cli(pt):
+        pipes.append(sample_ddpm.build_pipeline(sample_ddpm.build_parser().parse_args(
+            ["-dp", pt, "--seed", "99"])))
+        return pipes[-1]._src[0]
+
+    out = {"ddpm": torch_file_round_trip(
+        "ddpm", unet, lambda t: te.export_ddpm(t, unet.cfg), read_cli)}
+    samples = [p.sample(seeded(7), batch=1, image_size=DDPM_SIZE)
+               for p in (DDPMPipeline(unet, dtype=torch.bfloat16), pipes.pop())]
+    require(torch.equal(*samples), "the torch file's B=1 sample equals the in-memory one")
+    vcfg, dcfg = VAEConfig(), DiscriminatorConfig()
+    vae = {  # kind: (module of a seed, export, converter)
+        "encoder": (lambda s: Encoder(vcfg, device=dev, generator=seeded(s)),
+                    lambda t: te.export_encoder(t, vcfg),
+                    lambda sd: ti.convert_encoder(sd, vcfg)),
+        "decoder": (lambda s: Decoder(vcfg, device=dev, generator=seeded(s)),
+                    lambda t: te.export_decoder(t, vcfg),
+                    lambda sd: ti.convert_decoder(sd, vcfg)),
+        "quantizer": (lambda s: VectorQuantizer(vcfg.num_embeddings, vcfg.embedding_dim,
+                                                device=dev, generator=seeded(s)),
+                      te.export_quantizer, ti.convert_quantizer),
+        "discriminator": (lambda s: Discriminator(dcfg, device=dev, generator=seeded(s)),
+                          lambda t: te.export_discriminator(t, dcfg),
+                          lambda sd: ti.convert_discriminator(sd, dcfg))}
+    for i, (kind, (make, export, converter)) in enumerate(vae.items()):
+        fresh = make(20 + i)
+
+        def read(pt, fresh=fresh, converter=converter):
+            require(maybe_load(fresh, pt, converter), (pt, "loaded"))
+            return fresh
+
+        out[kind] = torch_file_round_trip(kind, make(10 + i), export, read)
+    return out
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2299,6 +2635,21 @@ def main(argv) -> int:
     for kernel in ("ffn_block", "ffn_block_bwd", "window_mha", "window_mha_bwd"):
         by_path = kernels[kernel].setdefault("launches_by_path", {})
         by_path.update({p: c[kernel] for p, c in surface_paths.items() if c[kernel]})
+    torch.cuda.empty_cache()
+    ddpm_train, ddpm_state, ddpm_path = phase_ddpm_train(dev)
+    ddpm_sample = phase_ddpm_sample(dev, ddpm_state.params, ddpm_path)
+    torch_files = phase_torch_files(dev, ddpm_state.params)
+    del ddpm_state
+    torch.cuda.empty_cache()
+    ddpm_vs_cpu = phase_train_card_vs_cpu(dev, ddpm_cfg(), optimizer="radam",
+                                          flip_tensors=DDPM_FLIP_TENSORS)
+    log(f"pixel DDPM phases done at {time.perf_counter() - t_start:.1f} s")
+    ddpm_paths = {f"ddpm_train_{TRAIN_STEPS}_steps": ddpm_train["launches"]}
+    ddpm_paths.update({k: v["launches"] for k, v in ddpm_sample.items() if k != "cli"})
+    for kernel in ("block_core", "ffn_block", "ffn_block_bwd", "window_mha",
+                   "window_mha_bwd"):
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in ddpm_paths.items() if c[kernel]})
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -2333,7 +2684,11 @@ def main(argv) -> int:
         "cond_train_card_vs_cpu": cond_train_vs_cpu,
         "remat": remat,
         "resume": resume,
-        "run_loop": run_loop}}))
+        "run_loop": run_loop,
+        "ddpm_train": ddpm_train,
+        "ddpm_sample": ddpm_sample,
+        "ddpm_train_card_vs_cpu": ddpm_vs_cpu,
+        "torch_files": torch_files}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

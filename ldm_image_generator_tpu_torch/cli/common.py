@@ -1,6 +1,7 @@
-"""Training flags and helpers the trainers share, as the JAX package's
-cli/common.py has them: the validation flags, the EMA file's path and
-the cadence test of the train loop."""
+"""Flags and helpers the CLIs share, as the JAX package's cli/common.py
+has them: the diffusion flags (and the trainers' validation,
+optimizer-schedule and EMA flags), the EMA file's path and the cadence
+test of the train loop."""
 from __future__ import annotations
 
 import argparse
@@ -18,6 +19,25 @@ def add_val_args(parser: argparse.ArgumentParser) -> None:
                         help="validation cadence in train steps (with --val-dir)")
     parser.add_argument("--val-batches", default=4, type=int, metavar="N",
                         help="number of fixed validation batches to average over")
+
+
+def add_diffusion_args(parser: argparse.ArgumentParser, train: bool = False) -> None:
+    """--prediction and --zero-snr; with train also --ema, the validation
+    flags, --grad-clip and the LR schedule's (JAX add_diffusion_args)."""
+    parser.add_argument("--prediction", default="eps", choices=["eps", "v"])
+    parser.add_argument("--zero-snr", action="store_true",
+                        help="zero terminal SNR schedule; needs --prediction v")
+    if not train:
+        return
+    parser.add_argument("--ema", default=0.0, type=float, metavar="DECAY",
+                        help="keep an EMA of the UNet params (e.g. 0.999)")
+    add_val_args(parser)
+    parser.add_argument("--grad-clip", default=0.0, type=float, metavar="NORM",
+                        help="global-norm gradient clipping (0 = off)")
+    parser.add_argument("--lr-schedule", default="constant",
+                        choices=["constant", "cosine"])
+    parser.add_argument("--warmup-steps", default=0, type=int, metavar="STEPS")
+    parser.add_argument("--total-steps", default=0, type=int, metavar="STEPS")
 
 
 def ema_path(modelpath: str) -> str:

@@ -5,7 +5,8 @@
 
 The flags of the JAX package's cli/sample_ldm.py, checked in its order.
 -dp / -decp name the UNet and VAE decoder parameter files the trainers
-write (flax msgpack, as the JAX package's); a path that does not exist
+write (flax msgpack, as the JAX package's) or the reference's torch
+state_dict files (converted on load); a path that does not exist
 means seeded random weights, and a file of another model config exits
 with the JAX CLI's message. --sampler ddim | dpm++2m; --cache-interval
 N > 1 (DeepCache); --num-classes with --class-id, --guidance-scale,
@@ -26,6 +27,7 @@ import os
 import struct
 import zlib
 
+from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args
 
 def str2bool(v: str) -> bool:
     if v.lower() in ("true", "1", "yes", "y", "t"):
@@ -92,9 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the null class")
     p.add_argument("--cfg-rescale", default=0.0, type=float,
                    help="guidance rescale phi (0 = off)")
-    p.add_argument("--prediction", default="eps", choices=["eps", "v"])
-    p.add_argument("--zero-snr", action="store_true",
-                   help="zero terminal SNR schedule; needs --prediction v")
+    add_diffusion_args(p)
     p.add_argument("--init-image", default=None,
                    help="img2img: start from this image (encoded, diffused to "
                         "--strength of the schedule, then denoised)")
@@ -129,16 +129,18 @@ def check_args(args) -> None:
             raise SystemExit("inpainting (mask=) requires sampler='ddim'")
 
 
-def maybe_load(module, path: str) -> bool:
+def maybe_load(module, path: str, torch_converter=None) -> bool:
     """Load a parameter file into `module` if `path` exists (else leave
-    its seeded weights); a file of another model config exits with the
-    JAX CLI's message."""
+    its seeded weights): flax msgpack, or the reference's torch
+    state_dict through torch_converter (a utils.torch_import converter,
+    as the JAX CLI passes at that path). A file of another model config
+    exits with the JAX CLI's message."""
     if not os.path.exists(path):
         return False
     from ldm_image_generator_tpu_torch.convert import load_flax_file
 
     try:
-        load_flax_file(module, path)
+        load_flax_file(module, path, torch_converter)
     except (KeyError, ValueError) as e:
         raise SystemExit(e.args[0]) from e
     print(f"Loaded checkpoint: {path}")
@@ -189,6 +191,7 @@ def build_pipeline(args, seed: int, with_encoder: bool):
     from ldm_image_generator_tpu_torch.models.unet import UNet
     from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+    from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
     device = resolve_device(args.device)
     ucfg, vcfg = UNetConfig(), VAEConfig()
@@ -202,12 +205,12 @@ def build_pipeline(args, seed: int, with_encoder: bool):
     gen = torch.Generator(device=device).manual_seed(seed)
     unet = UNet(ucfg, device=device, generator=gen)
     decoder = Decoder(vcfg, device=device, generator=gen)
-    maybe_load(unet, args.ddpmpath)
-    maybe_load(decoder, args.decpath)
+    maybe_load(unet, args.ddpmpath, lambda sd: ti.convert_ddpm(sd, ucfg))
+    maybe_load(decoder, args.decpath, lambda sd: ti.convert_decoder(sd, vcfg))
     encoder = None
     if with_encoder:
         encoder = Encoder(vcfg, device=device, generator=gen)
-        maybe_load(encoder, args.encpath)
+        maybe_load(encoder, args.encpath, lambda sd: ti.convert_encoder(sd, vcfg))
     return LDMPipeline(unet, decoder, dcfg, dtype=dtype, encoder=encoder)
 
 

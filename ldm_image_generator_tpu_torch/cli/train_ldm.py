@@ -7,7 +7,8 @@ The flags are those of the JAX package's cli/train_ldm.py that this port
 covers. The images are encoded once by the VAE Encoder of the -ep
 parameter file (seeded random weights where it does not exist), the
 UNet starts from the -mp file where it exists (else seeded random
-weights), and each step is AdamW on the eps-prediction L1 loss
+weights; either file flax msgpack or the reference's torch state_dict,
+converted), and each step is AdamW on the eps-prediction L1 loss
 (optionally v-prediction, Min-SNR weighting, gradient clipping, an LR
 schedule, accumulation over -bm steps and an EMA).
 
@@ -31,7 +32,7 @@ from __future__ import annotations
 import argparse
 from typing import Callable
 
-from ldm_image_generator_tpu_torch.cli.common import add_val_args, crossed, ema_path
+from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, crossed, ema_path
 from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 # metrics are checked for NaN/Inf each time the step count crosses a
@@ -71,18 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cond-drop", default=0.1, type=float,
                    help="probability of training on the null class (the CFG "
                         "unconditional branch)")
-    p.add_argument("--prediction", default="eps", choices=["eps", "v"])
-    p.add_argument("--zero-snr", action="store_true",
-                   help="zero terminal SNR schedule; needs --prediction v")
-    p.add_argument("--ema", default=0.0, type=float, metavar="DECAY",
-                   help="keep an EMA of the UNet params (e.g. 0.999)")
-    add_val_args(p)
-    p.add_argument("--grad-clip", default=0.0, type=float, metavar="NORM",
-                   help="global-norm gradient clipping (0 = off)")
-    p.add_argument("--lr-schedule", default="constant",
-                   choices=["constant", "cosine"])
-    p.add_argument("--warmup-steps", default=0, type=int, metavar="STEPS")
-    p.add_argument("--total-steps", default=0, type=int, metavar="STEPS")
+    add_diffusion_args(p, train=True)
     p.add_argument("--min-snr-gamma", default=0.0, type=float,
                    help="Min-SNR loss weighting gamma (0 = uniform)")
     # flags of the JAX trainer whose paths are not ported: refused below
@@ -187,6 +177,43 @@ def train_loop(state, step: Callable, loader, *, epochs: int, batch_size: int,
     return state
 
 
+def resume(ckpt_dir, state, gen):
+    """(state, checkpointer): with --ckpt-dir a TrainCheckpointer there
+    (a directory it did not write exits) and the state restored from its
+    latest step, the generator's state with it; else (state, None)."""
+    if not ckpt_dir:
+        return state, None
+    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    try:
+        ckpt = TrainCheckpointer(ckpt_dir)
+    except ValueError as e:
+        raise SystemExit(e.args[0]) from e
+    restored = ckpt.restore(state, [gen])
+    if restored is not None:
+        state = restored
+        print(f"Resumed from step {state.step}")
+    return state, ckpt
+
+
+def saver(modelpath: str, ckpt, gen) -> Callable:
+    """save_all(state) of the diffusion trainers: the UNet to modelpath
+    and the EMA (where kept) to modelpath + ".ema" as flax parameter
+    files, and the full state to the checkpointer (where there is one)."""
+    from ldm_image_generator_tpu_torch.convert import save_flax_file
+
+    def save_all(state):
+        save_flax_file(state.params, modelpath)
+        saved = [modelpath]
+        if state.ema_params is not None:
+            save_flax_file(state.ema_params, ema_path(modelpath))
+            saved.append(ema_path(modelpath))
+        if ckpt is not None:
+            saved.append(ckpt.save(state.step, state, [gen]))
+        print("saved " + ", ".join(saved), flush=True)
+    return save_all
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     why = refusal(args)
@@ -204,7 +231,6 @@ def main(argv=None):
         VAEConfig,
         resolve_device,
     )
-    from ldm_image_generator_tpu_torch.convert import save_flax_file
     from ldm_image_generator_tpu_torch.data.dataset import LatentImageDataset
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
@@ -216,7 +242,7 @@ def main(argv=None):
         make_ldm_train_step,
         make_optimizer,
     )
-    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
     device = resolve_device(args.device)
     ucfg, vcfg = UNetConfig(), VAEConfig()
@@ -236,7 +262,7 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
 
     encoder = Encoder(vcfg, device=device, generator=gen)
-    maybe_load(encoder, args.encpath)
+    maybe_load(encoder, args.encpath, lambda sd: ti.convert_encoder(sd, vcfg))
 
     @torch.no_grad()
     def encode(imgs):
@@ -252,7 +278,7 @@ def main(argv=None):
     del encoder
 
     unet = UNet(ucfg, device=device, generator=gen)
-    maybe_load(unet, args.modelpath)
+    maybe_load(unet, args.modelpath, lambda sd: ti.convert_ddpm(sd, ucfg))
     schedule = make_schedule(DDPMConfig(prediction=args.prediction,
                                         zero_terminal_snr=args.zero_snr))
     tx = make_optimizer("adamw", args.learningrate,
@@ -262,16 +288,7 @@ def main(argv=None):
                         total_steps=args.total_steps)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if args.ema > 0 else None)
-    ckpt = None
-    if args.ckpt_dir:
-        try:
-            ckpt = TrainCheckpointer(args.ckpt_dir)
-        except ValueError as e:
-            raise SystemExit(e.args[0]) from e
-        restored = ckpt.restore(state, [gen])
-        if restored is not None:
-            state = restored
-            print(f"Resumed from step {state.step}")
+    state, ckpt = resume(args.ckpt_dir, state, gen)
     step_fn = make_ldm_train_step(
         unet, schedule, tx, prediction=args.prediction,
         ema_decay=args.ema if args.ema > 0 else None,
@@ -294,19 +311,10 @@ def main(argv=None):
                               dtype=dtype)
         print(f"validation: {len(val_ds)} latents, every {args.val_every} steps")
 
-    def save_all(state):
-        save_flax_file(state.params, args.modelpath)
-        saved = [args.modelpath]
-        if state.ema_params is not None:
-            save_flax_file(state.ema_params, ema_path(args.modelpath))
-            saved.append(ema_path(args.modelpath))
-        if ckpt is not None:
-            saved.append(ckpt.save(state.step, state, [gen]))
-        print("saved " + ", ".join(saved), flush=True)
-
     loader = BatchLoader(ds, args.batch, with_labels=num_classes > 0)
     return train_loop(state, step, loader, epochs=args.epoch, batch_size=args.batch,
-                      save_all=save_all, save_every=args.save_every,
+                      save_all=saver(args.modelpath, ckpt, gen),
+                      save_every=args.save_every,
                       fused_steps=args.fused_steps, validator=validator,
                       val_every=args.val_every)
 

@@ -8,7 +8,8 @@ takes one random crop of the batch (192px, or the whole image below
 that size), computes loss = recon * 10 + VQ reg + 0.1 * hinge adversarial
 and takes an Adafactor step on the encoder, decoder and codebook, then a
 hinge step on the discriminator, also Adafactor. Each model starts from
-its parameter file (-ep, -dp, -qp, -discp) where it exists, else from
+its parameter file (-ep, -dp, -qp, -discp; flax msgpack, or the
+reference's torch state_dict, converted) where it exists, else from
 seeded random weights; --ckpt-dir resumes from the latest full training
 state there (both optimizers' states, the step and the generator; the
 port's own format, utils/checkpoint.py TrainCheckpointer). The losses go
@@ -94,6 +95,7 @@ def main(argv=None):
         make_optimizer,
         make_vae_train_step,
     )
+    from ldm_image_generator_tpu_torch.utils import torch_import as ti
     from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
     from ldm_image_generator_tpu_torch.utils.debug import (
         GracefulShutdown,
@@ -115,10 +117,12 @@ def main(argv=None):
         "quantizer": VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim,
                                      device=device, generator=gen)})
     disc = Discriminator(dcfg, device=device, generator=gen)
-    files = ((vae["encoder"], args.encpath), (vae["decoder"], args.decpath),
-             (vae["quantizer"], args.quantizerpath), (disc, args.discpath))
-    for module, path in files:
-        maybe_load(module, path)
+    files = ((vae["encoder"], args.encpath, lambda sd: ti.convert_encoder(sd, cfg)),
+             (vae["decoder"], args.decpath, lambda sd: ti.convert_decoder(sd, cfg)),
+             (vae["quantizer"], args.quantizerpath, ti.convert_quantizer),
+             (disc, args.discpath, lambda sd: ti.convert_discriminator(sd, dcfg)))
+    for module, path, converter in files:
+        maybe_load(module, path, converter)
     ds = ImageDataset([args.dataset_path], size=args.size, max_len=args.maxdata)
     print(f"dataset: {len(ds)} images at {args.size}px")
     crop = 192 if args.size >= 192 else args.size
@@ -144,9 +148,9 @@ def main(argv=None):
     os.makedirs(args.result, exist_ok=True)
 
     def save_all(state):
-        for module, path in files:
+        for module, path, _ in files:
             save_flax_file(module, path)
-        saved = [path for _, path in files]
+        saved = [path for _, path, _ in files]
         if ckpt is not None:
             saved.append(ckpt.save(state.step, state, [gen]))
         print("saved " + ", ".join(saved), flush=True)

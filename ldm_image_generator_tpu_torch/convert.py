@@ -112,9 +112,10 @@ def flax_tree(module) -> dict:
     return {"params": root}
 
 
-def load_flax_file(module: nn.Module, path: str) -> nn.Module:
-    """load_flax_params from a parameter file (utils/checkpoint.py)."""
-    return load_flax_params(module, load_params(path), source=path)
+def load_flax_file(module: nn.Module, path: str, torch_converter=None) -> nn.Module:
+    """load_flax_params from a parameter file (utils/checkpoint.py), or
+    from a reference torch state_dict file through torch_converter."""
+    return load_flax_params(module, load_params(path, torch_converter), source=path)
 
 
 def save_flax_file(module, path: str) -> None:

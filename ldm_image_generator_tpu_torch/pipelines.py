@@ -1,19 +1,21 @@
-"""Latent diffusion sampling, the torch counterpart of
-LDMPipeline.sample and LDMPipeline.img2img in
+"""Diffusion sampling, the torch counterpart of LDMPipeline.sample,
+LDMPipeline.img2img and DDPMPipeline.sample in
 ldm_image_generator_tpu/pipelines.py.
 
-init noise -> DDIM or DPM-Solver++(2M) over the UNet in latent space ->
-VAE decode -> clamp -> uint8; optionally class-conditional with
-classifier-free guidance (per-sample scales and rescale, a negative
+LDMPipeline: init noise -> DDIM or DPM-Solver++(2M) over the UNet in
+latent space -> VAE decode -> clamp -> uint8; optionally class-conditional
+with classifier-free guidance (per-sample scales and rescale, a negative
 class) or with DeepCache deep-feature reuse. img2img encodes an image
 with the VAE encoder, diffuses it part of the way and samples over the
 rest of the schedule, optionally keeping a masked region (inpainting).
-The pipeline samples with
-copies of the caller's modules cast to the compute dtype (and, with
-ffn_quant='int8', their int8 FFN weights), made once per weight version
-of those modules, and memoizes the FiLM schedule per (weight version,
-latent, num_steps, steps), as the JAX package's _PrepCache does; the
-caller's modules are left as they are.
+DDPMPipeline: the same samplers and DeepCache over a 3-channel UNet in
+pixel space -> clamp -> uint8, no VAE.
+Both sample with copies of the caller's modules cast to the compute dtype
+(and, with ffn_quant='int8', their int8 FFN weights), made once per
+weight version of those modules, and memoize the FiLM schedule per
+(weight version, map size, num_steps, steps), as the JAX package's
+_PrepCache does (the shared _Pipeline base); the caller's modules are
+left as they are.
 """
 from __future__ import annotations
 
@@ -121,36 +123,26 @@ def inpaint_projection(schedule, z0: torch.Tensor, m: torch.Tensor):
     return project
 
 
-class LDMPipeline:
-    """Latent diffusion sampler over a UNet and a VAE Decoder: DDIM or
-    DPM-Solver++(2M), unconditional or class-conditional (with CFG), and
-    DeepCache. The caller's modules are not changed: the pipeline samples
-    with copies cast to `dtype` (the modules themselves where they already
-    are in it) and, with the UNet's ffn_quant='int8', their int8 FFN
-    weights, all made here and made again only when the modules' weights
-    change (memoized per weight version, as the JAX package's _PrepCache):
-    a sample call of unchanged weights casts and quantizes nothing, and
-    collects no FiLM schedule it has collected before.
+class _Pipeline:
+    """What the pipelines share: the schedule, cast copies of the caller's
+    modules (the UNet first) made once per weight version, the FiLM
+    schedule memo, the UNet call at a timestep under a routing plan
+    (_base_fn), the plan draw (_plan_fn), the sampler's model call, plain
+    or guided (_denoise_fns), DeepCache's pair of calls and the sampler
+    run. A subclass takes the copies in _adopt."""
 
-    MoE routing: each denoise step draws one routing plan from the
-    sampling generator (unless the config fixes the experts); both CFG
-    branches of a step take that plan, as the JAX package passes one key
-    to both. `encoder` (a VAE Encoder) is needed by img2img only; its cast
-    copy is memoized with the others'."""
-
-    def __init__(self, unet: UNet, decoder: Decoder,
-                 ddpm_cfg: DDPMConfig = DDPMConfig(),
-                 dtype: torch.dtype = torch.bfloat16,
-                 encoder: Optional[Encoder] = None):
+    def __init__(self, modules: tuple, ddpm_cfg: DDPMConfig, dtype: torch.dtype):
         self.schedule = make_schedule(ddpm_cfg)
         self.prediction = ddpm_cfg.prediction
         self.dtype = dtype
-        self._src = (unet, decoder) + ((encoder,) if encoder is not None else ())
-        self.encoder = None
+        self._src = modules
         self._version = None
-        # (weight version, latent, num_steps, steps) -> (index, films), LRU
+        # (weight version, map size, num_steps, steps) -> (index, films), LRU
         self._films = collections.OrderedDict()
         self._prepare()
+
+    def _adopt(self, copies: list) -> None:
+        self.unet = copies[0]
 
     def _prepare(self) -> None:
         """The cast copies (and int8 FFN weights) of the caller's modules'
@@ -158,25 +150,11 @@ class LDMPipeline:
         version = weight_version(*self._src)
         if version == self._version:
             return
-        self.unet, self.decoder, *enc = (cast_copy(m, self.dtype) for m in self._src)
-        self.encoder = enc[0] if enc else None
+        self._adopt([cast_copy(m, self.dtype) for m in self._src])
         self.unet.prepare_ffn(self.dtype)
         self._version = version
         # a version counter only grows: the old weights' schedules never hit
         self._films.clear()
-
-    @classmethod
-    def random(cls, unet_cfg: UNetConfig = UNetConfig(),
-               vae_cfg: VAEConfig = VAEConfig(),
-               ddpm_cfg: DDPMConfig = DDPMConfig(),
-               dtype: torch.dtype = torch.bfloat16, device="cuda",
-               seed: int = 0) -> "LDMPipeline":
-        """A pipeline with seeded random weights (no checkpoint)."""
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        unet = UNet(unet_cfg, device=dev, generator=gen)
-        decoder = Decoder(vae_cfg, device=dev, generator=gen)
-        return cls(unet, decoder, ddpm_cfg, dtype)
 
     @property
     def device(self) -> torch.device:
@@ -291,6 +269,77 @@ class LDMPipeline:
         return self._denoise_fns(latent, num_steps, steps, film_cache, generator,
                                 **guidance)[0]
 
+    def _deep_cache(self, step, cache_interval: int, condition=None):
+        """ddim_sample's deep_cache for DeepCache at cache_interval > 1
+        (fresh and cached calls of `step`, the unguided UNet call), else
+        None."""
+        if cache_interval < 1:
+            raise ValueError(f"cache_interval {cache_interval}: 1 (off) or more")
+        if cache_interval == 1:
+            return None
+        if len(self.unet.cfg.stages) < 2:
+            raise ValueError("cache_interval > 1 needs a UNet with >= 2 stages")
+        return (lambda x, t: step(x, t, condition, with_deep=True),
+                lambda x, t, deep: step(x, t, condition, deep=deep),
+                cache_interval)
+
+    def _run(self, sampler: str, denoise, shape, eta: float = 0.0,
+             project_fn=None, project_noise=None, **run) -> torch.Tensor:
+        """The final fp32 sample of `sampler` over denoise(x, t); `run`:
+        generator, num_steps, steps, init_noise, deep_cache."""
+        run.update(prediction=self.prediction, device=self.device)
+        if sampler == "dpm++2m":
+            return dpm_solver_sample(denoise, self.schedule, shape, **run)
+        return ddim_sample(denoise, self.schedule, shape, eta=eta,
+                           project_fn=project_fn, project_noise=project_noise, **run)
+
+
+def check_sampler(sampler: str) -> None:
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
+
+
+class LDMPipeline(_Pipeline):
+    """Latent diffusion sampler over a UNet and a VAE Decoder: DDIM or
+    DPM-Solver++(2M), unconditional or class-conditional (with CFG), and
+    DeepCache. The caller's modules are not changed: the pipeline samples
+    with copies cast to `dtype` (the modules themselves where they already
+    are in it) and, with the UNet's ffn_quant='int8', their int8 FFN
+    weights, all made here and made again only when the modules' weights
+    change (memoized per weight version, as the JAX package's _PrepCache):
+    a sample call of unchanged weights casts and quantizes nothing, and
+    collects no FiLM schedule it has collected before.
+
+    MoE routing: each denoise step draws one routing plan from the
+    sampling generator (unless the config fixes the experts); both CFG
+    branches of a step take that plan, as the JAX package passes one key
+    to both. `encoder` (a VAE Encoder) is needed by img2img only; its cast
+    copy is memoized with the others'."""
+
+    def __init__(self, unet: UNet, decoder: Decoder,
+                 ddpm_cfg: DDPMConfig = DDPMConfig(),
+                 dtype: torch.dtype = torch.bfloat16,
+                 encoder: Optional[Encoder] = None):
+        super().__init__((unet, decoder) + ((encoder,) if encoder is not None else ()),
+                         ddpm_cfg, dtype)
+
+    def _adopt(self, copies: list) -> None:
+        self.unet, self.decoder, *enc = copies
+        self.encoder = enc[0] if enc else None
+
+    @classmethod
+    def random(cls, unet_cfg: UNetConfig = UNetConfig(),
+               vae_cfg: VAEConfig = VAEConfig(),
+               ddpm_cfg: DDPMConfig = DDPMConfig(),
+               dtype: torch.dtype = torch.bfloat16, device="cuda",
+               seed: int = 0) -> "LDMPipeline":
+        """A pipeline with seeded random weights (no checkpoint)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        unet = UNet(unet_cfg, device=dev, generator=gen)
+        decoder = Decoder(vae_cfg, device=dev, generator=gen)
+        return cls(unet, decoder, ddpm_cfg, dtype)
+
     @torch.no_grad()
     def sample(self, generator: Optional[torch.Generator] = None,
                batch: int = 1, image_size: int = 256, num_steps: int = 20,
@@ -318,8 +367,7 @@ class LDMPipeline:
         phi (see `guide`). cache_interval > 1: DeepCache, the UNet's deep
         core recomputed every cache_interval steps and reused in between
         (an approximation; not with CFG)."""
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
+        check_sampler(sampler)
         if negative_condition is not None:
             if condition is None or self.unet.cfg.num_classes <= 0:
                 raise ValueError("negative_condition requires a class-conditional "
@@ -327,8 +375,6 @@ class LDMPipeline:
             if guidance_scales is None and guidance_scale == 1.0:
                 raise ValueError("negative_condition has no effect at guidance "
                                  "1.0: pass guidance_scale != 1 or guidance_scales")
-        if cache_interval < 1:
-            raise ValueError(f"cache_interval {cache_interval}: 1 (off) or more")
         latent = image_size // self.decoder.cfg.downscale
         shape = (batch, latent, latent, self.unet.cfg.input_channels)
         denoise, step, use_cfg = self._denoise_fns(
@@ -336,24 +382,14 @@ class LDMPipeline:
             guidance_scale if guidance_scales is None else guidance_scales,
             cfg_rescale if cfg_rescales is None else cfg_rescales,
             negative_condition)
-        deep_cache = None
-        if cache_interval > 1:
-            if use_cfg:
-                raise ValueError("cache_interval > 1 is not supported with "
-                                 "classifier-free guidance")
-            if len(self.unet.cfg.stages) < 2:
-                raise ValueError("cache_interval > 1 needs a UNet with >= 2 stages")
-            cond = None if condition is None else condition.to(self.device)
-            deep_cache = (lambda x, t: step(x, t, cond, with_deep=True),
-                          lambda x, t, deep: step(x, t, cond, deep=deep),
-                          cache_interval)
-        run = dict(generator=generator, num_steps=num_steps, steps=steps,
-                   init_noise=init_noise, prediction=self.prediction,
-                   device=self.device, deep_cache=deep_cache)
-        if sampler == "dpm++2m":
-            z = dpm_solver_sample(denoise, self.schedule, shape, **run)
-        else:
-            z = ddim_sample(denoise, self.schedule, shape, eta=eta, **run)
+        if cache_interval > 1 and use_cfg:
+            raise ValueError("cache_interval > 1 is not supported with "
+                             "classifier-free guidance")
+        deep_cache = self._deep_cache(
+            step, cache_interval, None if condition is None else condition.to(self.device))
+        z = self._run(sampler, denoise, shape, eta, generator=generator,
+                      num_steps=num_steps, steps=steps, init_noise=init_noise,
+                      deep_cache=deep_cache)
         img = to_uint8(self.decoder(z))
         return (img, z) if return_latent else img
 
@@ -396,8 +432,7 @@ class LDMPipeline:
             if guidance_scales is None and guidance_scale == 1.0:
                 raise ValueError("negative_condition has no effect at guidance "
                                  "1.0: pass guidance_scale != 1 or guidance_scales")
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler {sampler!r}: one of {SAMPLERS}")
+        check_sampler(sampler)
         self._prepare()
         if self.encoder is None:
             raise ValueError("img2img needs a pipeline built with an encoder")
@@ -414,16 +449,56 @@ class LDMPipeline:
             guidance_scale if guidance_scales is None else guidance_scales,
             cfg_rescale if cfg_rescales is None else cfg_rescales,
             negative_condition)
-        run = dict(generator=generator, num_steps=num_steps, steps=sub_steps,
-                   init_noise=x_init, prediction=self.prediction, device=dev)
-        if sampler == "dpm++2m":
-            z = dpm_solver_sample(denoise, self.schedule, z0.shape, **run)
-        else:
-            project_fn = None
-            if mask is not None:
-                project_fn = inpaint_projection(
-                    self.schedule, z0, resize_mask(mask.to(dev), latent))
-            z = ddim_sample(denoise, self.schedule, z0.shape, eta=eta,
-                            project_fn=project_fn, project_noise=project_noise, **run)
+        project_fn = None
+        if mask is not None:
+            project_fn = inpaint_projection(
+                self.schedule, z0, resize_mask(mask.to(dev), latent))
+        z = self._run(sampler, denoise, z0.shape, eta, project_fn, project_noise,
+                      generator=generator, num_steps=num_steps, steps=sub_steps,
+                      init_noise=x_init)
         img = to_uint8(self.decoder(z))
         return (img, z) if return_latent else img
+
+
+class DDPMPipeline(_Pipeline):
+    """Pixel-space DDPM sampler, the torch counterpart of the JAX package's
+    DDPMPipeline: DDIM (or DPM-Solver++(2M)) over a UNet with
+    input_channels=3 directly on [B, S, S, 3] images, optionally with
+    DeepCache, then clamp -> uint8; no VAE. The caller's UNet is not
+    changed (cast copies and the FiLM memo as LDMPipeline's); each step
+    draws its routing plan from the sampling generator unless the config
+    fixes the experts."""
+
+    def __init__(self, unet: UNet, ddpm_cfg: DDPMConfig = DDPMConfig(),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__((unet,), ddpm_cfg, dtype)
+
+    @classmethod
+    def random(cls, unet_cfg: UNetConfig = UNetConfig(input_channels=3),
+               ddpm_cfg: DDPMConfig = DDPMConfig(),
+               dtype: torch.dtype = torch.bfloat16, device="cuda",
+               seed: int = 0) -> "DDPMPipeline":
+        """A pipeline with seeded random weights (no checkpoint)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(UNet(unet_cfg, device=dev, generator=gen), ddpm_cfg, dtype)
+
+    @torch.no_grad()
+    def sample(self, generator: Optional[torch.Generator] = None,
+               batch: int = 1, image_size: int = 32, num_steps: int = 20,
+               eta: float = 0.0, sampler: str = "ddim", film_cache: bool = True,
+               steps: Optional[Sequence[int]] = None, cache_interval: int = 1,
+               init_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """uint8 images [batch, image_size, image_size, input_channels].
+        `generator` (on the pipeline's device) draws x_T unless init_noise
+        is given, the per-step noise at eta > 0 (DDIM) and the MoE
+        routing unless the config fixes it. cache_interval > 1: DeepCache
+        (see LDMPipeline.sample)."""
+        check_sampler(sampler)
+        shape = (batch, image_size, image_size, self.unet.cfg.input_channels)
+        denoise, step, _ = self._denoise_fns(image_size, num_steps, steps,
+                                             film_cache, generator)
+        x = self._run(sampler, denoise, shape, eta, generator=generator,
+                      num_steps=num_steps, steps=steps, init_noise=init_noise,
+                      deep_cache=self._deep_cache(step, cache_interval))
+        return to_uint8(x)

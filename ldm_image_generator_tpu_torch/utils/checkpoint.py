@@ -145,19 +145,27 @@ def _unchunk(tree):
     return {k: _unchunk(v) for k, v in tree.items()}
 
 
-def load_params(path: str) -> dict:
+def load_params(path: str, torch_converter=None) -> dict:
     """The nested tree of a parameter file written by the JAX package's
     save_params (or by save_params here). A PyTorch state_dict file (the
-    reference's) raises: converting those is ROADMAP A12."""
+    reference's, told by its first bytes) goes through torch_converter
+    (e.g. ``lambda sd: torch_import.convert_ddpm(sd, cfg)``), as the JAX
+    package's load_params does; without one it raises."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if _is_torch_file(head):
+        if torch_converter is None:
+            raise ValueError(
+                f"{path} is a PyTorch checkpoint; pass the matching "
+                "utils.torch_import converter to load it")
+        from ldm_image_generator_tpu_torch.utils.torch_import import load_state_dict
+
+        return torch_converter(load_state_dict(path))
     with open(path, "rb") as f:
         size = os.fstat(f.fileno()).st_size
         buf = bytearray(size)
         if f.readinto(buf) != size:
             raise ValueError(f"{path}: short read")
-    if _is_torch_file(bytes(buf[:8])):
-        raise ValueError(
-            f"{path} is a PyTorch state_dict file; converting the reference's "
-            "torch checkpoints is not ported yet: ROADMAP A12")
     reader = _Reader(buf)
     tree = reader.value()
     if reader.pos != size:

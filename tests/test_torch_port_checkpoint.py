@@ -158,12 +158,35 @@ def test_chunked_file_reads_back(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("head", [b"PK\x03\x04", b"\x80\x02"], ids=["zip", "pickle"])
 def test_torch_file_raises_naming_a12(tmp_path, head):
-    path = tmp_path / "ddpm.pt"
-    path.write_bytes(head + b"\x00" * 16)
-    with pytest.raises(ValueError, match="ROADMAP A12"):
+    """A reference (torch) UNet file in either torch.save format, made by
+    the JAX package's torch_export from seeded weights: load_params
+    without a converter raises the JAX package's message (before A12
+    ported the converters every such file raised), and the sampling CLI
+    loads it through convert_ddpm into exactly those weights."""
+    from ldm_image_generator_tpu.utils import torch_export as jte
+
+    cfg = UNetConfig().tiny()
+    want = seeded(UNet, cfg, 7)
+    path = str(tmp_path / "ddpm.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                jte.export_ddpm(flax_tree(want), JUNetConfig().tiny()).items()},
+               path, _use_new_zipfile_serialization=head.startswith(b"PK"))
+    with open(path, "rb") as f:
+        assert f.read(len(head)) == head
+    msg = (f"{path} is a PyTorch checkpoint; pass the matching "
+           "utils.torch_import converter to load it")
+    with pytest.raises(ValueError) as err:
         ck.load_params(str(path))
-    with pytest.raises(SystemExit, match="ROADMAP A12"):
-        sample_ldm.main(["--config", "tiny", "-d", "cpu", "-dp", str(path)])
+    assert err.value.args == (msg,)
+    with pytest.raises(ValueError) as jerr:
+        jload(path, None)
+    assert jerr.value.args == (msg,)
+    args = sample_ldm.build_parser().parse_args(
+        ["--config", "tiny", "-d", "cpu", "-dp", path, "-decp", str(tmp_path / "none")])
+    assert_same_params(sample_ldm.build_pipeline(args, 0, False)._src[0], want)
+    sample_ldm.main(["--config", "tiny", "-d", "cpu", "-dp", path, "-s", "16",
+                     "-t", "2", "-o", str(tmp_path / "out")])
+    assert (tmp_path / "out" / "0.png").stat().st_size > 0
 
 
 @pytest.mark.parametrize("classes,match", [

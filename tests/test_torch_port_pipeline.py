@@ -91,8 +91,11 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.convert",
     "ldm_image_generator_tpu_torch.pipelines",
     "ldm_image_generator_tpu_torch.cli.common",
+    "ldm_image_generator_tpu_torch.cli.convert",
     "ldm_image_generator_tpu_torch.cli.sample_ab",
+    "ldm_image_generator_tpu_torch.cli.sample_ddpm",
     "ldm_image_generator_tpu_torch.cli.sample_ldm",
+    "ldm_image_generator_tpu_torch.cli.train_ddpm",
     "ldm_image_generator_tpu_torch.cli.train_ldm",
     "ldm_image_generator_tpu_torch.cli.train_vae",
     "ldm_image_generator_tpu_torch.cli.vq_breakdown",
@@ -100,6 +103,7 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.data.loader",
     "ldm_image_generator_tpu_torch.diffusion.ddpm",
     "ldm_image_generator_tpu_torch.diffusion.dpm_solver",
+    "ldm_image_generator_tpu_torch.diffusion.engine",
     "ldm_image_generator_tpu_torch.kernels._build",
     "ldm_image_generator_tpu_torch.kernels.block_core",
     "ldm_image_generator_tpu_torch.kernels.ffn_block",
@@ -117,6 +121,8 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.utils.checkpoint",
     "ldm_image_generator_tpu_torch.utils.debug",
     "ldm_image_generator_tpu_torch.utils.metrics",
+    "ldm_image_generator_tpu_torch.utils.torch_export",
+    "ldm_image_generator_tpu_torch.utils.torch_import",
 ]
 
 

@@ -124,39 +124,50 @@ def _sequences(seed, shapes, steps):
     dict(lr_schedule="constant", warmup_steps=3),
     dict(accumulate=3, grad_clip=0.5, lr_schedule="cosine", warmup_steps=1,
          total_steps=4),
-], ids=["adamw", "clip", "warmup-cosine", "warmup", "multisteps"])
+    # 8 steps: RAdam's bias-corrected momentum on steps 1-5, its
+    # rectified update from step 6 (rho >= 5)
+    dict(name="radam", steps=8, grad_clip=0.5, lr_schedule="cosine",
+         warmup_steps=2, total_steps=9),
+], ids=["adamw", "clip", "warmup-cosine", "warmup", "multisteps", "radam"])
 def test_optimizer_matches_optax(kw):
+    """The port's optimizer against optax's jitted update, as the JAX
+    trainers run it (outside jit optax raises b**t for a concrete t by
+    repeated products, not XLA's pow)."""
+    kw = dict(kw)
+    name, steps = kw.pop("name", "adamw"), kw.pop("steps", 7)
     shapes = [(3, 4), (5,), (2, 2, 3)]
-    params, grads = _sequences(0, shapes, steps=7)
-    jtx = jsteps.make_optimizer("adamw", 1e-2, **kw)
+    params, grads = _sequences(0, shapes, steps=steps)
+    jtx = jsteps.make_optimizer(name, 1e-2, **kw)
+    jupdate = jax.jit(jtx.update)
     jp = [jnp.asarray(p) for p in params]
     jstate = jtx.init(jp)
-    ttx = tsteps.make_optimizer("adamw", 1e-2, **kw)
+    ttx = tsteps.make_optimizer(name, 1e-2, **kw)
     tp = [torch.from_numpy(p.copy()) for p in params]
     tstate = ttx.init(tp)
+    if name == "radam":
+        rect = [ttx.rectifier(t) is not None for t in range(1, steps + 1)]
+        assert rect == [False] * 5 + [True] * (steps - 5)
     for g in grads:
-        upd, jstate = jtx.update([jnp.asarray(a) for a in g], jstate, jp)
+        upd, jstate = jupdate([jnp.asarray(a) for a in g], jstate, jp)
         jp = optax.apply_updates(jp, upd)
         tstate = ttx.apply(tp, [torch.from_numpy(a) for a in g], tstate)
         for a, b in zip(tp, jp):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
 
 
-def test_torch_adamw_leaves_optax():
-    """Why the port writes AdamW out: torch.optim.AdamW (fused here)
-    forms the bias corrections 1 - b**t in float64 where optax uses
-    float32, and on the sequence of test_optimizer_matches_optax[adamw]
-    it leaves optax beyond that test's tolerance."""
-    params, grads = _sequences(0, [(3, 4), (5,), (2, 2, 3)], steps=7)
-    jtx = jsteps.make_optimizer("adamw", 1e-2)
+def _torch_optimizer_vs_optax(name: str, make, steps: int) -> float:
+    """max |torch.optim - optax| over (atol + rtol |optax|) of the
+    optimizer test's tolerance, over `steps` steps of its sequence."""
+    params, grads = _sequences(0, [(3, 4), (5,), (2, 2, 3)], steps=steps)
+    jtx = jsteps.make_optimizer(name, 1e-2)
+    jupdate = jax.jit(jtx.update)
     jp = [jnp.asarray(p) for p in params]
     jstate = jtx.init(jp)
     tp = [torch.from_numpy(p.copy()) for p in params]
-    opt = torch.optim.AdamW(tp, lr=1e-2, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=1e-4, fused=True)
-    worst = 0.0  # max |torch - optax| over (atol + rtol |optax|)
+    opt = make(tp)
+    worst = 0.0
     for g in grads:
-        upd, jstate = jtx.update([jnp.asarray(a) for a in g], jstate, jp)
+        upd, jstate = jupdate([jnp.asarray(a) for a in g], jstate, jp)
         jp = optax.apply_updates(jp, upd)
         for p, a in zip(tp, g):
             p.grad = torch.from_numpy(a)
@@ -165,7 +176,30 @@ def test_torch_adamw_leaves_optax():
             b = np.asarray(b)
             worst = max(worst, float((np.abs(a.numpy() - b)
                                       / (1e-7 + 1e-6 * np.abs(b))).max()))
+    return worst
+
+
+def test_torch_adamw_leaves_optax():
+    """Why the port writes AdamW out: torch.optim.AdamW (fused here)
+    forms the bias corrections 1 - b**t in float64 where optax uses
+    float32, and on the sequence of test_optimizer_matches_optax[adamw]
+    it leaves optax beyond that test's tolerance."""
+    worst = _torch_optimizer_vs_optax("adamw", lambda tp: torch.optim.AdamW(
+        tp, lr=1e-2, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+        fused=True), steps=7)
     print(f"torch.optim.AdamW(fused=True) vs optax: {worst:.2f}x the tolerance")
+    assert worst > 1.0
+
+
+def test_torch_radam_leaves_optax():
+    """Why the port writes RAdam out: torch.optim.RAdam forms rho and the
+    bias corrections in float64, adds eps before scaling by sqrt(1 -
+    b2**t) and rectifies at rho > 5; over 8 steps (two rectified) of the
+    optimizer test's sequence it leaves optax.radam beyond that test's
+    tolerance."""
+    worst = _torch_optimizer_vs_optax("radam", lambda tp: torch.optim.RAdam(
+        tp, lr=1e-2, betas=(0.9, 0.999), eps=1e-8), steps=8)
+    print(f"torch.optim.RAdam vs optax: {worst:.2f}x the tolerance")
     assert worst > 1.0
 
 
@@ -179,8 +213,9 @@ def test_lr_schedules_match_optax():
     assert tsteps.make_lr_schedule(1e-4) == 1e-4
     with pytest.raises(ValueError):
         tsteps.make_lr_schedule(1e-4, "cosine", 5, 5)
+    assert isinstance(tsteps.make_optimizer("radam"), tsteps.RAdam)
     with pytest.raises(ValueError):
-        tsteps.make_optimizer("radam")
+        tsteps.make_optimizer("sgd")
 
 
 def _jax_ema(e, p, step, decay):
@@ -372,14 +407,40 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     (["--pipeline-stages", "2"], "A13"), (["--zero1"], "A13"),
     (["--config", "tiny-deep"], "A13"), (["-ep", "enc.pt"], "A12")])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
-    """Unported flags, and a reference (torch zip) encoder file: the
-    port reads the JAX package's parameter files, not torch ones."""
+    """Unported flags exit naming their ROADMAP item. A reference (torch)
+    encoder file, which the trainer refused until A12 ported the
+    converters: made by the JAX package's torch_export from seeded
+    weights, it loads through the CLI into the encoder that makes the
+    latents, exactly those weights."""
+    from ldm_image_generator_tpu.utils import torch_export as jte
     from ldm_image_generator_tpu_torch.cli import train_ldm
+    from ldm_image_generator_tpu_torch.convert import flax_tree
+    from ldm_image_generator_tpu_torch.models.vae import Encoder
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "enc.pt").write_bytes(b"PK\x03\x04")
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        train_ldm.main([str(tmp_path), "-d", "cpu", *flags])
+    if item != "A12":
+        (tmp_path / "enc.pt").write_bytes(b"PK\x03\x04")
+        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+            train_ldm.main([str(tmp_path), "-d", "cpu", *flags])
+        return
+    want = Encoder(VAEConfig().tiny(), device="cpu",
+                   generator=torch.Generator().manual_seed(7))
+    jte.save_state_dict(str(tmp_path / "enc.pt"),
+                        jte.export_encoder(flax_tree(want), JVAEConfig().tiny()))
+    loaded = {}
+    load = train_ldm.maybe_load
+
+    def spy(module, path, converter=None):
+        loaded[path] = module
+        return load(module, path, converter)
+
+    monkeypatch.setattr(train_ldm, "maybe_load", spy)
+    train_ldm.main([_images(tmp_path), "-d", "cpu", "--config", "tiny", "-s", "32",
+                    "-b", "2", "-e", "0", *flags])
+    got = loaded["enc.pt"].state_dict()
+    assert got.keys() == want.state_dict().keys()
+    for name, w in want.state_dict().items():
+        assert torch.equal(got[name], w), name
 
 
 def test_cuda_request_without_card_raises_in_trainer(tmp_path, monkeypatch):

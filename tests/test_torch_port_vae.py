@@ -588,14 +588,42 @@ def test_train_vae_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     (["-dp", "enc.pt"], "A12"), (["-qp", "enc.pt"], "A12"),
     (["-discp", "enc.pt"], "A12")])
 def test_train_vae_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, item):
-    """A reference (torch pickle) file for any of the four models: the
-    port reads the JAX package's parameter files."""
+    """A reference (torch) state_dict file for any of the four models,
+    which the trainer refused until ROADMAP `item` ported the converters:
+    made by the JAX package's torch_export from seeded weights, it loads
+    through the CLI, and the model starts from exactly those weights."""
+    from ldm_image_generator_tpu.utils import torch_export as jte
     from ldm_image_generator_tpu_torch.cli import train_vae
+    from ldm_image_generator_tpu_torch.convert import flax_tree
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "enc.pt").write_bytes(b"\x80\x02")
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        train_vae.main([str(tmp_path), "-d", "cpu", *flags])
+    cfg, dcfg = VAEConfig().tiny(), DiscriminatorConfig(**TINY_DISC)
+    gen = torch.Generator().manual_seed(7)
+    module, export = {
+        "-ep": (lambda: tvae.Encoder(cfg, device="cpu", generator=gen),
+                lambda t: jte.export_encoder(t, JVAEConfig().tiny())),
+        "-dp": (lambda: tvae.Decoder(cfg, device="cpu", generator=gen),
+                lambda t: jte.export_decoder(t, JVAEConfig().tiny())),
+        "-qp": (lambda: tvae.VectorQuantizer(cfg.num_embeddings, cfg.embedding_dim,
+                                             device="cpu", generator=gen),
+                jte.export_quantizer),
+        "-discp": (lambda: tvae.Discriminator(dcfg, device="cpu", generator=gen),
+                   lambda t: jte.export_discriminator(t, JDiscConfig(**TINY_DISC))),
+    }[flags[0]]
+    want = module()
+    jte.save_state_dict(str(tmp_path / flags[1]), export(flax_tree(want)))
+    with open(tmp_path / flags[1], "rb") as f:
+        assert f.read(2) == b"PK"
+    state = train_vae.main([_images(tmp_path), "-d", "cpu", "--config", "tiny",
+                            "-s", "32", "-b", "2", "-e", "0", "-r", "out", *flags])
+    got = {"-ep": lambda: state.vae_params["encoder"],
+           "-dp": lambda: state.vae_params["decoder"],
+           "-qp": lambda: state.vae_params["quantizer"],
+           "-discp": lambda: state.disc_params}[flags[0]]()
+    sw, sg = want.state_dict(), got.state_dict()
+    assert sw.keys() == sg.keys()
+    for name in sw:
+        assert torch.equal(sg[name], sw[name]), name
 
 
 def test_cuda_request_without_card_raises_in_vae_trainer(tmp_path, monkeypatch):
@@ -608,7 +636,12 @@ def test_cuda_request_without_card_raises_in_vae_trainer(tmp_path, monkeypatch):
 
 
 def test_make_optimizer_refuses_radam_naming_the_roadmap():
-    with pytest.raises(ValueError, match="A9"):
-        tsteps.make_optimizer("radam")
+    """radam is ported (the pixel DDPM's optimizer, with MultiSteps and
+    clipping as the others); an unknown name raises."""
+    tx = tsteps.make_optimizer("radam", grad_clip=1.0, accumulate=2)
+    assert isinstance(tx, tsteps.MultiSteps) and isinstance(tx.inner, tsteps.RAdam)
+    assert tx.inner.grad_clip == 1.0
+    with pytest.raises(ValueError, match="unknown optimizer 'sgd'"):
+        tsteps.make_optimizer("sgd")
     assert isinstance(tsteps.make_optimizer("adafactor"), tsteps.Adafactor)
     assert dataclasses.is_dataclass(tsteps.VAETrainState)
