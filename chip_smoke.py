@@ -162,6 +162,38 @@ no result line):
      phase 7 on the 3-channel UNet with RAdam, then RAdam on the card
      over the CPU's gradients for 7 steps (1-5 unrectified, 6-7
      rectified) against the CPU's, at phase 9's per-element tolerance.
+  16. training through int8 FFN weights, k-of-E routing, branch ablation
+     and KID, at full width. Phase 2 holds every kernel call of the int8
+     train steps against its plain version in both types, rerun bitwise
+     and between sentinel guards: at B=8 the int8 ffn_block and
+     ffn_block_bwd on the int8 round trip of its weights
+     (workloads.dequantized_bwd_inputs); at B=2 the int8 block_core,
+     window MHA both ways and ffn_block_bwd (round trip); and ffn_block at
+     the B=1 shapes of the conv-ablated UNet (the "split" rows). (1)
+     phase 6's trainer on the default UNet with ffn_quant='int8': a
+     warm-up and 5 steps of exactly 36 int8 ffn_block, 36 ffn_block_bwd,
+     8 window MHA, 8 backward and 0 full-precision ffn_block each, and 216
+     quantize_cols calls per step; finite losses, fp32 parameters and
+     EMA; steps/s, peak memory, a profile of one step; then one remat
+     step (72 int8 ffn_block, 16 window MHA, still 216 quantizations: the
+     recompute makes none) and one B=2 step (36 int8 block_core, 36
+     ffn_block_bwd). (2) phase 7 on the int8 UNet (its own flip budget,
+     INT8_FLIP_TENSORS), the int8 weights and scale-bias rows of both
+     sides equal, and the straight-through identity: the card's gradients
+     against the same step of a full-precision UNet on the card holding
+     the dequantized weights, within phase 7's gradient gate. (3) the
+     default UNet with each of norm, film, moe, conv and attn skipped and
+     with 3 experts per call, beside the full model: the launches of a
+     20-step B=1 sample (attn skipped: 720 block_core, 0 window MHA; conv
+     skipped: 720 ffn_block, 160 window MHA; the rest: no FFN kernel, 160
+     window MHA), and one bf16 denoise step at B=1 and B=4 through
+     utils/profiling (chained_time, trace; traces under
+     build/chip_smoke_traces/), each branch's cost the full model's time
+     less its ablation's; every final latent finite but no_norm's (its
+     activations overflow bf16). (4) patched KID (utils/quality.py) of two
+     seeded sets of 64 smooth 256px images, the second noised, through
+     the default Encoder and through random_conv_features: fp32 card vs
+     CPU within 1e-3 relative, seconds per call in bf16 and fp32.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -327,6 +359,7 @@ def phase_kernels(dev, reps: int) -> dict:
         bound_ms,
         bwd_scale_err,
         cond_body_calls,
+        dequantized_bwd_inputs,
         make_inputs,
         path_calls,
         train_calls,
@@ -414,6 +447,14 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b1-64") for c in path_calls(1, latent=64, int8=True)
         if c.kernel == "block_core_int8"] + [
         (c, "b4") for c in path_calls(4, int8=True) if c.kernel == "ffn_block_int8"]
+    # the int8 train step at B=2 (every block carries a stochastic-depth
+    # gate, so none folds its residual into block_core; a film per
+    # sample) and its backward kernels
+    b2 = path_calls(2, int8=True)
+    int8_b2 = [dataclasses.replace(c, residual=False, film_batch=2)
+               if c.kernel == "block_core_int8" else c for c in b2] + [
+        dataclasses.replace(c, kernel="ffn_block_bwd" if c.kernel == "block_core_int8"
+                            else c.kernel + "_bwd") for c in b2]
     # block_core without its residual (a conditioned decoder block) at the
     # B=1 decoder shapes, both weight types
     cond = [(c, "b1-cond") for c in cond_body_calls(1) + cond_body_calls(1, int8=True)]
@@ -424,7 +465,15 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "split-64") for c in cross64] + [
         # phase 15: every call of a pixel DDPM train step at B=16 (its maps
         # are the latent path's: 32/16/8/4)
-        (c, "ddpm_train") for c in train_calls(DDPM_BATCH)]
+        (c, "ddpm_train") for c in train_calls(DDPM_BATCH)] + [
+        # phase 16: the FFN calls of an int8 train step at B=8 (ffn_block
+        # on int8 weights, its backward on their int8 round trip) ...
+        (dataclasses.replace(c, kernel="ffn_block_int8", film_batch=c.batch), "int8_train")
+        for c in train_calls(TRAIN_BATCH) if c.kernel == "ffn_block"] + [
+        (c, "int8_train") for c in train_calls(TRAIN_BATCH) if c.kernel == "ffn_block_bwd"] + [
+        # ...and every call of the int8 train step at B=2: block_core on
+        # int8 weights, window MHA, and their backward kernels
+        (c, "int8_train_b2") for c in int8_b2]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -434,6 +483,8 @@ def phase_kernels(dev, reps: int) -> dict:
         extra = (call.heads,) if call.kernel.startswith("window_mha") else ()
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             args = make_inputs(call, dtype, dev, gen) + extra
+            if tag.startswith("int8_train") and call.kernel == "ffn_block_bwd":
+                args = dequantized_bwd_inputs(args)
             got, want = kernel(*args), plain(*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -454,8 +505,10 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
+            # split: also the B=1 ffn_block calls of a UNet without its conv
+            # branch (the ablation of phase 16)
             if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq")
-                    or tag == "ddpm_train"):
+                    or tag in ("ddpm_train", "int8_train", "int8_train_b2", "split")):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -499,7 +552,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # window MHA and the FFN kernels per step of every path they are on:
     # kernel, library (where there is one), bound
     for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
-        for tag in ("b1", "b4", "train", "ddpm_train"):
+        for tag in ("b1", "b4", "train", "ddpm_train", "int8_train", "int8_train_b2"):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
@@ -534,17 +587,23 @@ def phase_kernels(dev, reps: int) -> dict:
             f"{step('plain_ms'):.4f} ms, max abs err {max(r['max_abs_err'] for r in rs):.3e}")
     # the int8 routes per step of their paths, beside the same kernel with
     # full-precision (bf16) weights at the same shapes in this call
+    # (an int8 train step's B=8 forward beside a bf16 one's; B=2 has none)
     for name in ("block_core_int8", "ffn_block_int8"):
-        for tag in ("b1", "b1-64", "b4"):
+        for tag, fp_tag in (("b1", "b1"), ("b1-64", "b1-64"), ("b4", "b4"),
+                            ("int8_train", "train"), ("int8_train_b2", None)):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
             step = lambda rr, k: sum(r[k] * r["per_step"] for r in rr)
-            bf16 = [r for r in rows if r["kernel"] == name[:-5] and r["tag"] == tag]
-            ms, bms, fp_ms = step(rs, "ms"), step(rs, "bound_ms"), step(bf16, "ms")
-            log(f"{name} {tag} per step: kernel {ms:.4f} ms, bound {bms:.5f} ms "
-                f"(bound/kernel {bms / ms:.4f}); bf16 weights {fp_ms:.4f} ms, bound "
-                f"{step(bf16, 'bound_ms'):.5f} ms (int8/bf16 {ms / fp_ms:.3f})")
+            ms, bms = step(rs, "ms"), step(rs, "bound_ms")
+            line = (f"{name} {tag} per step: kernel {ms:.4f} ms, bound {bms:.5f} ms "
+                    f"(bound/kernel {bms / ms:.4f})")
+            bf16 = [r for r in rows if r["kernel"] == name[:-5] and r["tag"] == fp_tag]
+            if bf16:
+                fp_ms = step(bf16, "ms")
+                line += (f"; bf16 weights {fp_ms:.4f} ms, bound "
+                         f"{step(bf16, 'bound_ms'):.5f} ms (int8/bf16 {ms / fp_ms:.3f})")
+            log(line)
     summary = {}
     ddpm_rows = [r for r in rows if r["tag"] == "ddpm_train"]
     for name in fns:
@@ -565,6 +624,17 @@ def phase_kernels(dev, reps: int) -> dict:
             library_ms=None if None in libs else per_step("library_ms"),
             per=f"one {step} of its path: sum over its call shapes of calls "
                 "x cold-L2 ms per call, bf16")
+        for tag, batch in (("int8_train", TRAIN_BATCH), ("int8_train_b2", 2)):
+            rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
+            if not rs:
+                continue
+            summary[name][tag + "_step"] = dict(
+                batch=batch, **{k: sum(r[k] * r["per_step"] for r in rs)
+                                for k in ("ms", "plain_ms", "bound_ms")},
+                max_abs_err=max(r["max_abs_err"] for r in rs),
+                max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rs))
+            if name == "ffn_block_bwd":
+                summary[name][tag + "_step"]["weights"] = "the int8 round trip of bf16 weights"
         ddpm = [r for r in ddpm_rows if r["kernel"] == name]
         if ddpm:
             summary[name]["ddpm_train_step"] = dict(
@@ -684,9 +754,9 @@ def check_block_core_grads(dev, calls) -> None:
             require(worst <= BWD_REL[dtype], (call.label, dtype, worst))
 
 
-def run_path(pipe, batch: int, generator):
+def run_path(pipe, batch: int, generator, finite: bool = True):
     """(launch counts, final latent) of one 256px 20-step sample; its
-    uint8 images and finite latents checked."""
+    uint8 images and (with `finite`) finite latents checked."""
     reset_launch_counts()
     img, z = pipe.sample(generator, batch=batch, image_size=256, num_steps=20,
                          return_latent=True)
@@ -694,7 +764,8 @@ def run_path(pipe, batch: int, generator):
     counts = launch_counts()
     require(img.dtype == torch.uint8
             and tuple(img.shape) == (batch, 256, 256, 3), img.shape)
-    require(tuple(z.shape) == (batch, 32, 32, 8) and torch.isfinite(z).all(),
+    require(tuple(z.shape) == (batch, 32, 32, 8)
+            and (not finite or torch.isfinite(z).all()),
             "final latent finite and [B, 32, 32, 8]")
     return counts, z
 
@@ -849,7 +920,7 @@ def phase_card_vs_cpu(dev, cfg=None) -> float:
     log(f"card vs cpu fp32 step ({what}): max abs err {err:.3e}, output max {scale:.3e}")
     if cpu.cfg.ffn_quant == "int8":
         # the int8 weights each side made (quantize_cols on its own device)
-        made = [(a.ffn_weights(torch.float32), b.ffn_weights(torch.float32))
+        made = [(a.ffn_weights(torch.float32)[1][0], b.ffn_weights(torch.float32)[1][0])
                 for a, b in zip(cpu.modules(), card.modules()) if isinstance(a, RandomMoE)]
         differ = sum(int((x != y.cpu()).sum()) for w, v in made for x, y in zip(w, v))
         log(f"card vs cpu int8 weights: {differ} of "
@@ -1469,9 +1540,10 @@ def record_preactivations(unet) -> tuple:
     """Forward hooks on every block's MoE FFN and FiLM first layer:
     ({module name: record}, hook handles). An FFN's record is (b, near,
     ids) for its three towers (general, then the routed experts ids):
-    b = h @ wb + bb [3, N, M] and where b lies within C * 2**-23 * (|h| @
-    |wb| + |bb|) of 0, the most two fp32 sums over C terms in other orders
-    can differ (this one and a kernel's). A FiLM first layer's record is
+    b = h @ wb + bb [3, N, M] (int8 weights: at their dequantized copies)
+    and where b lies within C * 2**-23 * (|h| @ |wb| + |bb|) of 0, the
+    most two fp32 sums over C terms in other orders can differ (this one
+    and a kernel's). A FiLM first layer's record is
     where its output, the ReLU's input, is > 0."""
     from ldm_image_generator_tpu_torch.models.layers import FiLMProj1, RandomMoE
 
@@ -1482,7 +1554,11 @@ def record_preactivations(unet) -> tuple:
         ids = m.expert_ids(kwargs.get("expert_ids"), kwargs.get("pair_id")).tolist()
         bs, near = [], []
         with torch.no_grad():
-            for wb, bb in [(m.gwb, m.gbb)] + [(m.wb[e], m.bb[e]) for e in ids]:
+            gwb, gbb, wbs, bbs = m.gwb, m.gbb, m.wb, m.bb
+            if m.quant == "int8":  # the weights the forward ran at
+                dq = m.ffn_weights(h.dtype, dequantized=True)[1][1]
+                gwb, gbb, wbs, bbs = dq[2], dq[3], dq[8], dq[9]
+            for wb, bb in [(gwb, gbb)] + [(wbs[e], bbs[e]) for e in ids]:
                 wb, bb = wb.float(), bb.float()
                 b = h @ wb + bb
                 bound = h.shape[1] * 2.0 ** -23 * (h.abs() @ wb.abs() + bb.abs())
@@ -1547,12 +1623,14 @@ def explain_flip(name: str, over: torch.Tensor, units: dict, cpu_rec: dict,
 
 
 def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
-                            flip_tensors: int = FLIP_TENSORS) -> dict:
+                            flip_tensors: int = FLIP_TENSORS) -> tuple:
     """One fp32 train step at B=4, card kernels vs CPU plain versions,
     with t, noise, routing, stochastic-depth gates and (a conditional
     `cfg`) class ids injected (TF32 off, as main sets it), at most
     flip_tensors gradients flip-touched; with RAdam, check_radam_replay
-    after it."""
+    after it. (result, run): run holds the step's start parameters, both
+    states, the card's record_preactivations and loss, x and the injected
+    draws, for checks of that same step."""
     cpu_state, cpu_step = make_trainer("cpu", seed=3, dtype=torch.float32,
                                        ema=False, cfg=cfg, optimizer=optimizer)
     card_state, card_step = make_trainer(dev, seed=3, dtype=torch.float32,
@@ -1588,20 +1666,40 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
         f"{sum(int(u.sum()) for u in units.values())} of "
         f"{sum(u.numel() for u in units.values())}")
     require(loss_rel <= TRAIN_LOSS_REL_TOL, ("loss", l_card, l_cpu))
-    worst, worst_name, beyond = 0.0, "", []
-    card_params = dict(card_state.params.named_parameters())
     cpu_params = dict(cpu_state.params.named_parameters())
-    for name, p in cpu_params.items():
-        want, got = p.grad, card_params[name].grad.cpu()
+    worst, worst_name, flipped = compare_train_grads(
+        cpu_params, dict(card_state.params.named_parameters()), units, cpu_rec,
+        flip_tensors, "train card vs cpu")
+    out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
+               flip_touched=flipped)
+    if optimizer == "radam":
+        out["radam_replay"] = check_radam_replay(
+            dev, start, {n: p.grad for n, p in cpu_params.items()})
+    run = dict(start=start, cpu_state=cpu_state, card_state=card_state,
+               card_rec=card_rec, l_card=l_card, x=x, inject=inject)
+    return out, run
+
+
+def compare_train_grads(want_params: dict, got_params: dict, units: dict,
+                        want_rec: dict, flip_tensors: int, what: str) -> tuple:
+    """Each gradient of got_params within TRAIN_GRAD_REL_TOL of its max
+    abs of want_params' (the same parameter names), a ReLU-boundary flip
+    excepted (explain_flip over `units`, at most flip_tensors gradients,
+    each within FLIP_REL_TOL and FLIP_COLS), and every slice that is zero
+    in `want` zero in `got`: (worst rel, its name, the flip-touched
+    names)."""
+    worst, worst_name, beyond = 0.0, "", []
+    for name, p in want_params.items():
+        want, got = p.grad.cpu(), got_params[name].grad.cpu()
         scale = want.abs().max().item()
         if name.endswith("mha.bk"):
             # zero in exact arithmetic (softmax is invariant to a shift of
             # every key's score): both sides hold rounding noise of the
             # scale of the sibling query-bias gradient
-            scale = max(scale, cpu_params[name[:-2] + "bq"].grad.abs().max().item())
+            scale = max(scale, want_params[name[:-2] + "bq"].grad.abs().max().item())
         diff = (got - want).abs()
         if scale == 0.0:
-            require(diff.max().item() == 0.0, f"{name}: zero on the CPU, not on the card")
+            require(diff.max().item() == 0.0, f"{name}: zero in one, not in the other")
             continue
         if want.ndim >= 2:
             zero = want.flatten(1).abs().amax(1) == 0
@@ -1615,9 +1713,9 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
     direct = lambda n: n.rsplit(".", 1)[0].endswith((".ffn", ".encodings.proj1"))
     explained_blocks, flipped = set(), []
     for name, rel, over in sorted(beyond, key=lambda r: not direct(r[0])):
-        why = explain_flip(name, over, units, cpu_rec, explained_blocks)
+        why = explain_flip(name, over, units, want_rec, explained_blocks)
         cols = int(over.reshape(-1, over.shape[-1]).any(0).sum())
-        log(f"train card vs cpu: {name} {rel:.3e} of its max abs, "
+        log(f"{what}: {name} {rel:.3e} of its max abs, "
             f"{int(over.sum())} elements in {cols} columns: {why}")
         require(why is not None, f"{name}: beyond {TRAIN_GRAD_REL_TOL} with no "
                                  "ReLU unit that may have flipped")
@@ -1625,15 +1723,10 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
         if direct(name):
             explained_blocks.add(".".join(name.split(".")[:2]))
         flipped.append(name)
-    log(f"train card vs cpu: {len(flipped)} of {len(cpu_params)} gradients "
+    log(f"{what}: {len(flipped)} of {len(want_params)} gradients "
         f"flip-touched; the rest within {worst:.3e} of max abs ({worst_name})")
     require(len(flipped) <= flip_tensors, flipped)
-    out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
-               flip_touched=flipped)
-    if optimizer == "radam":
-        out["radam_replay"] = check_radam_replay(
-            dev, start, {n: p.grad for n, p in cpu_params.items()})
-    return out
+    return worst, worst_name, flipped
 
 
 # RAdam's steps replayed on the card over the CPU's gradients: 1-5 its
@@ -2565,6 +2658,305 @@ def phase_torch_files(dev, unet) -> dict:
         out[kind] = torch_file_round_trip(kind, make(10 + i), export, read)
     return out
 
+# phase 16: training through int8 FFN weights (B=8, and B=2 through
+# block_core): launches per step, and quantize_cols calls per step (the 6
+# matrices of each of the 36 blocks, once: the optimizer changes every
+# weight version)
+INT8_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=0, ffn_block_int8=36)
+INT8_REMAT_LAUNCHES = dict(INT8_TRAIN_LAUNCHES, ffn_block_int8=72, window_mha=16)
+INT8_B2_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=0, block_core_int8=36)
+INT8_QUANTIZATIONS = 6 * 36
+# the int8 UNet's fp32 B=4 step, card vs CPU (phase 7's check), and the
+# same step against the dequantized weights on the card: at most this
+# many gradients flip-touched each. Measured on the H100 (these seeds, the
+# same in every run): 2 of 792 against the CPU (one FiLM unit's kernel
+# and bias, 7.1e-3 of max abs), 1 straight-through (one FFN b unit,
+# 1.4e-3); the budget is the measured count plus 3, as phase 7's
+# (9 + 3) and phase 15's (15 + 3)
+INT8_FLIP_TENSORS = 5
+# branch ablation: one bf16 denoise step timed as the median of
+# ABLATE_CHAINS chains of ABLATE_CHAIN steps (after one warm-up chain),
+# its device time from a traced chain of ABLATE_TRACED steps, and the
+# launches per 20-step B=1 sample of each ablated UNet
+ABLATE_CHAIN = 5
+ABLATE_CHAINS = 3
+ABLATE_TRACED = 3
+ABLATE_CONFIGS = (("full", {}), ("no_norm", dict(ablate_branches=("norm",))),
+                  ("no_film", dict(ablate_branches=("film",))),
+                  ("no_moe", dict(ablate_branches=("moe",))),
+                  ("no_conv", dict(ablate_branches=("conv",))),
+                  ("no_attn", dict(ablate_branches=("attn",))),
+                  ("k3", dict(experts_per_call=3)))
+# KID: two seeded sets of KID_IMAGES smooth 256px images, the second the
+# first plus N(0, KID_NOISE) noise; fp32 card vs CPU within KID_REL_TOL of
+# the CPU's
+# the ablations whose 20-step sample may end non-finite: without the
+# channel norm the random-weight activations overflow bf16 (measured on
+# the H100); every other configuration's final latent must be finite
+ABLATE_OVERFLOWS = ("no_norm",)
+KID_IMAGES = 64
+KID_NOISE = 0.2
+KID_REL_TOL = 1e-3
+TRACE_DIR = os.path.join("build", "chip_smoke_traces")
+
+
+def ablate_launches(name: str) -> dict:
+    """Launches of one 256px 20-step B=1 sample of the ablated UNet: the
+    kernels take a block only with norm, film and moe on and 2 experts
+    per call (block_core with conv on as well, else ffn_block); window
+    MHA runs unless attn is skipped."""
+    counts = dict.fromkeys(launch_counts(), 0)
+    if name in ("full", "no_attn"):
+        counts["block_core"] = 720
+    elif name == "no_conv":
+        counts["ffn_block"] = 720
+    counts["window_mha"] = 0 if name == "no_attn" else 160
+    return counts
+
+
+def phase_int8_train(dev) -> dict:
+    """16.1: the default UNet with ffn_quant='int8' trained as phase 6
+    (B=8, bf16 compute, fp32 parameters, AdamW 1e-4, EMA 0.999): a warm-up
+    and TRAIN_STEPS steps with exact launches and quantizations per step,
+    finite losses, fp32 parameters and EMA, a gradient on every parameter;
+    steps/s, peak memory, a profile of one step. Then one remat step (the
+    recompute launches the forward again and quantizes nothing) and one
+    step at B=2 (block_core)."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+
+    cfg = UNetConfig(ffn_quant="int8")
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, cfg=cfg)
+    unet = state.params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    batch = lambda b=TRAIN_BATCH: torch.randn((b, 32, 32, 8), generator=data, device=dev)
+    state, _ = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    q0 = tffn.quantizations
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, made = launch_counts(), tffn.quantizations - q0
+    log("int8 train launches", json.dumps(counts), f"over {TRAIN_STEPS} steps, "
+        f"{made} quantizations")
+    require(counts == {k: v * TRAIN_STEPS for k, v in INT8_TRAIN_LAUNCHES.items()}, counts)
+    require(made == INT8_QUANTIZATIONS * TRAIN_STEPS, made)
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses), losses)
+    params = list(unet.named_parameters())
+    require(all(p.grad is not None for _, p in params), "a gradient on every parameter")
+    require(all(p.dtype == torch.float32 and torch.isfinite(p).all() for _, p in params),
+            "finite fp32 parameters")
+    require(all(torch.isfinite(e).all() for e in state.ema_params.values()), "finite EMA")
+    out = dict(launches=counts, quantizations=made, losses=losses, train_s=dt,
+               steps_per_s=TRAIN_STEPS / dt,
+               images_per_s=TRAIN_STEPS * TRAIN_BATCH / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"int8 train: {TRAIN_STEPS} steps in {dt:.4f} s, {out['steps_per_s']:.4f} "
+        f"steps/s at B={TRAIN_BATCH}, peak {out['peak_gib']:.3f} GiB, losses {losses}")
+    out["profile"] = profile_fn(lambda: step(state, batch(), generator=gen))
+    for name, b, want, remat in (("remat", TRAIN_BATCH, INT8_REMAT_LAUNCHES, True),
+                                 ("b2", 2, INT8_B2_LAUNCHES, False)):
+        unet.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        q0 = tffn.quantizations
+        state, m = step(state, batch(b), generator=gen)
+        torch.cuda.synchronize()
+        counts, made = launch_counts(), tffn.quantizations - q0
+        log(f"int8 train {name} step at B={b}: launches {json.dumps(counts)}, "
+            f"{made} quantizations, loss {m['loss'].item():.6f}")
+        require(counts == want, (name, counts))
+        require(made == INT8_QUANTIZATIONS, (name, made))
+        require(math.isfinite(m["loss"].item()), (name, m["loss"]))
+        out[f"{name}_launches"] = counts
+    unet.cfg = cfg
+    return out
+
+
+def ffn_modules(unet) -> list:
+    from ldm_image_generator_tpu_torch.models.layers import RandomMoE
+
+    return [(n, m) for n, m in unet.named_modules() if isinstance(m, RandomMoE)]
+
+
+def rec_to_cpu(rec: dict) -> dict:
+    """A record_preactivations record with its tensors on the CPU."""
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else (v[0].cpu(), v[1].cpu(), v[2])
+            for k, v in rec.items()}
+
+
+def check_int8_card_vs_cpu(dev, run: dict) -> dict:
+    """The int8 extras of phase 7's step on an int8 UNet (`run`, from
+    phase_train_card_vs_cpu): the int8 weights and scale-bias rows each
+    side made are equal, and the straight-through identity: the card's
+    gradients are those of the same step (same draws) of a
+    full-precision UNet holding the step's starting weights with the
+    card's dequantized FFN weights, within phase 7's gradient gate."""
+    start, cpu_state, card_state = run["start"], run["cpu_state"], run["card_state"]
+    # the step's int8 weights, made again on each side from its start
+    made = []
+    for state in (cpu_state, card_state):
+        with torch.no_grad():
+            for n, p in state.params.named_parameters():
+                p.copy_(start[n])
+        made.append([(n, m.ffn_weights(torch.float32, dequantized=True)[1])
+                     for n, m in ffn_modules(state.params)])
+    cpu_ffn, card_ffn = made
+    for (name, a), (_, b) in zip(cpu_ffn, card_ffn):
+        for u, v in zip(a[0], b[0]):
+            require(torch.equal(u, v.cpu()), f"{name}: int8 weights differ")
+    log(f"int8 train card vs cpu: the int8 weights and scale-bias rows of "
+        f"{len(cpu_ffn)} blocks equal on both sides")
+    cfg = dataclasses.replace(card_state.params.cfg, ffn_quant="none")
+    twin_state, twin_step = make_trainer(dev, seed=3, dtype=torch.float32,
+                                         ema=False, cfg=cfg)
+    twin = twin_state.params
+    names = ("gwa", "gba", "gwb", "gbb", "gwc", "gbc", "wa", "ba", "wb", "bb",
+             "wc", "bc")
+    with torch.no_grad():
+        for n, p in twin.named_parameters():
+            p.copy_(start[n])
+        for (_, a), (_, b) in zip(card_ffn, ffn_modules(twin)):
+            for name, v in zip(names, a[1]):
+                getattr(b, name).copy_(v)
+    rec, hooks = record_preactivations(twin)
+    _, m_twin = twin_step(twin_state, run["x"].to(dev),
+                          **{k: v.to(dev) for k, v in run["inject"].items()})
+    for handle in hooks:
+        handle.remove()
+    rec = rec_to_cpu(rec)
+    l_card, lt = run["l_card"], m_twin["loss"].item()
+    loss_rel = abs(l_card - lt) / abs(lt)
+    log(f"int8 straight-through on the card: loss {l_card:.8f} vs {lt:.8f} on "
+        f"the dequantized weights (rel {loss_rel:.3e})")
+    require(loss_rel <= TRAIN_LOSS_REL_TOL, ("straight-through loss", l_card, lt))
+    worst, worst_name, flipped = compare_train_grads(
+        dict(twin.named_parameters()), dict(card_state.params.named_parameters()),
+        flip_units(rec, run["card_rec"]), rec, INT8_FLIP_TENSORS,
+        "int8 straight-through on the card")
+    return dict(straight_through=dict(loss_rel=loss_rel, grad_rel=worst,
+                                      grad_rel_name=worst_name,
+                                      flip_touched=flipped))
+
+
+def busy_ms(prof, scope: str) -> float:
+    """Device-busy ms of a torch.profiler run: the CUDA kernels' self
+    time, without the span of the named scope `scope` (a record_function
+    range, which the profiler also lists as a device event)."""
+    return sum((getattr(ev, "self_device_time_total", 0.0) or 0.0) / 1e3
+               for ev in prof.key_averages()
+               if "CUDA" in str(getattr(ev, "device_type", "")) and ev.key != scope)
+
+
+def phase_ablation(dev) -> dict:
+    """16.3: the default UNet (seeded, bf16) with each branch skipped and
+    with 3 experts per call, beside the full model: the launches of a
+    20-step B=1 sample (exact; the final latent finite, but for the
+    ABLATE_OVERFLOWS configurations), and one denoise
+    step at B=1 and B=4, timed with profiling.chained_time (CUDA events;
+    the median of ABLATE_CHAINS chains) and traced (profiling.trace:
+    device-busy ms per step). A branch's cost is the full model's time
+    less its ablation's."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+    from ldm_image_generator_tpu_torch.utils import profiling
+
+    out = {}
+    for name, over in ABLATE_CONFIGS:
+        pipe = LDMPipeline.random(UNetConfig(**over), dtype=torch.bfloat16, device=dev,
+                                  seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        counts, z = run_path(pipe, 1, gen, finite=name not in ABLATE_OVERFLOWS)
+        require(counts == ablate_launches(name), (name, counts))
+        index, _ = pipe.film_schedule(32, 20)
+        t = next(iter(index))
+        row = dict(launches=counts, finite=bool(torch.isfinite(z).all()))
+        for b in (1, 4):
+            denoise = pipe.denoise_fn(32, 20, generator=gen)
+            x0 = torch.randn((b, 32, 32, 8), device=dev, generator=gen)
+            step_fn = lambda x: denoise(x, t)
+            runs = [profiling.chained_time(step_fn, x0, chain_len=ABLATE_CHAIN, iters=1,
+                                           warmup=int(i == 0))
+                    for i in range(ABLATE_CHAINS)]
+            row[f"b{b}_step_ms"] = 1e3 * sorted(runs)[len(runs) // 2]
+            scope = f"{name}_b{b}"
+            with profiling.trace(os.path.join(TRACE_DIR, scope)) as prof:
+                with profiling.named_scope(scope):
+                    profiling.chained_time(step_fn, x0, chain_len=ABLATE_TRACED,
+                                           iters=1, warmup=0)
+            row[f"b{b}_busy_ms"] = busy_ms(prof, scope) / ABLATE_TRACED
+        log(f"ablation {name}: B=1 {row['b1_step_ms']:.3f} ms per step "
+            f"(device busy {row['b1_busy_ms']:.3f}), B=4 {row['b4_step_ms']:.3f} ms "
+            f"(busy {row['b4_busy_ms']:.3f}); launches {json.dumps(counts)}; "
+            f"final latent finite: {row['finite']}")
+        out[name] = row
+        del pipe
+        torch.cuda.empty_cache()
+    full = out["full"]
+    for name, row in out.items():
+        if name != "full":
+            row["cost"] = {k: full[k] - row[k] for k in
+                           ("b1_step_ms", "b1_busy_ms", "b4_step_ms", "b4_busy_ms")}
+            log(f"branch cost {name} (full less ablated, ms per step): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["cost"].items()))
+    return out
+
+
+def phase_kid(dev) -> dict:
+    """16.4: patched KID (utils/quality.py) of two seeded sets of
+    KID_IMAGES 256px images, the second the first plus noise, through the
+    default VAE Encoder (seeded) and through random_conv_features: fp32
+    on the card against the CPU within KID_REL_TOL; seconds per call on
+    the card in bf16 and fp32."""
+    from ldm_image_generator_tpu_torch.config import VAEConfig
+    from ldm_image_generator_tpu_torch.models.vae import Encoder
+    from ldm_image_generator_tpu_torch.utils import profiling
+    from ldm_image_generator_tpu_torch.utils import quality
+
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(5)
+    # smooth images (uniform noise at 16px, bilinear to 256px): the added
+    # noise then moves every feature's statistics
+    real = F.interpolate(torch.rand((KID_IMAGES, 3, 16, 16), generator=gen) * 2 - 1,
+                         size=(256, 256), mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    fake = real + KID_NOISE * torch.randn(real.shape, generator=gen)
+    enc = Encoder(VAEConfig(), device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    enc_cpu = copy.deepcopy(enc).to("cpu")
+    conv_kid = lambda a, b: quality.kid(quality.random_conv_features(a),
+                                        quality.random_conv_features(b))
+    out = {}
+    for name, fn, cpu_fn in (
+            ("encoder", lambda a, b, dt: quality.kid_from_images(enc, a, b, dtype=dt),
+             lambda a, b: quality.kid_from_images(enc_cpu, a, b, dtype=torch.float32)),
+            ("random_conv", lambda a, b, dt: conv_kid(a, b), conv_kid)):
+        t0 = time.perf_counter()
+        want = cpu_fn(real, fake).item()
+        cpu_s = time.perf_counter() - t0
+        real_d, fake_d = real.to(dev), fake.to(dev)
+        got = fn(real_d, fake_d, torch.float32).item()
+        rel = abs(got - want) / abs(want)
+        # random_conv_features computes in fp32 whatever its input
+        types = (torch.bfloat16, torch.float32) if name == "encoder" else (torch.float32,)
+        secs = {str(dt).split(".")[-1]: profiling.time_fn(fn, real_d, fake_d, dt,
+                                                          iters=3, warmup=1)[0]
+                for dt in types}
+        log(f"KID {name}: card {got:.6f} vs cpu {want:.6f} (rel {rel:.3e}; cpu "
+            f"{cpu_s:.1f} s), card seconds per call {json.dumps(secs)}")
+        require(math.isfinite(got) and rel <= KID_REL_TOL, (name, got, want))
+        require(want > 0, (name, "KID of the noised set should be above 0", want))
+        out[name] = dict(card=got, cpu=want, rel=rel, cpu_s=cpu_s, seconds=secs)
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2615,7 +3007,7 @@ def main(argv) -> int:
     train = phase_train(dev)
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
     kernels["window_mha_bwd"]["launches"] = train["launches"]["window_mha_bwd"]
-    train_vs_cpu = phase_train_card_vs_cpu(dev)
+    train_vs_cpu = phase_train_card_vs_cpu(dev)[0]
     log(f"LDM training phases done at {time.perf_counter() - t_start:.1f} s")
     vae = phase_vae_train(dev)
     kernels["vq"]["launches"] = vae["launches"]["vq"]
@@ -2625,7 +3017,7 @@ def main(argv) -> int:
     resume = phase_resume(dev, state, step, gen)
     del state, step, gen
     torch.cuda.empty_cache()
-    cond_train_vs_cpu = phase_train_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))
+    cond_train_vs_cpu = phase_train_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))[0]
     remat = phase_remat(dev)
     run_loop = phase_run_loop(dev)
     log(f"training surface phases done at {time.perf_counter() - t_start:.1f} s")
@@ -2642,7 +3034,7 @@ def main(argv) -> int:
     del ddpm_state
     torch.cuda.empty_cache()
     ddpm_vs_cpu = phase_train_card_vs_cpu(dev, ddpm_cfg(), optimizer="radam",
-                                          flip_tensors=DDPM_FLIP_TENSORS)
+                                          flip_tensors=DDPM_FLIP_TENSORS)[0]
     log(f"pixel DDPM phases done at {time.perf_counter() - t_start:.1f} s")
     ddpm_paths = {f"ddpm_train_{TRAIN_STEPS}_steps": ddpm_train["launches"]}
     ddpm_paths.update({k: v["launches"] for k, v in ddpm_sample.items() if k != "cli"})
@@ -2650,6 +3042,26 @@ def main(argv) -> int:
                    "window_mha_bwd"):
         by_path = kernels[kernel].setdefault("launches_by_path", {})
         by_path.update({p: c[kernel] for p, c in ddpm_paths.items() if c[kernel]})
+    t16 = time.perf_counter()
+    int8_train = phase_int8_train(dev)
+    torch.cuda.empty_cache()
+    int8_vs_cpu, run = phase_train_card_vs_cpu(dev, UNetConfig(ffn_quant="int8"),
+                                               flip_tensors=INT8_FLIP_TENSORS)
+    int8_vs_cpu.update(check_int8_card_vs_cpu(dev, run))
+    del run
+    torch.cuda.empty_cache()
+    ablation = phase_ablation(dev)
+    kid = phase_kid(dev)
+    log(f"phase 16 (int8 training, ablation, KID) took {time.perf_counter() - t16:.1f} s; "
+        f"done at {time.perf_counter() - t_start:.1f} s")
+    int8_paths = {f"int8_train_{TRAIN_STEPS}_steps": int8_train["launches"],
+                  "int8_remat_step": int8_train["remat_launches"],
+                  "int8_train_b2_step": int8_train["b2_launches"]}
+    int8_paths.update({f"ablate_{k}_b1": v["launches"] for k, v in ablation.items()
+                       if k != "full"})
+    for kernel in kernels:
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in int8_paths.items() if c[kernel]})
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -2688,7 +3100,11 @@ def main(argv) -> int:
         "ddpm_train": ddpm_train,
         "ddpm_sample": ddpm_sample,
         "ddpm_train_card_vs_cpu": ddpm_vs_cpu,
-        "torch_files": torch_files}}))
+        "torch_files": torch_files,
+        "int8_train": int8_train,
+        "int8_train_card_vs_cpu": int8_vs_cpu,
+        "ablation": ablation,
+        "kid": kid}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 UNetConfig, VAEConfig and DDPMConfig carry the same defaults and
 ``tiny()`` presets as the JAX package; Precision uses torch dtypes.
-Options of the JAX configs whose code paths are not ported yet (the
-XLA backends, ablation) keep their fields so
+Options of the JAX configs whose code paths are not ported (the XLA
+backends) keep their fields so
 the two trees compare equal; the port rejects non-default values where
 it would otherwise ignore them (models/unet.py ``refusal``).
 """

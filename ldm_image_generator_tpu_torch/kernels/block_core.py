@@ -31,7 +31,10 @@ int8 FFN weights (``block_core_pallas(..., quantized=True)``; see
 ffn_block.py): the same routes with the weights read as int8 and each
 product scaled per column before its bias; the grouped conv, its bias
 and the residual stay in the compute dtype. The row-band schedule of the
-TPU kernel (a VMEM workaround) has no counterpart here either.
+TPU kernel (a VMEM workaround) has no counterpart here either. Training
+through them takes ffn_block's route (``int8=``): the forward on the int8
+weights, the backward at the dequantized ones with straight-through
+weight gradients.
 
 Gradients: ``block_core`` is an autograd Function. The TPU kernel had no
 backward of its own (its custom_vjp took the XLA VJP of block_core_xla);
@@ -50,8 +53,9 @@ from ldm_image_generator_tpu_torch.kernels.ffn_block import (
     _split_counters,
     check_ffn_args,
     ffn_tower_bwd,
+    check_int8,
+    int8_routes,
     norm_film,
-    refuse_int8_grad,
     reglu_sum_fp32,
 )
 
@@ -145,22 +149,24 @@ def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
 class _BlockCore(torch.autograd.Function):
     """block_core with a backward composed from the ported pieces (see
     the module note); the film cotangent of a batch-1 film is summed over
-    the batch."""
+    the batch. int8 copies as in ffn_block's _FfnBlock."""
 
     @staticmethod
-    def forward(ctx, x, film_mul, film_bias, *rest):
-        *tensors, add_residual = rest
-        out, h = _block_core_forward(x, film_mul, film_bias, *tensors,
-                                     add_residual=add_residual)
+    def forward(ctx, x, film_mul, film_bias, conv_kernel, conv_bias, expert_ids,
+                add_residual, int8, *weights):
+        run, at = int8_routes(weights, int8)
+        out, h = _block_core_forward(x, film_mul, film_bias, *run, conv_kernel,
+                                     conv_bias, expert_ids, add_residual=add_residual)
         ctx.add_residual = add_residual
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, film_mul, film_bias, *tensors, h)
+        ctx.save_for_backward(x, film_mul, film_bias, conv_kernel, conv_bias,
+                              expert_ids, h, *at)
         return out, h
 
     @staticmethod
     def backward(ctx, g, gh):
-        x, film_mul, film_bias, *weights, ck, cb, ids, h = ctx.saved_tensors
-        n_in = len(weights) + 7
+        x, film_mul, film_bias, ck, cb, ids, h, *weights = ctx.saved_tensors
+        n_in = len(weights) + 8
         if g is None and gh is None:
             return (None,) * n_in
         c = x.shape[-1]
@@ -179,17 +185,21 @@ class _BlockCore(torch.autograd.Function):
         if ctx.add_residual:
             dx = (dx.float() + g.float()).to(x.dtype)
         return (dx, dmul.reshape(film_mul.shape), dbias.reshape(film_bias.shape),
-                *dw, dck.to(ck.dtype), dcb.to(cb.dtype), None, None)
+                dck.to(ck.dtype), dcb.to(cb.dtype), None, None, None, *dw)
 
 
 def block_core(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
                wa, ba, wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids,
-               add_residual: bool = True):
+               add_residual: bool = True, int8=None):
     """(out, h), differentiable in every input but the ids. CPU tensors
     take the plain versions; CUDA tensors launch the kernel chains or
     raise. Grad mode off skips the autograd Function (see ffn_block);
-    int8 FFN weights run with grad mode off only."""
-    refuse_int8_grad(gwa.dtype == torch.int8)
-    fn = _BlockCore.apply if torch.is_grad_enabled() else _block_core_forward
-    return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
-              wb, bb, wc, bc, conv_kernel, conv_bias, expert_ids, add_residual)
+    int8: the int8 route of full-precision FFN weights, as ffn_block's."""
+    weights = (gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc)
+    check_int8(weights, int8)
+    if not torch.is_grad_enabled():
+        return _block_core_forward(x, film_mul, film_bias,
+                                   *(weights if int8 is None else int8[0]),
+                                   conv_kernel, conv_bias, expert_ids, add_residual)
+    return _BlockCore.apply(x, film_mul, film_bias, conv_kernel, conv_bias,
+                            expert_ids, add_residual, int8, *weights)

@@ -54,8 +54,14 @@ take the weights so quantized and run the same routes and launches
 (csrc/ffn_common.cuh, csrc/ffn_block.cu): each product on the weights
 converted to the compute dtype (exact, |q| <= 127) with fp32 sums, then
 its column scale and bias. That halves the weight bytes of bf16, which
-bound a batch-1 call. These calls have no backward yet: with grad mode
-on they raise (ROADMAP A15).
+bound a batch-1 call. Training through int8 weights follows the JAX
+package's XLA route (``fake_quantize``): the wrappers take the
+full-precision weights with their int8 forms and dequantized copies
+(``int8=``), run the forward on the int8 weights, and the backward is the
+full-precision one (the ffn_block_bwd kernel) at the dequantized
+weights, whose weight gradients pass straight through to the
+full-precision weights. The dequantization is a plain elementwise pass,
+as XLA's is.
 """
 from __future__ import annotations
 
@@ -138,13 +144,35 @@ def quantize_ffn(weights) -> tuple:
                  for t in quantize_cols(w, b))
 
 
-def refuse_int8_grad(quantized: bool) -> None:
-    """int8 weights have no backward yet: raise with grad mode on."""
-    if quantized and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "int8 FFN weights run forward only (sampling, under "
-            "torch.no_grad()); training through them, the straight-through "
-            "backward on the dequantized weights, is ROADMAP A15")
+def dequantize_ffn(qweights, dtype: torch.dtype) -> tuple:
+    """The 12 weights quantize_ffn made, dequantized (dequantize_cols)
+    and cast to dtype, contiguous (the kernels take them): the weights an
+    int8 backward differentiates at."""
+    return tuple(t.to(dtype).contiguous()
+                 for wq, sb in zip(qweights[0::2], qweights[1::2])
+                 for t in dequantize_cols(wq, sb))
+
+
+def check_int8(weights, int8) -> None:
+    """int8 weights given in place of the full-precision ones (the forms
+    quantize_ffn makes) run forward only, with grad mode off; training
+    through int8 weights passes the full-precision weights with
+    int8=(their int8 forms, their dequantized copies)."""
+    if weights[0].dtype == torch.int8 and (int8 is not None or torch.is_grad_enabled()):
+        raise ValueError(
+            "int8 weights given directly run with grad mode off only; to train "
+            "through them pass the full-precision weights with "
+            "int8=(quantize_ffn(w), dequantize_ffn(...))")
+
+
+def int8_routes(weights, int8):
+    """(the weights the forward runs on, those the backward is taken at)."""
+    if int8 is None:
+        return weights, weights
+    if int8[1] is None:
+        raise ValueError("a backward through int8 weights needs their "
+                         "dequantized copies (dequantize_ffn)")
+    return int8
 
 
 def norm_film(x: torch.Tensor, film_mul: torch.Tensor,
@@ -389,34 +417,49 @@ def ffn_tower_bwd(x, film_mul, film_bias, weights, expert_ids, h, g,
 class _FfnBlock(torch.autograd.Function):
     """ffn_block with its backward (the JAX package's custom_vjp around
     ffn_block_pallas, _ffb_fwd/_ffb_bwd): h, a forward output, is saved;
-    the cotangents of both outputs arrive, either may be None."""
+    the cotangents of both outputs arrive, either may be None. With int8
+    copies (ffn_block's int8=) the forward runs on the int8 weights and the
+    backward at the dequantized ones, its weight gradients returned as
+    those of `weights` (straight-through)."""
 
     @staticmethod
-    def forward(ctx, x, film_mul, film_bias, *rest):
-        out, h = _ffn_block_forward(x, film_mul, film_bias, *rest)
+    def forward(ctx, x, film_mul, film_bias, expert_ids, int8, *weights):
+        run, at = int8_routes(weights, int8)
+        out, h = _ffn_block_forward(x, film_mul, film_bias, *run, expert_ids)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, film_mul, film_bias, *rest, h)
+        ctx.save_for_backward(x, film_mul, film_bias, expert_ids, h, *at)
         return out, h
 
     @staticmethod
     def backward(ctx, g, gh):
-        x, film_mul, film_bias, *weights, ids, h = ctx.saved_tensors
+        x, film_mul, film_bias, ids, h, *weights = ctx.saved_tensors
         if g is None and gh is None:
-            return (None,) * (len(weights) + 4)
+            return (None,) * (len(weights) + 5)
         g = torch.zeros_like(h) if g is None else g.to(h.dtype).contiguous()
-        grads = ffn_tower_bwd(x, film_mul, film_bias, weights, ids, h, g, gh)
-        return (*grads, None)
+        dx, dmul, dbias, *dw = ffn_tower_bwd(x, film_mul, film_bias, weights,
+                                             ids, h, g, gh)
+        return (dx, dmul, dbias, None, None, *dw)
 
 
 def ffn_block(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
-              wa, ba, wb, bb, wc, bc, expert_ids):
+              wa, ba, wb, bb, wc, bc, expert_ids, int8=None):
     """(out, h), both [N, C], differentiable in every input but the ids.
     CPU tensors take the plain versions; CUDA tensors launch the kernel
     chains (forward and backward) or raise. With grad mode off
     (sampling) the autograd Function is skipped: it would record
-    nothing and costs host time per call. int8 weights (quantize_cols)
-    run with grad mode off only."""
-    refuse_int8_grad(gwa.dtype == torch.int8)
-    fn = _FfnBlock.apply if torch.is_grad_enabled() else _ffn_block_forward
-    return fn(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc, wa, ba,
-              wb, bb, wc, bc, expert_ids)
+    nothing and costs host time per call.
+
+    int8: the int8 route of full-precision weights: (the 12 weights as
+    quantize_ffn makes them from these, their dequantized copies in x's
+    dtype as dequantize_ffn makes them, or None with grad mode off). The
+    forward runs on the int8 weights; the backward is the full-precision
+    one at the dequantized weights, its weight gradients passed straight
+    through to the weights given (the JAX package's ffn_block(...,
+    quantized=True) on its XLA route). int8 weights given in place of the
+    full-precision ones run with grad mode off only (check_int8)."""
+    weights = (gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc)
+    check_int8(weights, int8)
+    if not torch.is_grad_enabled():
+        return _ffn_block_forward(x, film_mul, film_bias,
+                                  *(weights if int8 is None else int8[0]), expert_ids)
+    return _FfnBlock.apply(x, film_mul, film_bias, expert_ids, int8, *weights)

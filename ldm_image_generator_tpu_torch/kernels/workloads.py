@@ -14,7 +14,11 @@ import math
 import torch
 
 from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
-from ldm_image_generator_tpu_torch.kernels.ffn_block import quantize_ffn
+from ldm_image_generator_tpu_torch.kernels.ffn_block import (
+    dequantize_cols,
+    quantize_cols,
+    quantize_ffn,
+)
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand
 # type ("tf32": the tensor cores' TF32 rate)
@@ -42,6 +46,8 @@ class Call:
     heads: int = 0
     masked: bool = False
     residual: bool = True  # block_core: add_residual (False: a conditioned block)
+    film_batch: int = 1    # block kernels: the film's batch (a train step's
+                           # is the call's: one t per sample)
 
     @property
     def label(self) -> str:
@@ -51,7 +57,8 @@ class Call:
             return f"[{self.n},{self.l},{self.c}] h{self.heads}" + (
                 " mask" if self.masked else "")
         return f"[{self.batch},{self.hw},{self.hw},{self.c}]" + (
-            "" if self.residual else " no-res")
+            "" if self.residual else " no-res") + (
+            f" film{self.film_batch}" if self.film_batch > 1 else "")
 
 
 def path_calls(batch: int, latent: int = 32,
@@ -120,9 +127,9 @@ def _randn(shape, gen, device, scale=1.0, shift=0.0):
 def make_inputs(call: Call, dtype: torch.dtype, device,
                 gen: torch.Generator) -> tuple:
     """Positional arguments of the kernel wrapper for `call` (weights at
-    lecun scale, biases and FiLM random, film at batch 1; FFN width M = C
-    as ffn_mul=1 gives), cast to dtype; for a *_int8 call the FFN weights
-    then go through quantize_cols."""
+    lecun scale, biases and FiLM random, film at batch call.film_batch;
+    FFN width M = C as ffn_mul=1 gives), cast to dtype; for a *_int8 call
+    the FFN weights then go through quantize_cols."""
     c = m = call.c
     e = 4
     cast = lambda t: t.to(dtype).contiguous()
@@ -145,8 +152,9 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
         return (x, mask, *ws)
     hw, bt = call.hw, call.batch
     x = cast(_randn((bt, hw, hw, c), gen, device))
-    mul = cast(_randn((1, hw, hw, c), gen, device, 0.2, 1.0))
-    bias = cast(_randn((1, hw, hw, c), gen, device, 0.2))
+    fb = call.film_batch
+    mul = cast(_randn((fb, hw, hw, c), gen, device, 0.2, 1.0))
+    bias = cast(_randn((fb, hw, hw, c), gen, device, 0.2))
     ffn = (w(c, m, fan=c), b(m), w(c, m, fan=c), b(m), w(m, c, fan=m), b(c),
            w(e, c, m, fan=c), b(e, m), w(e, c, m, fan=c), b(e, m),
            w(e, m, c, fan=m), b(e, c))
@@ -165,6 +173,24 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
     conv_k = w(3, 3, 32, c, fan=9 * 32)
     # block_core's add_residual, positional after the ids, where it is False
     return (x, mul, bias, *ffn, conv_k, b(c), ids) + (() if call.residual else (False,))
+
+
+def dequantized_bwd_inputs(args: tuple) -> tuple:
+    """ffn_block_bwd's arguments (make_inputs) with each weight matrix and
+    its bias replaced by their int8 round trip (quantize_cols, then
+    dequantize_cols, in their dtype): the weights an int8 train step's
+    backward runs at."""
+    h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids = args
+
+    def round_trip(w, b=None):
+        b = w.new_zeros(w.shape[:-2] + w.shape[-1:]) if b is None else b
+        return tuple(t.to(w.dtype).contiguous()
+                     for t in dequantize_cols(*quantize_cols(w, b)))
+
+    (gwa, gba), (gwb, gbb), (wa, ba), (wb, bb) = (
+        round_trip(gwa, gba), round_trip(gwb, gbb), round_trip(wa, ba), round_trip(wb, bb))
+    return (h, g, gwa, gba, gwb, gbb, round_trip(gwc)[0], wa, ba, wb, bb,
+            round_trip(wc)[0], ids)
 
 
 def work(call: Call, dtype: torch.dtype):
@@ -213,7 +239,7 @@ def _block_work(call: Call, it: int):
         flops = 8 * rows * c * c + 4 * call.n * call.l * call.l * c
         return nbytes, flops
     rows = call.batch * call.hw * call.hw
-    film = 2 * call.hw * call.hw * c
+    film = 2 * call.film_batch * call.hw * call.hw * c
     # general + two experts: matrices and biases, or with int8 the
     # matrices at 1 byte and an fp32 scale and bias per output column
     if call.kernel.endswith("_int8"):

@@ -8,13 +8,17 @@ the activations they receive and cast each parameter to it at use, as
 flax's `dtype` field does: training keeps fp32 parameters and computes
 in bf16 (the cast's gradient reaches the fp32 parameter); the sampling
 pipeline casts copies of the modules once, so there the cast is a no-op.
-With int8 FFN weights (RandomMoE quant='int8', sampling only) each block
-quantizes its cast FFN weights once per weight version and keeps them.
+With int8 FFN weights (RandomMoE quant='int8') each block quantizes its
+cast FFN weights once per weight version and keeps them; training
+through them is straight-through to the parameters.
 
 The block body runs through the port's kernel wrappers: block_core at
 batch <= 2, ffn_block plus a plain grouped conv above, and window_mha for
 the attention blocks. Each wrapper takes its plain version for CPU
-tensors and its CUDA kernel for CUDA tensors.
+tensors and its CUDA kernel for CUDA tensors. A block with a branch of
+norm, FiLM or the MoE ablated, or with k != 2 experts per call, runs the
+plain composition on every device instead (SwinBlock), as the JAX
+package leaves those to XLA.
 
 Randomness is explicit: MoE routing arrives as expert ids (from the
 UNet's routing plan, a pair id, or fixed indices), and the
@@ -34,11 +38,16 @@ from ldm_image_generator_tpu_torch.kernels.block_core import (
     block_core,
     grouped_conv3x3,
 )
-from ldm_image_generator_tpu_torch.kernels.ffn_block import ffn_block, quantize_ffn
+from ldm_image_generator_tpu_torch.kernels.ffn_block import (
+    dequantize_ffn,
+    ffn_block,
+    quantize_ffn,
+)
 from ldm_image_generator_tpu_torch.kernels.window_attention import (
     NEG_INF,
     window_mha,
 )
+from ldm_image_generator_tpu_torch.ops.norm import channel_norm
 from ldm_image_generator_tpu_torch.ops.sinusoidal import (
     positional_encoding_2d,
     time_encoding_2d,
@@ -232,9 +241,21 @@ class RandomMoE(nn.Module):
     block's norm and FiLM (and, given conv params, its grouped conv and
     residual). Experts are stacked [E, ...]; the routed pair arrives as
     expert ids [2] int32, a pair id into pair_table, or the configured
-    fixed indices. quant='int8' runs the kernels' int8 routes on the
-    weights cast to the compute dtype and then quantized (quantize_cols);
-    those raise with grad mode on (training through them is ROADMAP A15)."""
+    fixed indices. ``plain`` is the unfused route on an already
+    normalized and FiLMed h, for any number k of routed experts.
+
+    quant='int8' runs the kernels' int8 routes. The weights are cast to
+    the compute dtype and then quantized (quantize_cols), as the JAX
+    package's fused TPU route does; its CPU route quantizes the fp32
+    parameters and casts after, so in bf16 a scale may differ from it by
+    a bf16 rounding (fp32 compute is the same either way). The int8
+    weights are made under no_grad once per weight version and kept, so
+    a remat recompute reuses them; with grad mode on the wrappers also
+    take the cast weights, attached to the graph, and the dequantized
+    copies (kept beside the int8 ones): the backward runs at those and
+    its weight gradients pass straight through to the parameters (the
+    JAX package's fake_quantize). An optimizer step changes every
+    version, so a train step quantizes each of a block's 6 matrices once."""
 
     def __init__(self, channels: int, init: ParamInit, ffn_mul: int = 1,
                  num_experts: int = 4,
@@ -269,7 +290,7 @@ class RandomMoE(nn.Module):
         self.has_fixed = fixed_expert_indices is not None
 
     def expert_ids(self, expert_ids=None, pair_id=None) -> torch.Tensor:
-        """The [2] int32 ids this call routes to."""
+        """The [k] int32 ids this call routes to (a pair id: k = 2)."""
         if expert_ids is not None:
             return expert_ids
         if pair_id is not None:
@@ -279,20 +300,27 @@ class RandomMoE(nn.Module):
         raise ValueError("RandomMoE needs expert_ids, a pair_id or "
                          "fixed_expert_indices (routing is drawn by the UNet)")
 
-    def ffn_weights(self, dtype: torch.dtype) -> tuple:
-        """The 12 FFN weights as the kernels take them at compute dtype:
-        cast, or with quant='int8' cast and quantized, made once per
+    def ffn_weights(self, dtype: torch.dtype, dequantized: bool = False):
+        """(w, int8): w the 12 FFN weights cast to the compute dtype (the
+        parameters themselves when they are in it); int8 None, or with
+        quant='int8' (their int8 forms, their dequantized copies in dtype
+        when `dequantized` or made before, else None), made once per
         weight version (a parameter's storage and in-place version) and
-        kept."""
-        w = (self.gwa, self.gba, self.gwb, self.gbb, self.gwc, self.gbc,
-             self.wa, self.ba, self.wb, self.bb, self.wc, self.bc)
+        kept. With quant='int8' and grad mode off, w is None: the int8
+        forms are all a forward needs, and a kept copy costs no cast."""
+        params = (self.gwa, self.gba, self.gwb, self.gbb, self.gwc, self.gbc,
+                  self.wa, self.ba, self.wb, self.bb, self.wc, self.bc)
         if self.quant == "none":
-            return cast_all(w, dtype)
-        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in w)
+            return cast_all(params, dtype), None
+        w = cast_all(params, dtype) if torch.is_grad_enabled() else None
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in params)
         if self._int8 is None or self._int8[0] != key:
             with torch.no_grad():
-                self._int8 = (key, quantize_ffn(cast_all(w, dtype)))
-        return self._int8[1]
+                made = quantize_ffn(cast_all(params, dtype) if w is None else w)
+            self._int8 = [key, made, None]
+        if dequantized and self._int8[2] is None:
+            self._int8[2] = dequantize_ffn(self._int8[1], dtype)
+        return w, tuple(self._int8[1:])
 
     def forward(self, x, film_mul, film_bias, conv_kernel=None,
                 conv_bias=None, add_residual: bool = False, expert_ids=None,
@@ -302,16 +330,37 @@ class RandomMoE(nn.Module):
         Parameters, film and conv params are cast to x.dtype."""
         ids = self.expert_ids(expert_ids, pair_id)
         dt = x.dtype
-        w = self.ffn_weights(dt)
+        w, int8 = self.ffn_weights(dt, dequantized=torch.is_grad_enabled())
+        if w is None:  # int8 without grad mode: the kernels take the int8 forms
+            w, int8 = int8[0], None
         film_mul, film_bias = cast_all((film_mul, film_bias), dt)
         if conv_kernel is not None:
             conv_kernel, conv_bias = cast_all((conv_kernel, conv_bias), dt)
             return block_core(x, film_mul, film_bias, *w, conv_kernel,
-                              conv_bias, ids, add_residual=add_residual)
+                              conv_bias, ids, add_residual=add_residual, int8=int8)
         c = x.shape[-1]
         out, h = ffn_block(x.reshape(-1, c), film_mul.reshape(-1, c),
-                           film_bias.reshape(-1, c), *w, ids)
+                           film_bias.reshape(-1, c), *w, ids, int8=int8)
         return out.reshape(x.shape), h.reshape(x.shape)
+
+    def plain(self, h, expert_ids=None, pair_id=None):
+        """general(h) + the sum of the routed experts of h [B, H, W, C], in
+        h's dtype (the JAX package's unfused XLA route): the k experts
+        gathered from the stacked weights, their products as einsums, the
+        sum of their output biases. With quant='int8' on the dequantized
+        weights, with straight-through gradients (fake_quantize)."""
+        ids = self.expert_ids(expert_ids, pair_id).long()
+        w, int8 = self.ffn_weights(h.dtype, dequantized=True)
+        if int8 is not None:
+            w = int8[1] if w is None else tuple(a + (b - a).detach()
+                                                for a, b in zip(w, int8[1]))
+        gwa, gba, gwb, gbb, gwc, gbc, wa, ba, wb, bb, wc, bc = w
+        out = ((h @ gwa + gba) * torch.relu(h @ gwb + gbb)) @ gwc + gbc
+        row = lambda b: b[ids][:, None, None, None, :]
+        xa = torch.einsum("bhwc,kcm->kbhwm", h, wa[ids]) + row(ba)
+        xb = torch.einsum("bhwc,kcm->kbhwm", h, wb[ids]) + row(bb)
+        experts = torch.einsum("kbhwm,kmc->bhwc", xa * torch.relu(xb), wc[ids])
+        return out + (experts + bc[ids].sum(0))
 
 
 class FiLMProj1(nn.Module):
@@ -380,17 +429,39 @@ class SwinBlock(nn.Module):
     on the branch: no gate and no condition (the JAX package's
     fold_res), since the fold rounds at another point. cond_channels:
     the condition tokens' width (0: an unconditioned model, whose
-    cross-attention params stay square)."""
+    cross-attention params stay square).
+
+    experts_per_call k and ablate_branches (names of 'norm', 'film',
+    'moe', 'conv', 'attn' to skip; a debugging and profiling aid) follow
+    the JAX package's rules: the kernels take the block only with norm,
+    film and moe on and k == 2 (block_core needs conv on as well);
+    otherwise it runs the plain composition, as the JAX package leaves it
+    to XLA: h = channel_norm(x) (x itself with norm skipped), times the
+    FiLM scale plus its shift (skipped with film), the plain MoE of k
+    experts (a zero branch with moe skipped), then the conv and the
+    attention where they are on. Parameters exist whatever is skipped,
+    and the routing and stochastic-depth draws are the UNet's, so their
+    count and order do not change either."""
+
+    BRANCHES = ("norm", "film", "moe", "conv", "attn")
 
     def __init__(self, channels: int, init: ParamInit, head_dim: int = 32,
                  window_size: int = 6, shift: int = 0, attention: bool = True,
                  num_experts: int = 4, ffn_mul: int = 1,
                  fixed_expert_indices: Optional[Sequence[int]] = None,
-                 ffn_quant: str = "none", cond_channels: int = 0):
+                 ffn_quant: str = "none", cond_channels: int = 0,
+                 experts_per_call: int = 2,
+                 ablate_branches: Optional[Sequence[str]] = None):
         super().__init__()
         c = channels
         heads = max(1, c // head_dim)
         self.attention = attention
+        self.skip = frozenset(ablate_branches or ())
+        unknown = self.skip - set(self.BRANCHES)
+        if unknown:
+            raise ValueError(f"ablate_branches {sorted(unknown)}: not among "
+                             f"{self.BRANCHES}")
+        self.fused = not self.skip & {"norm", "film", "moe"} and experts_per_call == 2
         self.encodings = Encodings(c, init)
         self.ffn = RandomMoE(c, init, ffn_mul=ffn_mul, num_experts=num_experts,
                              fixed_expert_indices=fixed_expert_indices,
@@ -404,24 +475,37 @@ class SwinBlock(nn.Module):
 
     def forward(self, x, t, film=None, expert_ids=None, gate=None, cond=None):
         """film: (mul, bias) replayed from the FiLM schedule, or None to
-        run the FiLM tower on t inline; expert_ids: [2] int32 routing, or
+        run the FiLM tower on t inline; expert_ids: [k] int32 routing, or
         None for the configured fixed indices; gate: the stochastic-depth
         keep (a 0/1 or bool scalar tensor) of a training forward, or None;
         cond: condition tokens [B, T, D] (a decoder stack's blocks of a
         conditioned forward), or None."""
-        mul, bias = film if film is not None else self.encodings(
-            x, t, return_film=True)
-        fused = x.shape[0] <= BLOCK_CORE_MAX_BATCH
-        fold = fused and gate is None and cond is None
-        if fused:
-            branch, h = self.ffn(x, mul, bias, conv_kernel=self.conv.kernel,
-                                 conv_bias=self.conv.bias, add_residual=fold,
-                                 expert_ids=expert_ids)
+        skip = self.skip
+        fused_conv = (self.fused and "conv" not in skip
+                      and x.shape[0] <= BLOCK_CORE_MAX_BATCH)
+        fold = fused_conv and gate is None and cond is None
+        if self.fused:
+            mul, bias = film if film is not None else self.encodings(
+                x, t, return_film=True)
+            if fused_conv:
+                branch, h = self.ffn(x, mul, bias, conv_kernel=self.conv.kernel,
+                                     conv_bias=self.conv.bias, add_residual=fold,
+                                     expert_ids=expert_ids)
+            else:
+                branch, h = self.ffn(x, mul, bias, expert_ids=expert_ids)
         else:
-            branch, h = self.ffn(x, mul, bias, expert_ids=expert_ids)
+            h = x if "norm" in skip else channel_norm(x)
+            if "film" not in skip:
+                mul, bias = film if film is not None else self.encodings(
+                    h, t, return_film=True)
+                h = h * cast(mul, h.dtype) + cast(bias, h.dtype)
+            branch = (torch.zeros_like(h) if "moe" in skip
+                      else self.ffn.plain(h, expert_ids))
+        if not fused_conv and "conv" not in skip:
             branch = branch + self.conv(h)
         if self.attention:
-            branch = branch + self.self_attention(h)
+            if "attn" not in skip:
+                branch = branch + self.self_attention(h)
             if cond is not None:
                 branch = branch + self.cross_attention(branch, cond)
         if gate is not None:
@@ -438,7 +522,9 @@ class SwinStack(nn.Module):
                  attention: bool = True, num_experts: int = 4,
                  ffn_mul: int = 1,
                  fixed_expert_indices: Optional[Sequence[int]] = None,
-                 ffn_quant: str = "none", cond_channels: int = 0):
+                 ffn_quant: str = "none", cond_channels: int = 0,
+                 experts_per_call: int = 2,
+                 ablate_branches: Optional[Sequence[str]] = None):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
@@ -449,13 +535,15 @@ class SwinStack(nn.Module):
                 num_experts=num_experts, ffn_mul=ffn_mul,
                 fixed_expert_indices=fixed_expert_indices,
                 ffn_quant=ffn_quant, cond_channels=cond_channels,
+                experts_per_call=experts_per_call,
+                ablate_branches=ablate_branches,
             ))
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_blocks)]
 
     def forward(self, x, t, film=None, expert_ids=None, gates=None, cond=None):
-        """film: {block_i: (mul, bias)} or None; expert_ids: [n, 2] int32
+        """film: {block_i: (mul, bias)} or None; expert_ids: [n, k] int32
         routing rows (None: each block's fixed indices); gates: [n]
         stochastic-depth keeps, or None (deterministic); cond: condition
         tokens for every block, or None."""

@@ -10,9 +10,13 @@ decoder stacks only.
 MoE routing: one routing plan per forward, a pair id for every block
 (encoder stages in order, then decoder stages from the deepest), either
 injected or drawn from an explicit torch.Generator; fixed_expert_indices
-pins every block instead. A training forward (deterministic=False) also
-takes one stochastic-depth keep per block in the same layout, injected
-(`sd_gates`) or drawn from the generator as u > p.
+pins every block instead. With experts_per_call k != 2 the plan is k
+distinct expert ids per block ([plan_length, k], drawn without
+replacement, as the JAX package's per-block jax.random.choice), and the
+blocks take the plain MoE route (the kernels read two expert ids). A
+training forward (deterministic=False) also takes one stochastic-depth
+keep per block in the same layout, injected (`sd_gates`) or drawn from
+the generator as u > p.
 
 Compute dtype: `forward(dtype=...)` casts the input, and every module
 casts its parameters at use to the activations' dtype, so fp32
@@ -44,8 +48,13 @@ the global RNG, not an explicit generator). ``collect_film`` (FiLM towers
 only) is not rematerialized.
 
 int8 FFN weights (``ffn_quant='int8'``, as the JAX package's UNetConfig):
-every block's MoE FFN runs the kernels' int8 routes, with grad mode off;
-``prepare_ffn`` makes the int8 weights ahead of a sampling run.
+every block's MoE FFN runs the kernels' int8 routes; a training forward
+takes the backward at the dequantized weights with straight-through
+gradients to the fp32 parameters (layers.RandomMoE); ``prepare_ffn``
+makes the int8 weights ahead of a sampling run.
+
+ablate_branches (SwinBlock branch names to skip; parameters are still
+created, so files and trees are unchanged) reaches every block.
 """
 from __future__ import annotations
 
@@ -68,10 +77,8 @@ from ldm_image_generator_tpu_torch.models.layers import (
 
 def refusal(cfg: UNetConfig):
     """The message refusing a config field this port would otherwise
-    accept and ignore, naming the ROADMAP item that ports it, or None."""
+    accept and ignore, or None."""
     todo = [
-        (cfg.experts_per_call != 2, "experts_per_call != 2: A12"),
-        (cfg.ablate_branches, "ablate_branches: A12"),
         (cfg.ffn_backend not in ("auto", "pallas"),
          f"ffn_backend={cfg.ffn_backend!r} (the JAX package's XLA "
          "composition, which rounds bf16 at other points than the kernels)"),
@@ -150,6 +157,9 @@ class UNet(nn.Module):
         why = refusal(cfg)
         if why:
             raise NotImplementedError(f"UNetConfig: {why} (see ROADMAP.md)")
+        if not 1 <= cfg.experts_per_call <= cfg.num_experts:
+            raise ValueError(f"experts_per_call {cfg.experts_per_call}: 1 to "
+                             f"num_experts ({cfg.num_experts})")
         dev = resolve_device(device)
         init = ParamInit(dev, generator)
         self.cfg = cfg
@@ -166,7 +176,9 @@ class UNet(nn.Module):
             num_experts=cfg.num_experts, ffn_mul=cfg.ffn_mul,
             fixed_expert_indices=cfg.fixed_expert_indices,
             ffn_quant=cfg.ffn_quant,
-            cond_channels=cfg.cond_channels if cfg.num_classes else 0)
+            cond_channels=cfg.cond_channels if cfg.num_classes else 0,
+            experts_per_call=cfg.experts_per_call,
+            ablate_branches=cfg.ablate_branches)
         for i in range(n):
             self.add_module(f"enc_stage_{i}", stack(i, False))
             if i != n - 1:
@@ -214,22 +226,31 @@ class UNet(nn.Module):
         return out
 
     def draw_plan(self, generator: torch.Generator) -> torch.Tensor:
-        """One routing plan: [plan_length] pair ids, uniform, from
-        `generator` (on the UNet's device)."""
-        return torch.randint(0, self.pairs.shape[0], (self.plan_length(),),
-                             generator=generator, device=self.pairs.device)
+        """One routing plan from `generator` (on the UNet's device):
+        [plan_length] pair ids, uniform; with experts_per_call k != 2,
+        [plan_length, k] int32 expert ids, k distinct per block, uniform
+        without replacement."""
+        cfg, n, dev = self.cfg, self.plan_length(), self.pairs.device
+        if cfg.experts_per_call == 2:
+            return torch.randint(0, self.pairs.shape[0], (n,),
+                                 generator=generator, device=dev)
+        u = torch.rand((n, cfg.num_experts), generator=generator, device=dev)
+        return u.argsort(dim=-1)[:, :cfg.experts_per_call].to(torch.int32)
 
     def routing(self, moe_plan=None, generator=None) -> Optional[dict]:
-        """{stage: [n_blocks, 2] int32 expert ids} from an injected plan of
-        pair ids or one drawn from `generator`; None when the config pins
-        fixed_expert_indices."""
+        """{stage: [n_blocks, k] int32 expert ids} from an injected plan
+        (see draw_plan) or one drawn from `generator`; None when the
+        config pins fixed_expert_indices."""
         if self.cfg.fixed_expert_indices is not None:
             return None
         if moe_plan is None:
             if generator is None:
                 raise ValueError("UNet routing needs moe_plan or a generator")
             moe_plan = self.draw_plan(generator)
-        return self._per_stage(self.pairs[moe_plan.to(self.pairs.device).long()])
+        moe_plan = moe_plan.to(self.pairs.device)
+        if self.cfg.experts_per_call == 2:
+            return self._per_stage(self.pairs[moe_plan.long()])
+        return self._per_stage(moe_plan.to(torch.int32))
 
     def sd_gates(self, sd_gates=None, generator=None) -> Optional[dict]:
         """{stage: [n_blocks] bool keeps} of a training forward, injected

@@ -23,6 +23,7 @@ from ldm_image_generator_tpu_torch.kernels.workloads import (
     GuardedBuffers,
     bwd_scale_err,
     cond_body_calls,
+    dequantized_bwd_inputs,
     make_inputs,
     near_tie_codebook,
     path_calls,
@@ -673,8 +674,92 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         bc[8] = bc[8][..., 1, :].contiguous()  # gbc without its scale row
         with pytest.raises(ValueError):
             tbc.block_core(*bc)
-    with pytest.raises(NotImplementedError, match="A15"):
+    # grad mode on (formerly refused, ROADMAP A15): the full-precision
+    # weights with int8=(their int8 forms, their dequantized copies), as
+    # RandomMoE passes them, run the int8 chain forward and the backward
+    # kernel at the dequantized copies, every gradient that of the plain
+    # version there; int8 weights given directly still refuse grad mode
+    fp = make_inputs(Call("ffn_block", 1, 4, 128, 1), torch.bfloat16, card, gen)
+    leaves = [a.detach().requires_grad_() for a in fp[:15]]
+    qw = tffn.quantize_ffn(leaves[3:])
+    dq = tffn.dequantize_ffn(qw, torch.bfloat16)
+    before = (tffn.int8_launches, tffn.bwd_launches, tffn.launches)
+    out = tffn.ffn_block(*leaves, fp[15], int8=(qw, dq))[0]
+    got = torch.autograd.grad(out.float().sum(), [leaves[0], *leaves[3:]])
+    assert (tffn.int8_launches, tffn.bwd_launches, tffn.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    at = [d.detach().requires_grad_() for d in dq]
+    want = torch.autograd.grad(
+        tffn.ffn_block_plain(leaves[0], *leaves[1:3], *at, fp[15])[0].float().sum(),
+        [leaves[0], *at])
+    for g, w in zip(got, want):
+        assert bwd_scale_err(g, w) <= BWD_REL[torch.bfloat16]
+    with pytest.raises(ValueError, match="grad mode off only"):
         tffn.ffn_block(*q)
+
+
+# the ffn_block calls of an int8 train step: B=8 (ffn_block, as
+# train_calls) and B=2 (block_core)
+INT8_TRAIN_CALLS = [c for c in train_calls(8) if c.kernel == "ffn_block"] + [
+    c for c in path_calls(2) if c.kernel == "block_core"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", INT8_TRAIN_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
+def test_int8_backward_at_the_train_shapes(card, call, dtype):
+    """Training through int8 weights at the train step's shapes: the
+    wrapper with full-precision weights and their int8 copies (made on
+    the card) launches the int8 forward and the backward kernel once
+    each, and its gradients in every differentiable input equal autograd
+    through the plain version at the dequantized weights (the
+    straight-through contract), each within workloads.BWD_REL of its
+    scale."""
+    gen = torch.Generator(device=card).manual_seed(22)
+    args = make_inputs(call, dtype, card, gen)
+    core = call.kernel == "block_core"
+    mod, fn, plain = (tbc, tbc.block_core, tbc.block_core_plain) if core else (
+        tffn, tffn.ffn_block, tffn.ffn_block_plain)
+    leaves = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+    qw = tffn.quantize_ffn(leaves[3:15])
+    dq = tffn.dequantize_ffn(qw, dtype)
+    cot = [torch.randn(args[0].shape, generator=gen, device=card).to(dtype)
+           for _ in range(2)]
+    before = (mod.int8_launches, mod.launches, tffn.bwd_launches)
+    torch.autograd.backward(fn(*leaves, int8=(qw, dq)), cot)
+    assert (mod.int8_launches, mod.launches, tffn.bwd_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    got = [t.grad for t in leaves if t.requires_grad]
+    ref = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+    ref[3:15] = [d.detach().requires_grad_() for d in dq]
+    torch.autograd.backward(plain(*ref), cot)
+    want = [t.grad for t in ref if t.requires_grad]
+    assert len(got) == len(want) == (17 if core else 15)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert bwd_scale_err(g, w) <= BWD_REL[dtype], i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_on_dequantized_weights(card, monkeypatch, dtype):
+    """ffn_block_bwd on int8 round-tripped weights at the B=8 train
+    shapes (workloads.dequantized_bwd_inputs): against its plain version,
+    rerun bitwise, and writing only inside its buffers."""
+    gen = torch.Generator(device=card).manual_seed(23)
+    for call in (c for c in train_calls(8) if c.kernel == "ffn_block_bwd"):
+        args = dequantized_bwd_inputs(make_inputs(call, dtype, card, gen))
+        got = tffn.ffn_block_bwd(*args)
+        for g, w in zip(got, tffn.ffn_block_bwd_plain(*args)):
+            assert bwd_scale_err(g, w) <= BWD_REL[dtype], call.label
+        assert all(torch.equal(a, b) for a, b in zip(tffn.ffn_block_bwd(*args), got))
+        monkeypatch.setattr(tffn, "_counters", {})
+        with GuardedBuffers() as guarded:
+            again = tffn.ffn_block_bwd(*args)
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert guarded.made and guarded.faults() == []
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 VQ_CALLS = vae_train_calls() + [

@@ -60,7 +60,11 @@ def seeded_unet(num_classes: int = 0, seed: int = 3, **cfg) -> UNet:
 
 
 def jax_tree(module) -> dict:
-    return jax.tree.map(jnp.asarray, flax_tree(module))
+    """The module's parameters as JAX arrays, copied: flax_tree's numpy
+    arrays share the parameters' memory, which jnp.asarray may alias on
+    the CPU, and an asynchronously dispatched JAX step would then read
+    parameters that the port's step is updating in place."""
+    return jax.tree.map(jnp.array, flax_tree(module))
 
 
 def jax_x_t(key, shape) -> np.ndarray:

@@ -121,6 +121,8 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.utils.checkpoint",
     "ldm_image_generator_tpu_torch.utils.debug",
     "ldm_image_generator_tpu_torch.utils.metrics",
+    "ldm_image_generator_tpu_torch.utils.profiling",
+    "ldm_image_generator_tpu_torch.utils.quality",
     "ldm_image_generator_tpu_torch.utils.torch_export",
     "ldm_image_generator_tpu_torch.utils.torch_import",
 ]

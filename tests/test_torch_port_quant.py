@@ -2,9 +2,10 @@
 quantization scheme, the int8 routes' plain versions against the Pallas
 kernels in interpret mode (quantized=True), a tiny int8 UNet step and an
 int8 pipeline sample against the JAX package's fake-quant XLA route, the
-straight-through gradient, the grad-mode refusal and the CLI; then the
-pipeline's cast copies (the caller's modules unchanged) and the config
-fields the UNet refuses. The CUDA int8 kernels are held against these
+straight-through gradient, grad mode through int8 weights and the CLI;
+then the pipeline's cast copies (the caller's modules unchanged) and the
+config fields the UNet refuses. Training through int8 weights against
+JAX: tests/test_torch_port_int8_train.py. The CUDA int8 kernels are held against these
 plain versions on the card by tests/test_torch_port_cuda.py."""
 import dataclasses
 
@@ -240,22 +241,44 @@ def test_fake_quantize_straight_through_gradient():
 
 
 def test_int8_refuses_grad_mode():
-    """int8 weights run forward only: with grad mode on the UNet (through
-    RandomMoE) and both wrappers raise, naming the ROADMAP item."""
+    """int8 weights train with grad mode on (ROADMAP A15, formerly
+    refused here): the UNet (through RandomMoE) gives every FFN
+    parameter a finite fp32 gradient, and both wrappers, given the
+    full-precision weights with int8=(their int8 forms, their
+    dequantized copies) as RandomMoE passes them, give the activations
+    and the weights the gradients of the plain versions at the
+    dequantized weights (straight-through). int8 weights given directly
+    still refuse grad mode; with grad mode off the UNet and block_core
+    run forward on them as before."""
     unet = UNet(UNetConfig(**INT8).tiny(), device="cpu",
                 generator=torch.Generator().manual_seed(0))
     x, t = torch.randn(1, 8, 8, 8), torch.tensor([5], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A15"):
-        unet(x, t)
-    w = tffn.quantize_ffn([torch.from_numpy(a) for a in _ffn_weights(32, 32)])
+    unet(x, t).square().mean().backward()
+    ffn = [p for n, p in unet.named_parameters() if ".ffn." in n]
+    assert ffn and all(p.grad is not None and p.grad.dtype == torch.float32
+                       and torch.isfinite(p.grad).all() for p in ffn)
+    assert unet.enc_stage_0.block_0.ffn.gwa.grad.abs().max() > 0
+    full = [torch.from_numpy(a) for a in _ffn_weights(32, 32)]
+    w = tffn.quantize_ffn(full)
+    dq = tffn.dequantize_ffn(w, torch.float32)
     ids = torch.tensor((0, 1), dtype=torch.int32)
-    rows = torch.randn(4, 32)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tffn.ffn_block(rows, rows, rows, *w, ids)
+    rows = torch.randn(4, 32, requires_grad=True)
     ck, cb = torch.randn(3, 3, 32, 32), torch.randn(32)
-    img = rows.reshape(1, 2, 2, 32)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tbc.block_core(img, img, img, *w, ck, cb, ids)
+    img = torch.randn(1, 2, 2, 32, requires_grad=True)
+    for fn, args in ((tffn.ffn_block, (rows, rows, rows)),
+                     (tbc.block_core, (img, img, img))):
+        extra = (ck, cb) if fn is tbc.block_core else ()
+        leaves = [t.detach().requires_grad_() for t in full]
+        got = torch.autograd.grad(fn(*args, *leaves, *extra, ids, int8=(w, dq))[0].sum(),
+                                  [args[0], *leaves])
+        plain = tbc.block_core_plain if fn is tbc.block_core else tffn.ffn_block_plain
+        at = [t.detach().requires_grad_() for t in dq]
+        want = torch.autograd.grad(plain(*args, *at, *extra, ids)[0].sum(), [args[0], *at])
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, **TOL)
+        with pytest.raises(ValueError, match="grad mode off only"):
+            fn(*args, *w, *extra, ids)
+    img = img.detach()
     with torch.no_grad():
         out = unet(x, t)
         got = tbc.block_core(img, img, img, *w, ck, cb, ids)
