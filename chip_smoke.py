@@ -194,6 +194,29 @@ no result line):
      seeded sets of 64 smooth 256px images, the second noised, through
      the default Encoder and through random_conv_features: fp32 card vs
      CPU within 1e-3 relative, seconds per call in bf16 and fp32.
+  17. parallel training (PERF.md §4): (a) two spawned ranks sharing the
+     card over gloo (one card cannot hold two NCCL ranks), each a
+     data-parallel rank of the default UNet's train step at global B=8
+     (bf16, AdamW, EMA): a warm-up and 3 timed steps of exactly 36
+     ffn_block, 36 ffn_block_bwd, 8 + 8 window MHA per rank, both ranks'
+     parameters bitwise equal; an fp32 DP step against the 1-process B=8
+     step on the card (loss within 1e-5, gradients by phase 7's rule);
+     (b) the same steps with ZeRO-1: parameters and losses bitwise (a)'s,
+     each rank's optimizer state at most 0.55 of (a)'s, the state file
+     (moments gathered, rank 0 writes) restored into a 1-process state
+     bitwise; (c) a step through a 1-rank NCCL group; (d) the default
+     UNet pipelined in 3 stages on the card at B=6 (54 block_core, 18
+     ffn_block, 72 ffn_block_bwd, 8 + 8 window MHA per step) and an fp32
+     pipelined step against the plain one; (e) VAE DP, one vq per rank
+     per step, parameters bitwise across ranks; (f) `python -m
+     ...cli.train_ldm` in two processes of one group on seeded 256px
+     PNGs, rank 0 alone writing. Steps/s, the device-busy ms of one
+     profiled step, the all-reduce wall and the peak memory of each,
+     beside the card's name and power limit. `--phase 17` runs phases 1
+     and 17 alone (no result line).
+Phase 2 also holds every kernel call of phase 17's paths (one rank's
+B=4 train step, the pipelined B=6 step, one rank's VAE step; tags
+dp2_train, gpipe3_train, dp2_vae_train), rerun bitwise between guards.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -473,7 +496,13 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "int8_train") for c in train_calls(TRAIN_BATCH) if c.kernel == "ffn_block_bwd"] + [
         # ...and every call of the int8 train step at B=2: block_core on
         # int8 weights, window MHA, and their backward kernels
-        (c, "int8_train_b2") for c in int8_b2]
+        (c, "int8_train_b2") for c in int8_b2] + [
+        # phase 17: every call of one data-parallel rank's train step
+        # (B=4, a film per sample), of the pipelined train step and of one
+        # rank's VAE step
+        (c, "dp2_train") for c in per_sample_film(train_calls(DP_BATCH // DP_WORLD))] + [
+        (c, "gpipe3_train") for c in gpipe_calls()] + [
+        (c, "dp2_vae_train") for c in vae_train_calls(VAE_BATCH // DP_WORLD, VAE_CROP)]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -489,6 +518,9 @@ def phase_kernels(dev, reps: int) -> dict:
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
+            if call.kernel == "ffn_block_bwd" and dtype == torch.float32 and any(
+                    bwd_scale_err(g, w) > BWD_REL[dtype] for g, w in zip(got, want)):
+                want = ffn_bwd_boundary_plain(kernel, plain, args, got, call.label)
             err = 0.0  # max |kernel - plain| over the outputs, this dtype
             for g, w in zip(got, want):
                 require(torch.isfinite(g.float()).all(), (call, dtype))
@@ -508,7 +540,8 @@ def phase_kernels(dev, reps: int) -> dict:
             # split: also the B=1 ffn_block calls of a UNet without its conv
             # branch (the ablation of phase 16)
             if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq")
-                    or tag in ("ddpm_train", "int8_train", "int8_train_b2", "split")):
+                    or tag in ("ddpm_train", "int8_train", "int8_train_b2", "split")
+                    or tag in PARALLEL_TAGS):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -552,7 +585,8 @@ def phase_kernels(dev, reps: int) -> dict:
     # window MHA and the FFN kernels per step of every path they are on:
     # kernel, library (where there is one), bound
     for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
-        for tag in ("b1", "b4", "train", "ddpm_train", "int8_train", "int8_train_b2"):
+        for tag in ("b1", "b4", "train", "ddpm_train", "int8_train", "int8_train_b2",
+                    *PARALLEL_TAGS):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
@@ -635,6 +669,16 @@ def phase_kernels(dev, reps: int) -> dict:
                 max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rs))
             if name == "ffn_block_bwd":
                 summary[name][tag + "_step"]["weights"] = "the int8 round trip of bf16 weights"
+        for tag, batch in PARALLEL_TAGS.items():
+            rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
+            if rs:
+                summary[name][tag + "_step"] = dict(
+                    batch=batch, **{k: sum(r[k] * r["per_step"] for r in rs)
+                                    for k in ("ms", "plain_ms", "bound_ms")},
+                    max_abs_err=max(r["max_abs_err"] for r in rs),
+                    max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rs),
+                    library_ms=(None if rs[0]["library_ms"] is None
+                                else sum(r["library_ms"] * r["per_step"] for r in rs)))
         ddpm = [r for r in ddpm_rows if r["kernel"] == name]
         if ddpm:
             summary[name]["ddpm_train_step"] = dict(
@@ -645,6 +689,52 @@ def phase_kernels(dev, reps: int) -> dict:
                 library_ms=(None if ddpm[0]["library_ms"] is None
                             else sum(r["library_ms"] * r["per_step"] for r in ddpm)))
     return summary
+
+
+def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str) -> tuple:
+    """The plain version of an fp32 ffn_block_bwd call that takes the
+    kernel's ReLU decision where the two decided a b = h @ wb + bb the
+    other way, each such b within C 2^-23 (|h| @ |wb| + |bb|) of 0 (the
+    most two fp32 sums over C terms in other orders can differ; phase 7's
+    bound): a flip there moves a whole row of dh and a column of dwb
+    (measured on the H100: one at the pipelined step's [6,8,8,512], 2e-2
+    of the scale). The kernel's decisions are read back from its db
+    (nonzero where it took b > 0) through a rerun that keeps its
+    buffers; a decision apart from the boundary fails the run."""
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+    from ldm_image_generator_tpu_torch.kernels.workloads import GUARD, GuardedBuffers
+
+    h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids = args
+    (n, c), m = h.shape, wa.shape[-1]
+    saved, tffn._counters = tffn._counters, {}
+    try:
+        with GuardedBuffers() as bufs:
+            again = kernel(*args)
+            torch.cuda.synchronize()
+    finally:
+        tffn._counters = saved
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), "rerun bitwise equal")
+    dgate = next(buf[GUARD:GUARD + numel] for buf, numel, _ in bufs.made
+                 if numel == 9 * n * m).view(9, n, m)
+    kernel_pos = dgate[3:6] != 0  # [da | db | gate] x 3 towers
+    towers = [(gwa, gba, gwb, gbb, gwc)] + [
+        (wa[e], ba[e], wb[e], bb[e], wc[e]) for e in ids.tolist()]
+    plain_pos, matters, near = [], [], []
+    hf, hd = h.float(), h.double()
+    for w_a, b_a, w_b, b_b, w_c in towers:
+        # the plain version's fp32 products, and b in float64 with its bound
+        plain_pos.append(hf @ w_b.float() + b_b.float() > 0)
+        matters.append((hf @ w_a.float() + b_a.float()) * (g.float() @ w_c.float().t()) != 0)
+        exact = hd @ w_b.double() + b_b.double()
+        near.append(exact.abs() <= c * 2.0 ** -23 * (hd.abs() @ w_b.double().abs()
+                                                     + b_b.double().abs()))
+    plain_pos, matters, near = map(torch.stack, (plain_pos, matters, near))
+    differ = (kernel_pos != plain_pos) & matters
+    away = int((differ & ~near).sum())
+    log(f"ffn_block_bwd {label} fp32: {int(differ.sum())} ReLU decisions taken the "
+        f"other way by the kernel, {away} away from the boundary")
+    require(away == 0, (label, "ReLU decisions differ away from the boundary", away))
+    return plain(*args, b_pos=torch.where(differ, kernel_pos, plain_pos))
 
 
 def check_guarded_rerun(kernel, args, got) -> None:
@@ -1442,12 +1532,16 @@ def reset_launch_counts() -> None:
     tbc.int8_launches = tffn.int8_launches = 0
 
 
-def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "adamw"):
+def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "adamw",
+                 dp=None, zero1: bool = False, stages: int = 0):
     """(state, step) for the UNet of `cfg` (default: the default UNet) on
     dev: fp32 parameters from `seed`, `optimizer` (AdamW, or the pixel
     DDPM's RAdam) lr 1e-4, eps-prediction L1, stochastic depth on; a
     conditional UNet's step takes labels (dropped to the null class at
-    COND_DROP) or class ids (`cond`)."""
+    COND_DROP) or class ids (`cond`). dp: a parallel.mesh.DataParallel
+    the step is one rank of (zero1: its moments split over it); stages:
+    the UNet's deep stacks pipelined in that many stages on dev, one
+    microbatch per stage."""
     from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1458,15 +1552,21 @@ def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "a
         make_optimizer,
     )
 
+    from ldm_image_generator_tpu_torch.parallel.mesh import Zero1
+    from ldm_image_generator_tpu_torch.parallel.pipelined_unet import PipelinedUNet
+
     cfg = cfg or UNetConfig()
     unet = UNet(cfg, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(seed))
-    tx = make_optimizer(optimizer, 1e-4)
+    tx = make_optimizer(optimizer, 1e-4,
+                        zero1=Zero1(list(unet.parameters()), dp) if zero1 else None)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if ema else None)
     step = make_ldm_train_step(unet, make_schedule(DDPMConfig()), tx,
                                ema_decay=0.999 if ema else None, dtype=dtype,
-                               num_classes=cfg.num_classes, cond_drop=COND_DROP)
+                               num_classes=cfg.num_classes, cond_drop=COND_DROP,
+                               reduce_grads=dp,
+                               apply_fn=PipelinedUNet(unet, [dev] * stages) if stages else None)
     return state, step
 
 
@@ -1536,9 +1636,11 @@ def profile_fn(fn) -> dict:
                 top=[dict(ms=r[0], count=r[1], name=r[2][:90]) for r in rows[:25]])
 
 
-def record_preactivations(unet) -> tuple:
+def record_preactivations(unet, append: bool = False) -> tuple:
     """Forward hooks on every block's MoE FFN and FiLM first layer:
-    ({module name: record}, hook handles). An FFN's record is (b, near,
+    ({module name: record}, hook handles); with `append` the rows of a
+    module's later calls (a pipeline's microbatches, in order) are
+    appended to its record. An FFN's record is (b, near,
     ids) for its three towers (general, then the routed experts ids):
     b = h @ wb + bb [3, N, M] (int8 weights: at their dequantized copies)
     and where b lies within C * 2**-23 * (|h| @ |wb| + |bb|) of 0, the
@@ -1564,7 +1666,15 @@ def record_preactivations(unet) -> tuple:
                 bound = h.shape[1] * 2.0 ** -23 * (h.abs() @ wb.abs() + bb.abs())
                 bs.append(b)
                 near.append(b.abs() <= bound)
-        rec[name] = (torch.stack(bs), torch.stack(near), ids)
+        new = (torch.stack(bs), torch.stack(near), ids)
+        if append and name in rec:
+            old = rec[name]
+            new = (torch.cat([old[0], new[0]], 1), torch.cat([old[1], new[1]], 1), ids)
+        rec[name] = new
+
+    def film_hook(o, name):
+        new = o.detach() > 0
+        rec[name] = torch.cat([rec[name], new]) if append and name in rec else new
 
     for name, mod in unet.named_modules():
         if isinstance(mod, RandomMoE):
@@ -1573,7 +1683,7 @@ def record_preactivations(unet) -> tuple:
                 with_kwargs=True))
         elif isinstance(mod, FiLMProj1):
             handles.append(mod.register_forward_hook(
-                lambda m, a, o, name=name: rec.__setitem__(name, o.detach() > 0)))
+                lambda m, a, o, name=name: film_hook(o, name)))
     return rec, handles
 
 
@@ -1772,10 +1882,10 @@ def check_radam_replay(dev, start: dict, grads: dict) -> dict:
                 tensor_steps=RADAM_REPLAY_STEPS * len(names))
 
 
-def make_vae_trainer(dev, seed: int, dtype):
+def make_vae_trainer(dev, seed: int, dtype, dp=None):
     """(state, step) for the default VAE and discriminator on dev: fp32
     parameters from `seed`, Adafactor on both, crop VAE_CROP, computing
-    in dtype."""
+    in dtype; dp: the DataParallel group the step is one rank of."""
     from torch import nn
 
     from ldm_image_generator_tpu_torch.config import DiscriminatorConfig, VAEConfig
@@ -1804,7 +1914,8 @@ def make_vae_trainer(dev, seed: int, dtype):
                           opt_state_vae=tx_vae.init(list(vae.parameters())),
                           opt_state_disc=tx_disc.init(list(disc.parameters())))
     step = make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
-                               disc, tx_vae, tx_disc, crop_size=VAE_CROP, dtype=dtype)
+                               disc, tx_vae, tx_disc, crop_size=VAE_CROP, dtype=dtype,
+                               reduce_grads=dp)
     return state, step
 
 
@@ -2957,6 +3068,540 @@ def phase_kid(dev) -> dict:
     return out
 
 
+# phase 17: data parallelism over a process group, ZeRO-1 and the GPipe
+# pipeline at full width on the one card. One card cannot hold two NCCL
+# ranks, so the two ranks share cuda:0 over gloo (the port picks gloo when
+# ranks share a card), NCCL runs one step at world size 1, and the
+# pipeline's three stages all live on cuda:0. The times are the card's
+# own: two ranks time-slicing one card say nothing about scaling.
+PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_parallel")
+DP_WORLD = 2
+DP_BATCH = 8        # the global batch: 4 rows per rank
+DP_STEPS = 3
+# the DP loss (the mean of two 4-row means) against one process's 8-row
+# mean: fp32 sums in another order
+DP_LOSS_REL_TOL = 1e-5
+# each ZeRO-1 rank's optimizer-state bytes over plain DP's (W=2: ~0.5)
+ZERO1_STATE_SHARE = 0.55
+PIPE_STAGES = 3
+PIPE_BATCH = 6      # 3 microbatches of 2: block_core on the pipelined blocks
+PIPE_STEPS = 2
+# launches of one pipelined train step at B=6 (parallel/pipelined_unet.py):
+# the encoder stacks (3/3/9/3 blocks) all pipeline, 18 blocks x 3
+# microbatches of block_core, whose backward is ffn_block_bwd; the decoder
+# prefixes (1/1/7/1) do not divide into 3 and run at B=6 with the
+# attention tails: 18 ffn_block, 8 window MHA
+PIPE_LAUNCHES = dict(TRAIN_LAUNCHES, block_core=54, ffn_block=18, ffn_block_bwd=72)
+VAE_DP_STEPS = 2
+# phase 2's tags for the kernel calls of the phase 17 paths, and the
+# batch of each (per rank, or the pipelined step's)
+PARALLEL_TAGS = {"dp2_train": DP_BATCH // DP_WORLD, "gpipe3_train": PIPE_BATCH,
+                 "dp2_vae_train": VAE_BATCH // DP_WORLD}
+
+
+def per_sample_film(calls: list) -> list:
+    """A train step's forward block calls with a film per sample (t is
+    per sample in training)."""
+    return [dataclasses.replace(c, film_batch=c.batch)
+            if c.kernel in ("block_core", "ffn_block") else c for c in calls]
+
+
+def gpipe_calls() -> list:
+    """Every distinct kernel call of one pipelined train step (PIPE_STAGES
+    stages, PIPE_BATCH in PIPE_STAGES microbatches): the encoder blocks'
+    block_core at the microbatch (a stochastic-depth gate on every block,
+    so no residual fold) and its backward on ffn_block_bwd, once per
+    microbatch; the decoder blocks' ffn_block and the attention blocks'
+    window MHA at PIPE_BATCH, and their backward kernels
+    (PIPE_LAUNCHES)."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.kernels.workloads import Call, path_calls
+
+    cfg, mb = UNetConfig(), PIPE_BATCH // PIPE_STAGES
+    enc = [Call("block_core", mb, 32 >> i, c, per_step=nb * PIPE_STAGES, residual=False,
+                film_batch=mb) for i, (c, nb) in enumerate(zip(cfg.channels, cfg.stages))]
+    full = per_sample_film(path_calls(PIPE_BATCH))
+    dec = [dataclasses.replace(c, per_step=c.per_step // 2) if c.kernel == "ffn_block"
+           else c for c in full]
+    bwd = lambda c: dataclasses.replace(
+        c, kernel="ffn_block_bwd" if c.kernel == "block_core" else c.kernel + "_bwd")
+    return enc + dec + [bwd(c) for c in enc + dec]
+# the trainer CLI over two processes: 4 seeded 256px images, global batch
+# 2, one epoch (2 steps)
+CLI_IMAGES = 4
+CLI_BATCH = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def param_hash(params) -> int:
+    """A hash of the parameters' bits (int64 sums, wrapping), equal on two
+    ranks whose parameters are bitwise equal."""
+    total = None
+    for i, p in enumerate(params):
+        v = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, device=v.device, dtype=torch.int64)
+        h = (v * w).sum() * (i + 1)
+        total = h if total is None else total + h
+    return int(total.item())
+
+
+def opt_state_bytes(opt_state) -> int:
+    return sum(t.numel() * t.element_size() for t in opt_state.mu + opt_state.nu)
+
+
+def dp_train(dev, dp, rank: int, steps: int, zero1: bool = False) -> tuple:
+    """The default UNet (bf16 compute, AdamW 1e-4, EMA 0.999) as rank
+    `rank` of `dp`: a warm-up step, then `steps` timed steps on this
+    rank's rows of seeded global batches of DP_BATCH, each launching
+    exactly TRAIN_LAUNCHES; then the wall of one all-reduce of the
+    gradients and (rank 0) a profile of one more step. (result, state)."""
+    torch.cuda.reset_peak_memory_stats()
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, dp=dp,
+                               zero1=zero1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    rows = dp.rows(DP_BATCH)
+    batch = lambda: torch.randn((DP_BATCH, 32, 32, 8), generator=data, device=dev)[rows]
+    state, m = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    dp.barrier()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts == {k: v * steps for k, v in TRAIN_LAUNCHES.items()}, counts)
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses), losses)
+    params = list(state.params.parameters())
+    out = dict(launches=counts, losses=losses, steps_per_s=steps / dt,
+               params_hash=param_hash(params),
+               opt_state_bytes=opt_state_bytes(state.opt_state))
+    grads = [p.grad for p in params]
+    torch.cuda.synchronize()
+    dp.barrier()
+    t0 = time.perf_counter()
+    dp(grads)  # identical on every rank already: the mean leaves them as they are
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    fn = lambda: step(state, batch(), generator=gen)
+    out["device_busy_ms"] = profile_fn(fn)["device_busy_ms"] if rank == 0 else None
+    if rank != 0:
+        fn()
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out, state
+
+
+def merge_records(recs: list) -> dict:
+    """record_preactivations records of the ranks' rows, in rank order,
+    as one record of the global batch."""
+    out = {}
+    for name, first in recs[0].items():
+        if isinstance(first, torch.Tensor):
+            out[name] = torch.cat([r[name] for r in recs])
+        else:
+            out[name] = (torch.cat([r[name][0] for r in recs], 1),
+                         torch.cat([r[name][1] for r in recs], 1), first[2])
+    return out
+
+
+def fp32_inject(plan_length: int, batch: int) -> tuple:
+    """(x, draws) of an fp32 check: seeded latents and t, eps, routing
+    plan and stochastic-depth gates, on the CPU (phase 7's draws)."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((batch, 32, 32, 8), generator=gen)
+    return x, dict(t=torch.randint(1, 1000, (batch,), generator=gen),
+                   eps=torch.randn(x.shape, generator=gen),
+                   moe_plan=torch.randint(0, 6, (plan_length,), generator=gen),
+                   sd_gates=torch.rand(plan_length, generator=gen) > 0.25)
+
+
+def dp_fp32_check(dev, dp, rank: int) -> dict:
+    """One fp32 DP step (global B=DP_BATCH, the draws of the global batch
+    injected) against the 1-process step at B=DP_BATCH on the card from
+    the same weights: the loss within DP_LOSS_REL_TOL, the all-reduced
+    gradients by phase 7's rule (rank 1's preactivation record joins rank
+    0's through a file). Checked on rank 0."""
+    state, step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False, dp=dp)
+    x, inject = fp32_inject(state.params.plan_length(), DP_BATCH)
+    rec, hooks = record_preactivations(state.params)
+    _, m = step(state, x[dp.rows(DP_BATCH)].to(dev),
+                **{k: v.to(dev) for k, v in inject.items()})
+    for h in hooks:
+        h.remove()
+    path = os.path.join(PAR_DIR, "rec-1.pt")
+    if rank == 1:
+        torch.save(rec_to_cpu(rec), path)
+    dp.barrier()
+    out = {}
+    if rank == 0:
+        one_state, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+        one_rec, hooks = record_preactivations(one_state.params)
+        _, m1 = one_step(one_state, x.to(dev), **{k: v.to(dev) for k, v in inject.items()})
+        for h in hooks:
+            h.remove()
+        want_rec = rec_to_cpu(one_rec)
+        units = flip_units(want_rec, merge_records([rec_to_cpu(rec),
+                                                    torch.load(path, weights_only=False)]))
+        l_dp, l_one = m["loss"].item(), m1["loss"].item()
+        loss_rel = abs(l_dp - l_one) / abs(l_one)
+        log(f"dp fp32: loss {l_dp:.8f} vs 1 process {l_one:.8f} (rel {loss_rel:.3e})")
+        require(loss_rel <= DP_LOSS_REL_TOL, ("dp loss", l_dp, l_one))
+        worst, worst_name, flipped = compare_train_grads(
+            dict(one_state.params.named_parameters()),
+            dict(state.params.named_parameters()), units, want_rec, FLIP_TENSORS,
+            "dp fp32 vs 1 process")
+        out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
+                   flip_touched=flipped)
+        os.remove(path)
+    dp.barrier()
+    return out
+
+
+def zero1_state_file(dev, dp, rank: int, state) -> dict:
+    """The ZeRO-1 state as a file (moments gathered whole, rank 0 writes),
+    restored by each rank into a 1-process state: its parameters and EMA
+    bitwise the rank's, and its moments' slices bitwise the rank's."""
+    import shutil
+
+    from ldm_image_generator_tpu_torch.parallel.mesh import Zero1
+    from ldm_image_generator_tpu_torch.train.steps import make_optimizer
+    from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    params = list(state.params.parameters())
+    tx = make_optimizer("adamw", 1e-4, zero1=Zero1(params, dp))
+    full = dataclasses.replace(state, opt_state=tx.full_state(state.opt_state))
+    ckpt_dir = os.path.join(PAR_DIR, "zero1_ckpt")
+    t0 = time.perf_counter()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        TrainCheckpointer(ckpt_dir).save(state.step, full, [torch.Generator(device=dev)])
+    del full
+    dp.barrier()
+    save_s = time.perf_counter() - t0
+    one, _ = make_trainer(dev, seed=1, dtype=torch.bfloat16, ema=True)
+    one = TrainCheckpointer(ckpt_dir).restore(one, [torch.Generator(device=dev)])
+    require(one.step == state.step, (one.step, state.step))
+    for (n, p), q in zip(state.params.named_parameters(), one.params.parameters()):
+        require(torch.equal(p, q), f"restored parameter {n}")
+        require(torch.equal(state.ema_params[n], one.ema_params[n]), f"restored EMA {n}")
+    z = tx.zero1
+    for i in range(len(params)):
+        for mine, whole in ((state.opt_state.mu[i], one.opt_state.mu[i]),
+                            (state.opt_state.nu[i], one.opt_state.nu[i])):
+            require(torch.equal(mine, z.local(whole, i)), f"restored moment {i}")
+    dp.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir)
+    split = sum(d is not None for d in z.plan)
+    return dict(save_s=save_s, split_leaves=split, leaves=len(z.plan),
+                restored_bitwise=True)
+
+
+def vae_dp_train(dev, dp, rank: int) -> dict:
+    """The default VAE + discriminator (bf16, Adafactor) at global B=8,
+    512px cropped to 192, as rank `rank`: a warm-up, then VAE_DP_STEPS
+    steps of exactly one vq launch each; the all-reduce wall of the
+    VAE's gradients, a profile of one step on rank 0."""
+    torch.cuda.reset_peak_memory_stats()
+    state, step = make_vae_trainer(dev, seed=0, dtype=torch.bfloat16, dp=dp)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    rows = dp.rows(VAE_BATCH)
+    shape = (VAE_BATCH, VAE_IMAGE, VAE_IMAGE, 3)
+    batch = lambda: (torch.rand(shape, generator=data, device=dev) * 2 - 1)[rows]
+    state, m, _ = step(state, batch(), generator=gen)
+    torch.cuda.synchronize()
+    dp.barrier()
+    reset_launch_counts()
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(VAE_DP_STEPS):
+        state, m, _ = step(state, batch(), generator=gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    require(counts == {k: v * VAE_DP_STEPS for k, v in VAE_LAUNCHES.items()}, counts)
+    metrics = [{k: v.item() for k, v in mm.items()} for mm in metrics]
+    require(all(math.isfinite(v) for mm in metrics for v in mm.values()), metrics)
+    params = list(vae_named_parameters(state).values())
+    out = dict(launches=counts, metrics=metrics, steps_per_s=VAE_DP_STEPS / dt,
+               params_hash=param_hash(params))
+    grads = [p.grad for p in params]
+    torch.cuda.synchronize()
+    dp.barrier()
+    t0 = time.perf_counter()
+    dp(grads)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    fn = lambda: step(state, batch(), generator=gen)
+    out["device_busy_ms"] = profile_fn(fn)["device_busy_ms"] if rank == 0 else None
+    if rank != 0:
+        fn()
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def parallel_child(rank: int, device: str, port: int, queue) -> None:
+    """One rank of (a), (b) and (e) on `device` (both ranks share it): its
+    results as one JSON line on `queue` (or its error, and then it exits
+    non-zero)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from ldm_image_generator_tpu_torch.parallel.mesh import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        dp = DataParallel(dev)
+        out = {}
+        out["dp"], state = dp_train(dev, dp, rank, DP_STEPS)
+        del state
+        torch.cuda.empty_cache()
+        out["dp_fp32"] = dp_fp32_check(dev, dp, rank)
+        torch.cuda.empty_cache()
+        out["zero1"], state = dp_train(dev, dp, rank, DP_STEPS, zero1=True)
+        out["zero1"]["state_file"] = zero1_state_file(dev, dp, rank, state)
+        del state
+        torch.cuda.empty_cache()
+        out["vae"] = vae_dp_train(dev, dp, rank)
+        queue.put(json.dumps(dict(rank=rank, ok=True, **out)))
+    except BaseException:
+        queue.put(json.dumps(dict(rank=rank, ok=False, error=traceback.format_exc())))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(target, n: int, args: tuple, timeout_s: float) -> list:
+    """Start n spawned processes target(rank, *args, queue); their JSON
+    results in rank order. A child that fails or sends no result fails
+    the phase; every child is ended before this returns."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, *args, q)) for r in range(n)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.perf_counter() + timeout_s
+    try:
+        while len(results) < n and time.perf_counter() < deadline:
+            try:
+                res = json.loads(q.get(timeout=5))
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            if not res["ok"]:
+                log(f"rank {res['rank']} failed:\n{res['error']}")
+            results[res["rank"]] = res
+        for p in procs:
+            p.join(timeout=max(deadline - time.perf_counter(), 30))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(len(results) == n and all(r["ok"] for r in results.values()),
+            f"children: {sorted(results)} of {n} reported, exit codes "
+            f"{[p.exitcode for p in procs]}")
+    require(all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs])
+    return [results[r] for r in range(n)]
+
+
+def phase_gpipe(dev) -> dict:
+    """(d) The default UNet pipelined in PIPE_STAGES stages on the card
+    (bf16, AdamW, EMA) at B=PIPE_BATCH: exact launches per step, steps/s,
+    a profile; then one fp32 pipelined step against the plain step on
+    the card (loss within TRAIN_LOSS_REL_TOL, gradients by phase 7's rule;
+    block_core at microbatch 2 against ffn_block at 6, so not bitwise)."""
+    torch.cuda.reset_peak_memory_stats()
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True,
+                               stages=PIPE_STAGES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    batch = lambda: torch.randn((PIPE_BATCH, 32, 32, 8), generator=data, device=dev)
+    state, m = step(state, batch(), generator=gen)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(PIPE_STEPS):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    log("gpipe launches", json.dumps(counts), f"over {PIPE_STEPS} steps")
+    require(counts == {k: v * PIPE_STEPS for k, v in PIPE_LAUNCHES.items()}, counts)
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses), losses)
+    out = dict(launches=counts, losses=losses, steps_per_s=PIPE_STEPS / dt,
+               allreduce_ms=None)
+    out["device_busy_ms"] = profile_fn(lambda: step(state, batch(), generator=gen))[
+        "device_busy_ms"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    torch.cuda.empty_cache()
+    plain, plain_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+    piped, piped_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False,
+                                     stages=PIPE_STAGES)
+    x, inject = fp32_inject(plain.params.plan_length(), PIPE_BATCH)
+    x, inject = x.to(dev), {k: v.to(dev) for k, v in inject.items()}
+    want_rec, h1 = record_preactivations(plain.params)
+    got_rec, h2 = record_preactivations(piped.params, append=True)
+    _, m_plain = plain_step(plain, x, **inject)
+    _, m_pipe = piped_step(piped, x, **inject)
+    for h in h1 + h2:
+        h.remove()
+    want_rec = rec_to_cpu(want_rec)
+    units = flip_units(want_rec, rec_to_cpu(got_rec))
+    l_pipe, l_plain = m_pipe["loss"].item(), m_plain["loss"].item()
+    loss_rel = abs(l_pipe - l_plain) / abs(l_plain)
+    log(f"gpipe fp32: loss {l_pipe:.8f} vs plain {l_plain:.8f} (rel {loss_rel:.3e})")
+    require(loss_rel <= TRAIN_LOSS_REL_TOL, ("gpipe loss", l_pipe, l_plain))
+    worst, worst_name, flipped = compare_train_grads(
+        dict(plain.params.named_parameters()), dict(piped.params.named_parameters()),
+        units, want_rec, FLIP_TENSORS, "gpipe fp32 vs plain")
+    out["fp32"] = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
+                       flip_touched=flipped)
+    return out
+
+
+def phase_nccl(dev) -> dict:
+    """(c) One bf16 train step (after a warm-up) through a 1-rank NCCL
+    group, so the NCCL path is formed and called on the card: exact
+    launches, the all-reduce's wall."""
+    import torch.distributed as dist
+
+    from ldm_image_generator_tpu_torch.parallel.mesh import DataParallel
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        require(dist.get_backend() == "nccl", dist.get_backend())
+        out, state = dp_train(dev, DataParallel(dev), 0, 1)
+        del state
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli_parallel(dev) -> dict:
+    """(f) `python -m ...cli.train_ldm` in two processes of one group
+    (--coordinator, --process-id, --num-processes) on CLI_IMAGES seeded
+    256px images, the default config, one epoch of global batch
+    CLI_BATCH: both exit 0 over gloo, and only rank 0 writes the file."""
+    import numpy as np
+
+    from ldm_image_generator_tpu_torch.cli.sample_ldm import save_png
+
+    imgs = os.path.join(PAR_DIR, "cli_images")
+    os.makedirs(imgs, exist_ok=True)
+    rng = np.random.default_rng(0)
+    for i in range(CLI_IMAGES):
+        save_png(os.path.join(imgs, f"{i}.png"),
+                 rng.integers(0, 255, (256, 256, 3), dtype=np.uint8))
+    model = os.path.join(PAR_DIR, "cli_ddpm.msgpack")
+    if os.path.exists(model):
+        os.remove(model)
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ldm_image_generator_tpu_torch.cli.train_ldm", imgs,
+         "-s", "256", "-b", str(CLI_BATCH), "-e", "1", "-fp16", "true",
+         "-mp", model, "-ep", os.path.join(PAR_DIR, "no_encoder.msgpack"),
+         "--coordinator", f"127.0.0.1:{port}", "--process-id", str(r),
+         "--num-processes", str(DP_WORLD)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-12:]:
+            log(f"cli rank {r}: {line}")
+        require(p.returncode == 0, f"cli rank {r} exited {p.returncode}")
+        require("backend gloo" in out and "data-parallel over 2 processes" in out, r)
+    # rank 0 writes after the first batch and at the end; rank 1 never
+    saves = [out.count("saved ") for out in outs]
+    require(saves[0] >= 1 and saves[1] == 0 and os.path.getsize(model) > 0, saves)
+    os.remove(model)
+    return dict(wall_s=wall, saves=saves)
+
+
+def phase_parallel(dev) -> dict:
+    """Phase 17, (a)-(f): see the module docstring."""
+    t0 = time.perf_counter()
+    os.makedirs(PAR_DIR, exist_ok=True)
+    dev = torch.device(dev)
+    shared = "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    ranks = run_children(parallel_child, DP_WORLD, (shared, free_port()), timeout_s=600)
+    out = {}
+    for what in ("dp", "zero1", "vae"):
+        per = [r[what] for r in ranks]
+        require(per[0]["params_hash"] == per[1]["params_hash"],
+                f"{what}: the ranks' parameters differ")
+        out[what] = dict(per[0], peak_gib=[p["peak_gib"] for p in per],
+                         allreduce_ms=[p["allreduce_ms"] for p in per],
+                         steps_per_s=[p["steps_per_s"] for p in per])
+    require(out["zero1"]["params_hash"] == out["dp"]["params_hash"],
+            "ZeRO-1's parameters differ from plain DP's")
+    require(out["zero1"]["losses"] == out["dp"]["losses"], "ZeRO-1's losses differ")
+    share = [r["zero1"]["opt_state_bytes"] / r["dp"]["opt_state_bytes"] for r in ranks]
+    require(all(s <= ZERO1_STATE_SHARE for s in share), share)
+    out["zero1"]["opt_state_share"] = share
+    out["dp_fp32"] = ranks[0]["dp_fp32"]
+    log(f"phase 17 ranks done at {time.perf_counter() - t0:.1f} s")
+    out["nccl"] = phase_nccl(dev)
+    out["gpipe"] = phase_gpipe(dev)
+    torch.cuda.empty_cache()
+    out["cli"] = phase_cli_parallel(dev)
+    card = card_line()
+    for what in ("dp", "zero1", "nccl", "gpipe", "vae"):
+        r = out[what]
+        log(f"phase 17 {what}: steps/s {r['steps_per_s']}, device busy "
+            f"{r['device_busy_ms']} ms (one profiled step, rank 0), all-reduce wall "
+            f"{r['allreduce_ms']} ms per step, peak {r['peak_gib']} GiB; {card}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 (parallel) took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2977,6 +3622,12 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv == ["--phase", "17"]:
+        # phases 1 and 17 alone (a quicker check of the parallel paths);
+        # no result line: the whole check is the script without arguments
+        log(json.dumps({"phase17": phase_parallel(dev)}))
+        log(name)
+        return 0
     kernels = phase_kernels(dev, reps=10)
     log(f"kernels checked at {time.perf_counter() - t_start:.1f} s")
     path, pipe = phase_path(dev)
@@ -3062,6 +3713,20 @@ def main(argv) -> int:
     for kernel in kernels:
         by_path = kernels[kernel].setdefault("launches_by_path", {})
         by_path.update({p: c[kernel] for p, c in int8_paths.items() if c[kernel]})
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(dev)
+    parallel_paths = {
+        "dp2_train_step": {k: v // DP_STEPS for k, v in parallel["dp"]["launches"].items()},
+        "zero1_train_step": {k: v // DP_STEPS
+                             for k, v in parallel["zero1"]["launches"].items()},
+        "nccl1_train_step": parallel["nccl"]["launches"],
+        "gpipe3_train_step": {k: v // PIPE_STEPS
+                              for k, v in parallel["gpipe"]["launches"].items()},
+        "dp2_vae_step": {k: v // VAE_DP_STEPS for k, v in parallel["vae"]["launches"].items()}}
+    for kernel in kernels:
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in parallel_paths.items() if c[kernel]})
+    log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -3104,7 +3769,8 @@ def main(argv) -> int:
         "int8_train": int8_train,
         "int8_train_card_vs_cpu": int8_vs_cpu,
         "ablation": ablation,
-        "kid": kid}}))
+        "kid": kid,
+        "parallel": parallel}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

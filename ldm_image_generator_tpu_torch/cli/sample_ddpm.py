@@ -13,14 +13,16 @@ alone (batch 1) from a generator seeded with --seed + i, by DDIM or
 and written as <outdir>/<i>.png (the JAX CLI writes JPEG; the card
 machines have no PIL, so the stdlib PNG writer of cli/sample_ldm is
 used). Runs on `cuda` unless `-d cpu` is given; a CUDA request without a
-card raises.
+card raises. The JAX CLI's launch flags (--coordinator, --process-id,
+--num-processes) form a process group, as its setup_device does; each
+process then samples on its own card, cuda:(rank % device_count).
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args
+from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, add_launch_args
 from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, save_png, str2bool
 
 
@@ -29,6 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
                                             "(PyTorch/CUDA port)")
     p.add_argument("-dp", "--ddpmpath", default="./ddpm.pt")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    add_launch_args(p)
     p.add_argument("-fp16", default=True, type=str2bool,
                    help="bfloat16 compute (false: float32)")
     p.add_argument("-s", "--size", default=32, type=int)
@@ -52,18 +55,18 @@ def build_pipeline(args):
     --seed, then the -dp file where it exists."""
     import torch
 
+    from ldm_image_generator_tpu_torch.cli.common import setup_device
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
         DDPMConfig,
         UNetConfig,
-        resolve_device,
     )
     from ldm_image_generator_tpu_torch.models.unet import UNet
     from ldm_image_generator_tpu_torch.pipelines import DDPMPipeline
     from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
-    device = resolve_device(args.device)
+    device = setup_device(args)[0]
     ucfg = UNetConfig(input_channels=3)
     if args.config == "tiny":
         ucfg = ucfg.tiny()

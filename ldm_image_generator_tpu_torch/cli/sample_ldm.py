@@ -17,7 +17,9 @@ with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Writes
 --strength) samples img2img from that image, tiled over -n; --mask (a
 grayscale image, white = regenerate, black = keep) inpaints, DDIM only.
 Runs on `cuda` unless `-d cpu` is given; a CUDA request without a card
-raises.
+raises. The JAX CLI's launch flags (--coordinator, --process-id,
+--num-processes) form a process group, as its setup_device does; each
+process then samples on its own card, cuda:(rank % device_count).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import os
 import struct
 import zlib
 
-from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args
+from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, add_launch_args
 
 def str2bool(v: str) -> bool:
     if v.lower() in ("true", "1", "yes", "y", "t"):
@@ -64,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-dp", "--ddpmpath", default="./ddpm.pt")
     p.add_argument("-decp", "--decpath", default="./vae_decoder.pt")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    add_launch_args(p)
     p.add_argument("-fp16", default=False, type=str2bool,
                    help="bfloat16 compute (false: float32)")
     p.add_argument("-s", "--size", default=512, type=int)
@@ -180,20 +183,20 @@ def build_pipeline(args, seed: int, with_encoder: bool):
     exist."""
     import torch
 
+    from ldm_image_generator_tpu_torch.cli.common import setup_device
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
         DDPMConfig,
         UNetConfig,
         VAEConfig,
-        resolve_device,
     )
     from ldm_image_generator_tpu_torch.models.unet import UNet
     from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
     from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
-    device = resolve_device(args.device)
+    device = setup_device(args)[0]
     ucfg, vcfg = UNetConfig(), VAEConfig()
     if args.config == "tiny":
         ucfg, vcfg = ucfg.tiny(), vcfg.tiny()

@@ -60,6 +60,7 @@ import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from ldm_image_generator_tpu_torch.cli.common import add_launch_args
 from ldm_image_generator_tpu_torch.cli.sample_ldm import build_pipeline, str2bool
 
 
@@ -68,11 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-dp", "--ddpmpath", default="./ddpm.pt")
     p.add_argument("-decp", "--decpath", default="./vae_decoder.pt")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
-    # the JAX CLI's multi-process launch flags: refused (ROADMAP A13)
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
-    p.add_argument("--process-id", default=None, type=int, metavar="N")
-    p.add_argument("--num-processes", dest="num_processes_dist", default=None,
-                   type=int, metavar="N")
+    # the JAX CLI's launch flags: each process forms the group and serves
+    # on its own card, cuda:(rank % device_count)
+    add_launch_args(p)
     p.add_argument("-fp16", default=True, type=str2bool,
                    help="bfloat16 compute (false: float32)")
     p.add_argument("-s", "--size", nargs="+", default=[256], type=int,
@@ -603,10 +602,6 @@ def make_handler(server, encode, default_size=None, default_guidance=1.0,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if (args.coordinator is not None or args.process_id is not None
-            or args.num_processes_dist is not None):
-        raise SystemExit("multi-process serving (--coordinator, --process-id, "
-                         "--num-processes) is not ported yet: ROADMAP A13")
     if not 0.0 <= args.img2img_strength <= 1.0:
         raise SystemExit("--img2img-strength must be in [0, 1]")
     if args.guidance_scale != 1.0 and not args.num_classes:

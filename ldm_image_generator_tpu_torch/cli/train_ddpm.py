@@ -16,13 +16,16 @@ steps, and the run loop (cli/train_ldm.train_loop) writes JSON metric
 lines every 10 steps, checks them for NaN/Inf every 50 and saves -mp
 (and the EMA to -mp + ".ema") every --save-every batches and at the end,
 also after an interrupt or a SIGTERM. Runs on `cuda` unless `-d cpu` is
-given; a CUDA request without a card raises.
+given; a CUDA request without a card raises. --coordinator HOST:PORT
+--process-id r --num-processes N (each process the same command) trains
+data-parallel, as train_ldm does: -b is the global batch, the gradients
+are all-reduced, rank 0 writes the files.
 """
 from __future__ import annotations
 
 import argparse
 
-from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args
+from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, add_launch_args
 from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 
@@ -31,6 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                                             "(PyTorch/CUDA port)")
     p.add_argument("dataset_path", nargs="+")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    add_launch_args(p)
     p.add_argument("-e", "--epoch", default=3000, type=int)
     p.add_argument("-b", "--batch", default=16, type=int)
     p.add_argument("-mp", "--modelpath", default="./ddpm.pt")
@@ -55,13 +59,18 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     import torch
 
-    from ldm_image_generator_tpu_torch.cli.train_ldm import resume, saver, train_loop
+    from ldm_image_generator_tpu_torch.cli.common import setup_device
+    from ldm_image_generator_tpu_torch.cli.train_ldm import (
+        data_parallel,
+        resume,
+        saver,
+        train_loop,
+    )
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
         DDPMConfig,
         UNetConfig,
-        resolve_device,
     )
     from ldm_image_generator_tpu_torch.data.dataset import ImageDataset
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
@@ -75,7 +84,8 @@ def main(argv=None):
     )
     from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
-    device = resolve_device(args.device)
+    device = setup_device(args)[0]
+    dp = data_parallel(device)
     ucfg = UNetConfig(input_channels=3)
     if args.config == "tiny":
         ucfg = ucfg.tiny()
@@ -95,12 +105,12 @@ def main(argv=None):
                         total_steps=args.total_steps)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if args.ema > 0 else None)
-    state, ckpt = resume(args.ckpt_dir, state, gen)
+    state, ckpt = resume(args.ckpt_dir, state, gen, tx)
     step_fn = make_ldm_train_step(
         unet, schedule, tx, prediction=args.prediction,
         ema_decay=args.ema if args.ema > 0 else None,
         min_snr_gamma=args.min_snr_gamma if args.min_snr_gamma > 0 else None,
-        dtype=dtype)
+        dtype=dtype, reduce_grads=dp)
 
     def step(state, images):
         return step_fn(state, torch.from_numpy(images).to(device), generator=gen)
@@ -117,7 +127,7 @@ def main(argv=None):
 
     return train_loop(state, step, BatchLoader(ds, args.batch), epochs=args.epoch,
                       batch_size=args.batch,
-                      save_all=saver(args.modelpath, ckpt, gen),
+                      save_all=saver(args.modelpath, ckpt, gen, tx, dp),
                       save_every=args.save_every, validator=validator,
                       val_every=args.val_every)
 

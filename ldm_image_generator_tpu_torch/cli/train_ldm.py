@@ -26,13 +26,32 @@ files as the JAX package's) with a checkpoint every --save-every batches
 and at the end, also after an interrupt or a SIGTERM, which ends the run
 after the step in progress. Runs on `cuda` unless `-d cpu` is given; a
 CUDA request without a card raises.
+
+Parallel runs, as the JAX trainer's:
+  - data parallel: start the same command in each of N processes with
+    --coordinator HOST:PORT --process-id r --num-processes N (or the
+    LDM_* env vars). Each process loads its stripe of every global batch
+    (-b is the global batch), the gradients are all-reduced, and rank 0
+    writes the files. --zero1 splits the Adam moments over the
+    processes (parallel/mesh.py Zero1; the state file holds them whole,
+    so a run resumes at any process count);
+  - --pipeline-stages S [--pipeline-microbatches M]: the UNet's deep
+    stacks run through the GPipe schedule (parallel/pipelined_unet.py)
+    on the process's S cards ((rank * S + i) % device_count; S times the
+    CPU with -d cpu), M microbatches per step (default S); combines with
+    data parallelism across processes (not with --zero1).
 """
 from __future__ import annotations
 
 import argparse
 from typing import Callable
 
-from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, crossed, ema_path
+from ldm_image_generator_tpu_torch.cli.common import (
+    add_diffusion_args,
+    add_launch_args,
+    crossed,
+    ema_path,
+)
 from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 # metrics are checked for NaN/Inf each time the step count crosses a
@@ -45,8 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
                                             "(PyTorch/CUDA port)")
     p.add_argument("dataset_path", nargs="+")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    add_launch_args(p)
     p.add_argument("-e", "--epoch", default=1, type=int)
-    p.add_argument("-b", "--batch", default=1, type=int)
+    p.add_argument("-b", "--batch", default=1, type=int,
+                   help="the global batch (split over the processes)")
     p.add_argument("-mp", "--modelpath", default="./ddpm.pt")
     p.add_argument("-ep", "--encpath", default="./vae_encoder.pt")
     p.add_argument("-fp16", default=False, type=str2bool,
@@ -62,9 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", default=None,
                    help="full training-state checkpoints (resume from the "
                         "latest step there)")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: split the Adam moments over the data-parallel "
+                        "processes; numerics unchanged (ignored without them)")
     p.add_argument("--config", default="default",
                    choices=["default", "tiny", "tiny-deep"],
-                   help="model size preset (tiny = test/debug scale)")
+                   help="model size preset (tiny = test/debug scale; tiny-deep "
+                        "= tiny with a pipelinable deep stack)")
     p.add_argument("--num-classes", default=0, type=int,
                    help="class-conditional training: each positional dataset "
                         "dir is one class (-1 = one class per dir); 0 = "
@@ -75,24 +100,13 @@ def build_parser() -> argparse.ArgumentParser:
     add_diffusion_args(p, train=True)
     p.add_argument("--min-snr-gamma", default=0.0, type=float,
                    help="Min-SNR loss weighting gamma (0 = uniform)")
-    # flags of the JAX trainer whose paths are not ported: refused below
-    p.add_argument("--pipeline-stages", default=0, type=int)
-    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--pipeline-stages", default=0, type=int,
+                   help="GPipe pipeline parallelism: the UNet's deep homogeneous "
+                        "stacks over this many stages (one card each); 0 = off")
+    p.add_argument("--pipeline-microbatches", default=0, type=int,
+                   help="microbatches per pipelined step (default: "
+                        "= --pipeline-stages)")
     return p
-
-
-def refusal(args):
-    """The message refusing an option this port does not run yet, naming
-    the ROADMAP item that brings it, or None."""
-    todo = [
-        (args.pipeline_stages != 0, "--pipeline-stages", "A13 (parallelism)"),
-        (args.zero1, "--zero1", "A13 (parallelism)"),
-        (args.config == "tiny-deep", "--config tiny-deep", "A13 (parallelism)"),
-    ]
-    for hit, flag, item in todo:
-        if hit:
-            return f"{flag} is not ported yet: ROADMAP {item}"
-    return None
 
 
 def run_group(step: Callable, state, group: list):
@@ -177,10 +191,11 @@ def train_loop(state, step: Callable, loader, *, epochs: int, batch_size: int,
     return state
 
 
-def resume(ckpt_dir, state, gen):
+def resume(ckpt_dir, state, gen, tx):
     """(state, checkpointer): with --ckpt-dir a TrainCheckpointer there
     (a directory it did not write exits) and the state restored from its
-    latest step, the generator's state with it; else (state, None)."""
+    latest step, the generator's state with it (a ZeRO-1 rank keeps its
+    slices of the saved moments, tx.local_tree); else (state, None)."""
     if not ckpt_dir:
         return state, None
     from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
@@ -189,47 +204,89 @@ def resume(ckpt_dir, state, gen):
         ckpt = TrainCheckpointer(ckpt_dir)
     except ValueError as e:
         raise SystemExit(e.args[0]) from e
-    restored = ckpt.restore(state, [gen])
+    restored = ckpt.restore(state, [gen], transform=lambda tree: dict(
+        tree, opt_state=tx.local_tree(tree["opt_state"])))
     if restored is not None:
         state = restored
         print(f"Resumed from step {state.step}")
     return state, ckpt
 
 
-def saver(modelpath: str, ckpt, gen) -> Callable:
+def saver(modelpath: str, ckpt, gen, tx=None, dp=None) -> Callable:
     """save_all(state) of the diffusion trainers: the UNet to modelpath
     and the EMA (where kept) to modelpath + ".ema" as flax parameter
-    files, and the full state to the checkpointer (where there is one)."""
+    files, and the full state (tx.full_state: ZeRO-1 moments whole; the
+    optimizer tx is needed with a checkpointer) to the checkpointer
+    (where there is one). Under a data-parallel group
+    `dp` every rank calls it, rank 0 writes, and the ranks leave it
+    together."""
+    import dataclasses
+
     from ldm_image_generator_tpu_torch.convert import save_flax_file
 
     def save_all(state):
-        save_flax_file(state.params, modelpath)
-        saved = [modelpath]
-        if state.ema_params is not None:
-            save_flax_file(state.ema_params, ema_path(modelpath))
-            saved.append(ema_path(modelpath))
         if ckpt is not None:
-            saved.append(ckpt.save(state.step, state, [gen]))
-        print("saved " + ", ".join(saved), flush=True)
+            state = dataclasses.replace(state, opt_state=tx.full_state(state.opt_state))
+        if dp is None or dp.rank == 0:
+            save_flax_file(state.params, modelpath)
+            saved = [modelpath]
+            if state.ema_params is not None:
+                save_flax_file(state.ema_params, ema_path(modelpath))
+                saved.append(ema_path(modelpath))
+            if ckpt is not None:
+                saved.append(ckpt.save(state.step, state, [gen]))
+            print("saved " + ", ".join(saved), flush=True)
+        if dp is not None:
+            dp.barrier()
     return save_all
+
+
+def data_parallel(device):
+    """A DataParallel over the process group, or None for one process."""
+    import torch.distributed as dist
+
+    from ldm_image_generator_tpu_torch.parallel.mesh import DataParallel
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    dp = DataParallel(device)
+    print(f"data-parallel over {dp.world} processes", flush=True)
+    return dp
+
+
+def pipeline_check(args, world: int) -> int:
+    """The microbatch count of --pipeline-stages S, after the JAX
+    trainer's checks (S divides the device count, the batch splits into
+    the microbatches)."""
+    import torch
+
+    s = args.pipeline_stages
+    if args.device == "cuda" and torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        if n % s:
+            raise SystemExit(f"--pipeline-stages {s} must divide device count {n}")
+    mb = args.pipeline_microbatches or s
+    if (args.batch // world) % mb:
+        raise SystemExit(f"batch {args.batch} must split into {mb} microbatches"
+                         + (f" on each of {world} processes" if world > 1 else ""))
+    return mb
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    why = refusal(args)
-    if why:
-        raise SystemExit(why)
+    if args.fused_steps > 1 and args.pipeline_stages > 1:
+        raise SystemExit("--fused-steps and --pipeline-stages cannot be combined")
     import dataclasses
 
     import torch
 
+    from ldm_image_generator_tpu_torch.cli.common import launch_values, setup_device
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
         DDPMConfig,
         UNetConfig,
         VAEConfig,
-        resolve_device,
     )
     from ldm_image_generator_tpu_torch.data.dataset import LatentImageDataset
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
@@ -244,10 +301,17 @@ def main(argv=None):
     )
     from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
-    device = resolve_device(args.device)
+    stages = max(args.pipeline_stages, 1)
+    launch = launch_values(args)
+    mb = pipeline_check(args, launch[2] if launch else 1) if stages > 1 else 0
+    devices = setup_device(args, cards_per_rank=stages)
+    device = devices[0]
+    dp = data_parallel(device)
     ucfg, vcfg = UNetConfig(), VAEConfig()
     if args.config == "tiny":
         ucfg, vcfg = ucfg.tiny(), vcfg.tiny()
+    elif args.config == "tiny-deep":
+        ucfg, vcfg = ucfg.tiny_deep(), vcfg.tiny()
     num_classes = args.num_classes
     if num_classes == -1:
         num_classes = len(args.dataset_path)
@@ -279,21 +343,39 @@ def main(argv=None):
 
     unet = UNet(ucfg, device=device, generator=gen)
     maybe_load(unet, args.modelpath, lambda sd: ti.convert_ddpm(sd, ucfg))
+    apply_fn = None
+    if stages > 1:
+        from ldm_image_generator_tpu_torch.parallel.pipelined_unet import PipelinedUNet
+
+        apply_fn = PipelinedUNet(unet, devices, mb)
+        print(f"pipeline-parallel: {stages} stages x {dp.world if dp else 1} data "
+              f"shards, {mb} microbatches (pipelined blocks per stage: "
+              f"{apply_fn.pipelined()})")
+    zero1 = None
+    if args.zero1 and dp is not None and apply_fn is None:
+        from ldm_image_generator_tpu_torch.parallel.mesh import Zero1
+
+        zero1 = Zero1(list(unet.parameters()), dp)
+        print("ZeRO-1: optimizer state split over the data-parallel processes")
+    elif args.zero1:
+        print("--zero1 ignored: no data-parallel mesh engaged "
+              "(single device, pipeline mode, or batch % devices != 0)")
     schedule = make_schedule(DDPMConfig(prediction=args.prediction,
                                         zero_terminal_snr=args.zero_snr))
     tx = make_optimizer("adamw", args.learningrate,
                         accumulate=args.batch_multiply,
                         grad_clip=args.grad_clip, lr_schedule=args.lr_schedule,
                         warmup_steps=args.warmup_steps,
-                        total_steps=args.total_steps)
+                        total_steps=args.total_steps, zero1=zero1)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if args.ema > 0 else None)
-    state, ckpt = resume(args.ckpt_dir, state, gen)
+    state, ckpt = resume(args.ckpt_dir, state, gen, tx)
     step_fn = make_ldm_train_step(
         unet, schedule, tx, prediction=args.prediction,
         ema_decay=args.ema if args.ema > 0 else None,
         min_snr_gamma=args.min_snr_gamma if args.min_snr_gamma > 0 else None,
-        dtype=dtype, num_classes=num_classes, cond_drop=args.cond_drop)
+        dtype=dtype, num_classes=num_classes, cond_drop=args.cond_drop,
+        reduce_grads=dp, apply_fn=apply_fn)
 
     def step(state, item):
         latents, labels = item if num_classes > 0 else (item, None)
@@ -313,7 +395,7 @@ def main(argv=None):
 
     loader = BatchLoader(ds, args.batch, with_labels=num_classes > 0)
     return train_loop(state, step, loader, epochs=args.epoch, batch_size=args.batch,
-                      save_all=saver(args.modelpath, ckpt, gen),
+                      save_all=saver(args.modelpath, ckpt, gen, tx, dp),
                       save_every=args.save_every,
                       fused_steps=args.fused_steps, validator=validator,
                       val_every=args.val_every)

@@ -20,7 +20,11 @@ each {"params": ...} as the JAX package's (and a checkpoint to
 as JPEGs in the result dir; at the end the files are written again, also
 after an interrupt or a SIGTERM, which ends the run after the step in
 progress. Runs on `cuda` unless `-d cpu` is given; a CUDA request
-without a card raises.
+without a card raises. --coordinator HOST:PORT --process-id r
+--num-processes N (each process the same command) trains data-parallel:
+-b is the global batch, each process loads its stripe of it, both nets'
+gradients are all-reduced (the vq search runs on each process's rows),
+and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import os
 
 import numpy as np
 
+from ldm_image_generator_tpu_torch.cli.common import add_launch_args
 from ldm_image_generator_tpu_torch.cli.sample_ldm import maybe_load, str2bool
 
 
@@ -36,6 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train VAE (PyTorch/CUDA port)")
     p.add_argument("dataset_path")
     p.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"])
+    add_launch_args(p)
     p.add_argument("-e", "--epoch", default=1, type=int)
     p.add_argument("-b", "--batch", default=1, type=int)
     p.add_argument("-r", "--result", default="./results")
@@ -74,12 +80,13 @@ def main(argv=None):
     import torch
     from torch import nn
 
+    from ldm_image_generator_tpu_torch.cli.common import setup_device
+    from ldm_image_generator_tpu_torch.cli.train_ldm import data_parallel
     from ldm_image_generator_tpu_torch.config import (
         DEFAULT_PRECISION,
         FULL_PRECISION,
         DiscriminatorConfig,
         VAEConfig,
-        resolve_device,
     )
     from ldm_image_generator_tpu_torch.convert import save_flax_file
     from ldm_image_generator_tpu_torch.data.dataset import ImageDataset
@@ -103,7 +110,9 @@ def main(argv=None):
     )
     from ldm_image_generator_tpu_torch.utils.metrics import MetricLogger
 
-    device = resolve_device(args.device)
+    device = setup_device(args)[0]
+    dp = data_parallel(device)
+    writer = dp is None or dp.rank == 0
     cfg, dcfg = VAEConfig(), DiscriminatorConfig()
     if args.config == "tiny":
         cfg = cfg.tiny()
@@ -142,18 +151,22 @@ def main(argv=None):
             print(f"Resumed from step {state.step}")
     step_fn = make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
                                   disc, tx_vae, tx_d, weight_recon=args.recon,
-                                  crop_size=crop, dtype=dtype)
+                                  crop_size=crop, dtype=dtype, reduce_grads=dp)
     loader = BatchLoader(ds, args.batch)
     logger = MetricLogger(log_every=10)
     os.makedirs(args.result, exist_ok=True)
 
     def save_all(state):
-        for module, path, _ in files:
-            save_flax_file(module, path)
-        saved = [path for _, path, _ in files]
-        if ckpt is not None:
-            saved.append(ckpt.save(state.step, state, [gen]))
-        print("saved " + ", ".join(saved), flush=True)
+        """Rank 0 writes; under a group the ranks leave together."""
+        if writer:
+            for module, path, _ in files:
+                save_flax_file(module, path)
+            saved = [path for _, path, _ in files]
+            if ckpt is not None:
+                saved.append(ckpt.save(state.step, state, [gen]))
+            print("saved " + ", ".join(saved), flush=True)
+        if dp is not None:
+            dp.barrier()
 
     shutdown = GracefulShutdown()
     try:
@@ -170,8 +183,8 @@ def main(argv=None):
                     raise KeyboardInterrupt
                 if batch_idx % args.save_every == 0:
                     save_all(state)
-                    for name, img in (("reconstructed", recon[0]),
-                                      ("input", cropped[0])):
+                    pairs = (("reconstructed", recon[0]), ("input", cropped[0]))
+                    for name, img in pairs if writer else ():
                         save_jpeg(float_to_image(img.float().cpu().numpy()),
                                   os.path.join(args.result,
                                                f"{batch_idx}_{name}.jpg"))

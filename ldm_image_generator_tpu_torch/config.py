@@ -46,6 +46,14 @@ class UNetConfig:
             self, stages=(1, 1), channels=(32, 64), input_channels=self.input_channels
         )
 
+    def tiny_deep(self) -> "UNetConfig":
+        """Tiny preset with a deep (pipelinable) first stack, the test and
+        debug scale of --pipeline-stages (a stack pipelines only when its
+        homogeneous prefix divides into the stages)."""
+        return dataclasses.replace(
+            self, stages=(2, 1), channels=(32, 64), input_channels=self.input_channels
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:

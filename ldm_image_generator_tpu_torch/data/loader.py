@@ -7,7 +7,13 @@ JAX loader's defaults). A daemon thread makes up to `prefetch` batches
 ahead; it stops when the consumer stops iterating, and an exception
 raised while making a batch reaches the consumer. with_labels=True
 yields (batch, int32 labels) from the dataset's per-source-dir labels.
-Host sharding is not ported yet (ROADMAP A13).
+
+batch_size is the GLOBAL batch. Under a data-parallel group every rank
+builds the loader with the same seed, so the per-epoch permutation is the
+same on every rank, and each rank loads only its stripe [lo, lo + B / W)
+of each global batch (labels striped the same way): shard_index and
+shard_count default to the group's rank and world size (0 and 1 without
+a group), as the JAX loader's default to the process index and count.
 """
 from __future__ import annotations
 
@@ -30,12 +36,26 @@ class _Failed:
 
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 2,
-                 with_labels: bool = False):
+                 with_labels: bool = False, shard_index: "int | None" = None,
+                 shard_count: "int | None" = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.with_labels = with_labels
+        if shard_index is None or shard_count is None:
+            import torch.distributed as dist
+
+            grouped = dist.is_available() and dist.is_initialized()
+            shard_index = dist.get_rank() if grouped else 0
+            shard_count = dist.get_world_size() if grouped else 1
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
+        if batch_size % shard_count:
+            raise ValueError(f"batch {batch_size} does not split over {shard_count} "
+                             "shards")
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -52,6 +72,8 @@ class BatchLoader:
         idx = np.arange(len(self.dataset))
         self.rng.shuffle(idx)
         n_batches = len(self)
+        per_shard = self.batch_size // self.shard_count
+        lo = self.shard_index * per_shard
         q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
         stop = threading.Event()
 
@@ -70,6 +92,8 @@ class BatchLoader:
                     if stop.is_set():
                         return
                     sl = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                    # this rank's stripe of the global batch
+                    sl = sl[lo:lo + per_shard]
                     if not put(self._make(sl)):
                         return
             except Exception as e:  # handed to the consumer, which raises it

@@ -292,12 +292,15 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
 
 
 def ffn_block_bwd_plain(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
-                        expert_ids):
+                        expert_ids, b_pos=None):
     """Plain PyTorch version of the towers' backward. h, g: [N, C].
     Returns (dh [N, C] in h.dtype, then for the general ReGLU and the
     experts expert_ids[0], expert_ids[1] each: dwa, dba, dwb, dbb, dwc,
     all fp32). da, db and the gate are rounded to h.dtype; dh is an fp32
-    sum over the three towers, rounded once."""
+    sum over the three towers, rounded once. b_pos [3, N, M] bool, where
+    given, are the ReLU decisions b > 0 of the three towers in place of
+    the computed ones (a check holding a kernel that summed b in another
+    order, and so decided a value at the boundary the other way)."""
     dt = h.dtype
     ids = expert_ids.long()
     sel = lambda w: w.index_select(0, ids).float()
@@ -306,17 +309,18 @@ def ffn_block_bwd_plain(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
     gf = g.to(dt).float()
     dh = torch.zeros_like(hf)
     grads = []
-    for wa_, ba_, wb_, bb_, wc_ in (
+    for r, (wa_, ba_, wb_, bb_, wc_) in enumerate((
         (gwa.float(), gba.float(), gwb.float(), gbb.float(), gwc.float()),
         (ea[0], eba[0], eb[0], ebb[0], ec[0]),
         (ea[1], eba[1], eb[1], ebb[1], ec[1]),
-    ):
+    )):
         a = hf @ wa_ + ba_
         b = hf @ wb_ + bb_
-        relu_b = torch.relu(b)
+        pos = b > 0 if b_pos is None else b_pos[r]
+        relu_b = torch.where(pos, b, torch.zeros_like(b))
         dg = gf @ wc_.t()
         da = (dg * relu_b).to(dt).float()
-        db = (dg * a * (b > 0)).to(dt).float()
+        db = (dg * a * pos).to(dt).float()
         gate = (a * relu_b).to(dt).float()
         grads += [hf.t() @ da, da.sum(0), hf.t() @ db, db.sum(0), gate.t() @ gf]
         dh = dh + da @ wa_.t() + db @ wb_.t()

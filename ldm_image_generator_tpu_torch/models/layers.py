@@ -28,6 +28,7 @@ package does, so a skipped block still launches its kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -513,6 +514,15 @@ class SwinBlock(nn.Module):
         return branch if fold else x + branch
 
 
+def _run_on(device: torch.device, block: nn.Module, x, t, kw: dict):
+    """block(x, t, **kw) with every tensor moved to `device`, which is
+    current while the block launches."""
+    move = lambda v: v.to(device) if isinstance(v, torch.Tensor) else (
+        tuple(move(u) for u in v) if isinstance(v, tuple) else v)
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        return block(move(x), move(t), **{k: move(v) for k, v in kw.items()})
+
+
 class SwinStack(nn.Module):
     """SwinBlocks block_0..block_{n-1}: shift window_size // 2 on even
     blocks, attention (when enabled) on the last two."""
@@ -547,12 +557,17 @@ class SwinStack(nn.Module):
         routing rows (None: each block's fixed indices); gates: [n]
         stochastic-depth keeps, or None (deterministic); cond: condition
         tokens for every block, or None."""
+        home = x.device
         for i, block in enumerate(self.blocks()):
-            x = block(x, t,
-                      film=None if film is None else film[f"block_{i}"],
+            kw = dict(film=None if film is None else film[f"block_{i}"],
                       expert_ids=None if expert_ids is None else expert_ids[i],
                       gate=None if gates is None else gates[i], cond=cond)
-        return x
+            dev = block.conv.bias.device
+            if dev == x.device:
+                x = block(x, t, **kw)
+            else:  # a pipelined UNet's blocks span cards (parallel/pipelined_unet.py)
+                x = _run_on(dev, block, x, t, kw)
+        return x.to(home)
 
     def collect_film(self, h: int, w: int, t: torch.Tensor) -> dict:
         """{block_i: (mul, bias)} of [S, h, w, C] for timesteps t [S]."""

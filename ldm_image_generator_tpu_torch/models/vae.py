@@ -237,15 +237,21 @@ def vae_loss(encoder_apply: Callable, decoder_apply: Callable,
              quantizer_apply: Callable, x: torch.Tensor,
              noise: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
-             noise_gain: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             noise_gain: float = 0.1,
+             stripe: Optional[Tuple[int, slice]] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Encode, add standard normal noise (injected, or drawn from
     `generator` in the latents' dtype) times noise_gain, the VQ commitment
     loss on [B, HW, D] latents, decode, L1 reconstruction. Returns
-    (recon, reg, y)."""
+    (recon, reg, y). stripe (global batch, rows): x holds those rows of
+    a global batch (one data-parallel rank's), and the drawn noise is
+    the global batch's, cut to them."""
     z = encoder_apply(x)
     if noise is None:
-        noise = torch.randn(z.shape, generator=generator, device=z.device,
+        shape = z.shape if stripe is None else (stripe[0],) + tuple(z.shape[1:])
+        noise = torch.randn(shape, generator=generator, device=z.device,
                             dtype=z.dtype)
+        if stripe is not None:
+            noise = noise[stripe[1]]
     z = z + noise.to(z.dtype) * noise_gain
     b, h, w, d = z.shape
     reg = quantizer_apply(z.reshape(b, h * w, d))

@@ -145,9 +145,11 @@ class MultiStepsState:
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> list:
     """optax.clip_by_global_norm: g * max_norm / ||g|| when ||g|| >=
     max_norm (no epsilon), with ||g|| over every tensor."""
-    g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    dev = grads[0].device  # a pipelined UNet's parameters span devices
+    g_norm = torch.sqrt(sum(g.float().square().sum().to(dev) for g in grads))
     keep = g_norm < max_norm
-    return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
+    return [torch.where(keep.to(g.device), g, (g / g_norm.to(g.device)) * max_norm)
+            for g in grads]
 
 
 def _update_moments(g, mu, nu, b1: float, b2: float) -> None:
@@ -164,21 +166,48 @@ def _update_moments(g, mu, nu, b1: float, b2: float) -> None:
 
 class AdamW:
     """[clip_by_global_norm ->] optax.adamw with its defaults, applied in
-    place."""
+    place. With zero1 (a parallel.mesh.Zero1 over the parameters) the
+    state holds only this rank's slice of each split moment, the update
+    reads this rank's slice of each (all-reduced, clipped) gradient and
+    writes its slice of each parameter, and the parameters are then
+    all-gathered: elementwise the same update as without it."""
 
     b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 1e-4
 
-    def __init__(self, learning_rate, grad_clip: float = 0.0):
+    def __init__(self, learning_rate, grad_clip: float = 0.0, zero1=None):
         self.learning_rate = learning_rate
         self.grad_clip = grad_clip
+        self.zero1 = zero1
+
+    def _local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slices of tensors shaped as the parameters."""
+        if self.zero1 is None:
+            return list(tensors)
+        return [self.zero1.local(t, i) for i, t in enumerate(tensors)]
 
     def init(self, params: List[torch.Tensor]) -> AdamWState:
-        z = lambda: [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        z = lambda: [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                     for t in self._local(params)]
         return AdamWState(count=0, mu=z(), nu=z())
 
     def lr(self, count: int):
         lr = self.learning_rate
         return F32(lr(count) if callable(lr) else lr)
+
+    def full_state(self, state: AdamWState) -> AdamWState:
+        """The state as one process holds it (a ZeRO-1 state's moments
+        all-gathered, so every rank must call this), for a checkpoint."""
+        if self.zero1 is None:
+            return state
+        return AdamWState(count=state.count, mu=self.zero1.gathered(state.mu),
+                          nu=self.zero1.gathered(state.nu))
+
+    def local_tree(self, tree: dict) -> dict:
+        """A checkpoint's state tree (full_state's form) cut to this
+        rank's slices."""
+        if self.zero1 is None:
+            return tree
+        return dict(tree, mu=self._local(tree["mu"]), nu=self._local(tree["nu"]))
 
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
@@ -187,6 +216,12 @@ class AdamW:
         if self.grad_clip > 0.0:
             grads = clip_by_global_norm(grads, self.grad_clip)
         count = state.count + 1
+        self._update(self._local(params), self._local(grads), state, count)
+        if self.zero1 is not None:
+            self.zero1.gather(params)
+        return AdamWState(count=count, mu=state.mu, nu=state.nu)
+
+    def _update(self, params, grads, state: AdamWState, count: int) -> None:
         bc1 = float(F32(1) - F32(self.b1) ** F32(count))
         bc2 = float(F32(1) - F32(self.b2) ** F32(count))
         neg_lr = float(-self.lr(state.count))
@@ -201,14 +236,14 @@ class AdamW:
             torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
             torch._foreach_mul_(u, neg_lr)
             torch._foreach_add_(p, u)
-        return AdamWState(count=count, mu=state.mu, nu=state.nu)
 
 
 class RAdam(AdamW):
     """[clip_by_global_norm ->] optax.radam with its defaults, applied in
-    place (the state is AdamW's: count, mu, nu). With t the count after
-    the increment, every scalar in float32 as optax forms it in a jitted
-    step (b2**t as XLA's pow, which numpy's float32 power equals):
+    place (the state is AdamW's: count, mu, nu; ZeRO-1 as AdamW's). With
+    t the count after the increment, every scalar in float32 as optax
+    forms it in a jitted step (b2**t as XLA's pow, which numpy's float32
+    power equals):
 
       rho_inf = 2 / (1 - b2) - 1
       rho = rho_inf - 2 t b2**t / (1 - b2**t)
@@ -233,13 +268,7 @@ class RAdam(AdamW):
         return np.sqrt((ro - F32(4)) * (ro - F32(2)) * F32(ro_inf)
                        / (F32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
 
-    @torch.no_grad()
-    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-              state: AdamWState) -> AdamWState:
-        """params += the update for grads; returns the new state."""
-        if self.grad_clip > 0.0:
-            grads = clip_by_global_norm(grads, self.grad_clip)
-        count = state.count + 1
+    def _update(self, params, grads, state: AdamWState, count: int) -> None:
         bc1 = float(F32(1) - F32(self.b1) ** F32(count))
         bc2 = float(F32(1) - F32(self.b2) ** F32(count))
         r = self.rectifier(count)
@@ -255,7 +284,6 @@ class RAdam(AdamW):
                 torch._foreach_div_(u, den)
             torch._foreach_mul_(u, neg_lr)
             torch._foreach_add_(p, u)
-        return AdamWState(count=count, mu=state.mu, nu=state.nu)
 
 
 def relative_step(count: int) -> np.float32:
@@ -309,6 +337,12 @@ class Adafactor:
 
     def __init__(self, grad_clip: float = 0.0):
         self.grad_clip = grad_clip
+
+    def full_state(self, state: AdafactorState) -> AdafactorState:
+        return state
+
+    def local_tree(self, tree: dict) -> dict:
+        return tree
 
     def _dims(self, p: torch.Tensor):
         return factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
@@ -390,6 +424,14 @@ class MultiSteps:
             mini_step=0, gradient_step=0, inner_opt_state=self.inner.init(params),
             acc_grads=[torch.zeros_like(p, dtype=torch.float32) for p in params])
 
+    def full_state(self, state: MultiStepsState) -> MultiStepsState:
+        """The inner state's full_state (the gradient sums stay whole)."""
+        return dataclasses.replace(
+            state, inner_opt_state=self.inner.full_state(state.inner_opt_state))
+
+    def local_tree(self, tree: dict) -> dict:
+        return dict(tree, inner_opt_state=self.inner.local_tree(tree["inner_opt_state"]))
+
     @torch.no_grad()
     def apply(self, params, grads, state: MultiStepsState) -> MultiStepsState:
         n = state.mini_step
@@ -423,16 +465,21 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], step: int,
 def make_optimizer(name: str, learning_rate: float = 1e-4,
                    accumulate: int = 1, grad_clip: float = 0.0,
                    lr_schedule: str = "constant", warmup_steps: int = 0,
-                   total_steps: int = 0):
+                   total_steps: int = 0, zero1=None):
     """adamw or radam [with an LR schedule], or adafactor (its own
     relative step; learning_rate and the schedule are not read), each
     with clipping and MultiSteps accumulation, off by default as in the
-    JAX package."""
+    JAX package. zero1: a parallel.mesh.Zero1 splitting adamw's or
+    radam's moments over a data-parallel group (the gradient sums of
+    MultiSteps stay whole)."""
     if name == "adafactor":
+        if zero1 is not None:
+            raise ValueError("ZeRO-1 splits adamw's and radam's moments only")
         tx = Adafactor(grad_clip=grad_clip)
     elif name in ("adamw", "radam"):
         lr = make_lr_schedule(learning_rate, lr_schedule, warmup_steps, total_steps)
-        tx = (AdamW if name == "adamw" else RAdam)(lr, grad_clip=grad_clip)
+        tx = (AdamW if name == "adamw" else RAdam)(lr, grad_clip=grad_clip,
+                                                   zero1=zero1)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return MultiSteps(tx, accumulate) if accumulate > 1 else tx
@@ -445,10 +492,25 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
                         min_snr_gamma: Optional[float] = None,
                         dtype: Optional[torch.dtype] = None,
                         num_classes: int = 0,
-                        cond_drop: float = 0.1) -> Callable:
+                        cond_drop: float = 0.1,
+                        reduce_grads=None,
+                        apply_fn: Optional[Callable] = None) -> Callable:
     """Returns step(state, latents, generator=None, t=None, eps=None,
     moe_plan=None, sd_gates=None, labels=None, cond=None) -> (state,
     {"loss": scalar tensor}).
+
+    apply_fn(x_t, t, cond, moe_plan=, generator=, sd_gates=,
+    deterministic=, dtype=) replaces the UNet's forward (the pipelined
+    forward, parallel/pipelined_unet.py), as the JAX step's apply_fn.
+    reduce_grads (a parallel.mesh.DataParallel) makes the step one
+    rank's part of a data-parallel step: the latents and labels are this
+    rank's rows of the global batch, every draw (the drop uniforms, t,
+    the noise; injected t, eps and cond too) is of the global batch, of
+    which the rank keeps its rows, as the JAX package draws the global
+    batch from one key and shards it (the routing plan and the
+    stochastic-depth gates are the batch's, the same on every rank), and
+    the gradients are all-reduced (mean) before the optimizer, so the
+    clip sees the global gradient. The logged loss is the group's mean.
 
     state.params must be `unet`. Class-conditional training (num_classes
     > 0 and int labels [B]): each label is replaced by the null class
@@ -471,20 +533,39 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
         if state.params is not unet:
             raise ValueError("state.params is not the UNet this step was made for")
         x = x.float()
+        rows = None
+        if reduce_grads is not None:
+            b_all = x.shape[0] * reduce_grads.world
+            rows = reduce_grads.rows(b_all)
+            if cond is not None:
+                cond = cond[rows]
         if cond is None and labels is not None and num_classes > 0:
             labels = torch.as_tensor(labels, device=x.device).long()
             dev = generator.device if generator is not None else x.device
-            drop = torch.rand(labels.shape, generator=generator, device=dev) < cond_drop
+            shape = labels.shape if rows is None else (b_all,)
+            drop = torch.rand(shape, generator=generator, device=dev) < cond_drop
+            if rows is not None:
+                drop = drop[rows]
             cond = torch.where(drop.to(x.device), num_classes, labels)
+        if rows is not None:
+            # ddpm_loss's draws, of the global batch
+            if t is None:
+                t = torch.randint(1, schedule.num_timesteps, (b_all,),
+                                  generator=generator, device=x.device)
+            if eps is None:
+                eps = torch.randn((b_all,) + tuple(x.shape[1:]), generator=generator,
+                                  device=x.device, dtype=x.dtype)
+            t, eps = t[rows], eps[rows]
         model = unet
+        forward = apply_fn or model
         params = list(model.parameters())
         for p in params:
             p.grad = None
 
         def denoise(x_t, tt):
-            return model(x_t, tt, cond, moe_plan=moe_plan, generator=generator,
-                         sd_gates=sd_gates, deterministic=not stochastic_depth,
-                         dtype=dtype).float()
+            return forward(x_t, tt, cond, moe_plan=moe_plan, generator=generator,
+                           sd_gates=sd_gates, deterministic=not stochastic_depth,
+                           dtype=dtype).float()
 
         loss_val = ddpm_loss(denoise, schedule, x, loss=loss,
                              prediction=prediction,
@@ -494,6 +575,10 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss_val = loss_val.detach()
+        if reduce_grads is not None:
+            reduce_grads([p.grad for p in params])
+            loss_val = reduce_grads.mean(loss_val)
         opt_state = tx.apply(params, [p.grad for p in params], state.opt_state)
         ema = state.ema_params
         if ema_decay is not None and ema is not None:
@@ -501,7 +586,7 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
             ema_update([ema[n] for n in names], params, state.step, ema_decay)
         new_state = dataclasses.replace(state, opt_state=opt_state,
                                         step=state.step + 1)
-        return new_state, {"loss": loss_val.detach()}
+        return new_state, {"loss": loss_val}
 
     return step
 
@@ -540,7 +625,8 @@ def make_vae_train_step(encoder: nn.Module, decoder: nn.Module,
                         tx_vae, tx_disc, weight_recon: float = 10.0,
                         weight_reg: float = 1.0, weight_adv: float = 0.1,
                         crop_size: int = 192, noise_gain: float = 0.1,
-                        dtype: Optional[torch.dtype] = None) -> Callable:
+                        dtype: Optional[torch.dtype] = None,
+                        reduce_grads=None) -> Callable:
     """Returns step(state, images, generator=None, crop_offset=None,
     noise=None) -> (state, metrics, (recon_images, cropped_inputs)).
 
@@ -557,7 +643,12 @@ def make_vae_train_step(encoder: nn.Module, decoder: nn.Module,
     then holds its gradient (zeros where the loss does not reach it).
     Encoder, decoder and discriminator compute in `dtype` (default: their
     parameters'). Metrics: loss, recon, reg, adv, d_loss. Nothing here
-    waits on the device."""
+    waits on the device. reduce_grads (a parallel.mesh.DataParallel), as
+    in make_ldm_train_step: the images are this rank's rows, the crop
+    offset is the batch's and the noise (drawn or injected) the global
+    batch's, of which the rank keeps its rows; both nets' gradients are
+    all-reduced before their optimizers and the metrics are the group's
+    means."""
 
     def step(state: VAETrainState, images: torch.Tensor,
              generator: Optional[torch.Generator] = None, crop_offset=None,
@@ -570,28 +661,42 @@ def make_vae_train_step(encoder: nn.Module, decoder: nn.Module,
         images = images.float()
         if crop_size and crop_size < images.shape[1]:
             images = random_crop_batch(images, crop_size, generator, crop_offset)
+        stripe = None
+        if reduce_grads is not None:
+            b_all = images.shape[0] * reduce_grads.world
+            stripe = (b_all, reduce_grads.rows(b_all))
+            if noise is not None:
+                noise = noise[stripe[1]]
         recon, reg, y = vae_loss(lambda v: encoder(v, dtype=dtype),
                                  lambda v: decoder(v, dtype=dtype), quantizer,
                                  images, noise=noise, generator=generator,
-                                 noise_gain=noise_gain)
+                                 noise_gain=noise_gain, stripe=stripe)
         adv = F.relu(-discriminator(y, dtype=dtype))
         loss = weight_recon * recon + weight_reg * reg + weight_adv * adv
         vae_params = list(vae.parameters())
-        opt_vae = tx_vae.apply(vae_params, _grads(loss, vae_params),
-                               state.opt_state_vae)
+        grads = _grads(loss, vae_params)
+        if reduce_grads is not None:
+            reduce_grads(grads)
+        opt_vae = tx_vae.apply(vae_params, grads, state.opt_state_vae)
 
         y = y.detach()
         d_loss = (F.relu(1.0 + discriminator(y, dtype=dtype))
                   + F.relu(1.0 - discriminator(images, dtype=dtype)))
         disc_params = list(discriminator.parameters())
-        opt_disc = tx_disc.apply(disc_params, _grads(d_loss, disc_params),
-                                 state.opt_state_disc)
+        grads = _grads(d_loss, disc_params)
+        if reduce_grads is not None:
+            reduce_grads(grads)
+        opt_disc = tx_disc.apply(disc_params, grads, state.opt_state_disc)
         new_state = dataclasses.replace(state, opt_state_vae=opt_vae,
                                         opt_state_disc=opt_disc,
                                         step=state.step + 1)
         metrics = {"loss": loss, "recon": recon, "reg": reg, "adv": adv,
                    "d_loss": d_loss}
-        return new_state, {k: v.detach() for k, v in metrics.items()}, (y, images)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if reduce_grads is not None:
+            means = reduce_grads.mean(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, means.unbind()))
+        return new_state, metrics, (y, images)
 
     return step
 

@@ -457,10 +457,12 @@ class TrainCheckpointer:
             shutil.rmtree(self.path(old_step))
         return final
 
-    def restore(self, state, generators=(), step=None):
+    def restore(self, state, generators=(), step=None, transform=None):
         """`state` (built as the run builds it) holding the checkpoint of
         `step` (default: the latest), with each generator's state set;
-        None when the directory holds no checkpoint."""
+        None when the directory holds no checkpoint. transform(tree)
+        maps the saved state tree first (a ZeRO-1 rank cuts the saved
+        whole moments to its slices)."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -469,7 +471,8 @@ class TrainCheckpointer:
         if len(data["generators"]) != len(generators):
             raise ValueError(f"checkpoint {step} holds {len(data['generators'])} "
                              f"generator states, the run draws from {len(generators)}")
-        state = load_state_tree(state, data["state"])
+        tree = data["state"] if transform is None else transform(data["state"])
+        state = load_state_tree(state, tree)
         for g, s in zip(generators, data["generators"]):
             g.set_state(s)
         return state

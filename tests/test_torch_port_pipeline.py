@@ -116,6 +116,9 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.ops.norm",
     "ldm_image_generator_tpu_torch.ops.sinusoidal",
     "ldm_image_generator_tpu_torch.ops.window",
+    "ldm_image_generator_tpu_torch.parallel.mesh",
+    "ldm_image_generator_tpu_torch.parallel.pipeline",
+    "ldm_image_generator_tpu_torch.parallel.pipelined_unet",
     "ldm_image_generator_tpu_torch.train.eval",
     "ldm_image_generator_tpu_torch.train.steps",
     "ldm_image_generator_tpu_torch.utils.checkpoint",
@@ -142,6 +145,29 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_port_and_chip_smoke_import_statements_name_no_jax():
+    """Every import statement of the port's modules and of chip_smoke.py
+    (inside functions too, which importing does not run) names nothing
+    of JAX, flax, optax or the JAX package."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "ldm_image_generator_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    banned = ("jax", "flax", "optax", "orbax", "ldm_image_generator_tpu")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (str(path), name)
 
 
 def test_cuda_request_without_card_raises_in_pipeline_and_cli(monkeypatch):

@@ -264,7 +264,7 @@ def test_build_parser_has_the_jax_options():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--coordinator", "h:1"], "ROADMAP A13"),
+    (["--coordinator", "h:1"], "needs all three of --coordinator"),
     (["--img2img-strength", "1.5"], r"must be in \[0, 1\]"),
     (["--guidance-scale", "3"], "requires --num-classes"),
     (["--step-tiers", "0"], "must be >= 1"),

@@ -223,3 +223,31 @@ def test_grads_flow_when_only_one_output_is_used():
         outs[pick].sum().backward()
         assert leaves[0].grad is not None and torch.isfinite(leaves[0].grad).all()
         assert (leaves[15].grad.abs().sum() > 0) == (pick == 0)  # conv kernel
+
+
+def test_ffn_block_bwd_plain_takes_given_relu_decisions():
+    """b_pos (the ReLU decisions a card check takes from the kernel where
+    the two sums fell either side of 0): its own decisions give the plain
+    version bitwise; one flipped decision of the general tower moves only
+    dh's row, and dwb's column and dbb's entry of that unit, by the flipped
+    row's db (dg * a) beyond rounding."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import Call, make_inputs
+
+    args = make_inputs(Call("ffn_block_bwd", 2, 4, 32, 1), torch.float32, "cpu",
+                       torch.Generator().manual_seed(0))
+    h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids = args
+    e = ids.long().tolist()
+    pos = torch.stack([h @ w + b > 0 for w, b in
+                       ((gwb, gbb), (wb[e[0]], bb[e[0]]), (wb[e[1]], bb[e[1]]))])
+    want = tffn.ffn_block_bwd_plain(*args)
+    same = tffn.ffn_block_bwd_plain(*args, b_pos=pos)
+    assert all(torch.equal(a, b) for a, b in zip(want, same))
+    row, unit = 3, 5
+    pos[0, row, unit] = ~pos[0, row, unit]
+    got = tffn.ffn_block_bwd_plain(*args, b_pos=pos)
+    moved = lambda a, b: (a - b).abs() > 1e-5
+    dh, dwb, dbb = moved(got[0], want[0]), moved(got[3], want[3]), moved(got[4], want[4])
+    assert dh[row].any() and not dh[torch.arange(len(dh)) != row].any()
+    assert dwb[:, unit].any() and not dwb[:, torch.arange(dwb.shape[1]) != unit].any()
+    assert dbb.nonzero().flatten().tolist() == [unit]
+    assert all(torch.equal(a, b) for a, b in zip(got[6:], want[6:]))
