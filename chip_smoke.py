@@ -197,7 +197,7 @@ no result line):
   17. parallel training (PERF.md §4): (a) two spawned ranks sharing the
      card over gloo (one card cannot hold two NCCL ranks), each a
      data-parallel rank of the default UNet's train step at global B=8
-     (bf16, AdamW, EMA): a warm-up and 3 timed steps of exactly 36
+     (bf16, AdamW, EMA): a warm-up and 2 timed steps of exactly 36
      ffn_block, 36 ffn_block_bwd, 8 + 8 window MHA per rank, both ranks'
      parameters bitwise equal; an fp32 DP step against the 1-process B=8
      step on the card (loss within 1e-5, gradients by phase 7's rule);
@@ -212,11 +212,42 @@ no result line):
      ...cli.train_ldm` in two processes of one group on seeded 256px
      PNGs, rank 0 alone writing. Steps/s, the device-busy ms of one
      profiled step, the all-reduce wall and the peak memory of each,
-     beside the card's name and power limit. `--phase 17` runs phases 1
-     and 17 alone (no result line).
+     beside the card's name and power limit.
+  18. the mesh layouts (PERF.md §4), the default UNet at full width, in
+     one group of 4 processes sharing the card over gloo: (a) TP and (b)
+     EP (data 1 x model 2), (c) SP (data 1 x model 2, 16 of the latent's
+     32 rows per rank) on a mesh of the first 2, (d) multi-slice (replica
+     2 x data 2 x model 1) on all 4. Each: one fp32 step at global B=4
+     (TF32 off, phase 7's draws injected) against the 1-process fp32 step
+     on the card, (a) and (b) bitwise on every rank (the loss, and the
+     rank's slice of every gradient and updated parameter), (c)
+     and (d) by phase 17's rules (the ranks' preactivation records merged
+     by rows or by height); then a warm-up and 2 timed bf16 steps at
+     global B=8 (AdamW, EMA): exactly phase 6's launches per rank for
+     (a)-(c), 36 block_core, 36 ffn_block_bwd, 8 + 8 window MHA for (d)'s
+     B=2 ranks; finite losses; the whole parameters bitwise equal across
+     ranks; steps/s per rank, device busy and the collectives' host spans
+     of one profiled step (rank 0), peak memory, and for (a) and (b) the
+     parameter and optimizer-state bytes per rank, at most 0.51 of a DP
+     rank's.
+  19. the data cache: the native decoder's build seconds, or the
+     compiler's line where it cannot be built; 64 seeded 512px JPEGs and
+     PNGs cached through it and through PIL (images/s each; native within
+     0.08 mean of PIL, the pad rows equal), each rebuilt from its cache
+     with 0 decodes and the same bits; the latent cache at 256px with the
+     default encoder on the card, rebuilt with 0 encoder calls and the
+     same bits; `cli/train_vae` for one epoch (8 steps of B=8, 512px, crop
+     192) from the image cache, which must exit 0 and decode nothing.
+`--phase 17 [18 19]` runs phase 1 and the given phases alone (no result
+line).
 Phase 2 also holds every kernel call of phase 17's paths (one rank's
 B=4 train step, the pipelined B=6 step, one rank's VAE step; tags
-dp2_train, gpipe3_train, dp2_vae_train), rerun bitwise between guards.
+dp2_train, gpipe3_train, dp2_vae_train) and the FFN calls of an EP rank's
+B=8 step (its blocks hold 2 experts; tag ep2_train), rerun bitwise
+between guards. (TP ranks call the kernels at phase 6's shapes;
+multi-slice ranks block_core at the pipelined step's B=2 shapes and
+window MHA and ffn_block_bwd at the int8 B=2 step's; an SP rank's FFN
+calls have a DP rank's row counts.)
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -238,6 +269,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -502,7 +534,12 @@ def phase_kernels(dev, reps: int) -> dict:
         # rank's VAE step
         (c, "dp2_train") for c in per_sample_film(train_calls(DP_BATCH // DP_WORLD))] + [
         (c, "gpipe3_train") for c in gpipe_calls()] + [
-        (c, "dp2_vae_train") for c in vae_train_calls(VAE_BATCH // DP_WORLD, VAE_CROP)]
+        (c, "dp2_vae_train") for c in vae_train_calls(VAE_BATCH // DP_WORLD, VAE_CROP)] + [
+        # phase 18: the FFN calls of an expert-parallel rank's train step
+        # (B=8, a film per sample), whose blocks hold only the 2 routed
+        # experts' weights (ids 0 and 1)
+        (dataclasses.replace(c, experts=2), "ep2_train")
+        for c in per_sample_film(train_calls(MESH_BATCH)) if c.kernel.startswith("ffn_block")]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -518,9 +555,9 @@ def phase_kernels(dev, reps: int) -> dict:
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
-            if call.kernel == "ffn_block_bwd" and dtype == torch.float32 and any(
+            if call.kernel == "ffn_block_bwd" and any(
                     bwd_scale_err(g, w) > BWD_REL[dtype] for g, w in zip(got, want)):
-                want = ffn_bwd_boundary_plain(kernel, plain, args, got, call.label)
+                want = ffn_bwd_boundary_plain(kernel, plain, args, got, call.label, dtype)
             err = 0.0  # max |kernel - plain| over the outputs, this dtype
             for g, w in zip(got, want):
                 require(torch.isfinite(g.float()).all(), (call, dtype))
@@ -691,16 +728,19 @@ def phase_kernels(dev, reps: int) -> dict:
     return summary
 
 
-def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str) -> tuple:
-    """The plain version of an fp32 ffn_block_bwd call that takes the
-    kernel's ReLU decision where the two decided a b = h @ wb + bb the
-    other way, each such b within C 2^-23 (|h| @ |wb| + |bb|) of 0 (the
-    most two fp32 sums over C terms in other orders can differ; phase 7's
-    bound): a flip there moves a whole row of dh and a column of dwb
-    (measured on the H100: one at the pipelined step's [6,8,8,512], 2e-2
-    of the scale). The kernel's decisions are read back from its db
-    (nonzero where it took b > 0) through a rerun that keeps its
-    buffers; a decision apart from the boundary fails the run."""
+def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str, dtype) -> tuple:
+    """The plain version of an ffn_block_bwd call that takes the kernel's
+    ReLU decision where the two decided a b = h @ wb + bb the other way,
+    each such b within C 2^-23 (|h| @ |wb| + |bb|) of 0 (the most two fp32
+    sums over C terms in other orders can differ; phase 7's bound; both
+    sides sum b in fp32 for bf16 operands too): a flip there moves a
+    whole row of dh and a column of dwb (measured on the H100: one at the
+    pipelined step's [6,8,8,512] in fp32, 2e-2 of the scale; in bf16, 2 of
+    12 seeded calls at the EP step's [8,8,8,512], one flip each, 0.045 and
+    0.070 of the scale, 0.0040 and 0.0035 with the kernel's decisions).
+    The kernel's decisions are read back from its db (nonzero where it
+    took b > 0) through a rerun that keeps its buffers; a decision apart
+    from the boundary fails the run."""
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
     from ldm_image_generator_tpu_torch.kernels.workloads import GUARD, GuardedBuffers
 
@@ -731,7 +771,7 @@ def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str) -> tuple:
     plain_pos, matters, near = map(torch.stack, (plain_pos, matters, near))
     differ = (kernel_pos != plain_pos) & matters
     away = int((differ & ~near).sum())
-    log(f"ffn_block_bwd {label} fp32: {int(differ.sum())} ReLU decisions taken the "
+    log(f"ffn_block_bwd {label} {dtype}: {int(differ.sum())} ReLU decisions taken the "
         f"other way by the kernel, {away} away from the boundary")
     require(away == 0, (label, "ReLU decisions differ away from the boundary", away))
     return plain(*args, b_pos=torch.where(differ, kernel_pos, plain_pos))
@@ -1629,10 +1669,14 @@ def profile_fn(fn) -> dict:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    # the host spans of the process group's collectives (gloo or nccl ops)
+    collective_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
+                        if ev.key.startswith(("gloo:", "nccl:"))) / 1e3
     for ms, count, key in rows[:25]:
         log(f"profile {ms:10.3f} ms {count:6d}x {key[:90]}")
-    log(f"profile: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log(f"profile: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms, "
+        f"collectives {collective_ms:.3f} ms")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, collective_ms=collective_ms,
                 top=[dict(ms=r[0], count=r[1], name=r[2][:90]) for r in rows[:25]])
 
 
@@ -3078,7 +3122,7 @@ PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_parallel")
 DP_WORLD = 2
 DP_BATCH = 8        # the global batch: 4 rows per rank
-DP_STEPS = 3
+DP_STEPS = 2
 # the DP loss (the mean of two 4-row means) against one process's 8-row
 # mean: fp32 sums in another order
 DP_LOSS_REL_TOL = 1e-5
@@ -3097,7 +3141,7 @@ VAE_DP_STEPS = 2
 # phase 2's tags for the kernel calls of the phase 17 paths, and the
 # batch of each (per rank, or the pipelined step's)
 PARALLEL_TAGS = {"dp2_train": DP_BATCH // DP_WORLD, "gpipe3_train": PIPE_BATCH,
-                 "dp2_vae_train": VAE_BATCH // DP_WORLD}
+                 "dp2_vae_train": VAE_BATCH // DP_WORLD, "ep2_train": 8}
 
 
 def per_sample_film(calls: list) -> list:
@@ -3602,6 +3646,444 @@ def phase_parallel(dev) -> dict:
     return out
 
 
+# phase 18: the mesh layouts at full width on the one card. As in phase
+# 17, the ranks share cuda:0 over gloo: the numbers show correctness and
+# memory per rank, and say nothing about scaling.
+MESH_BATCH = 8          # the timed bf16 steps' global batch
+MESH_FP32_BATCH = 4     # the fp32 check's global batch
+MESH_STEPS = 2
+# processes of phase 18's group: tp2, ep2 and sp2 run on the first two
+MESH_WORLD = 4
+# (a)-(c) at B=8 per rank launch phase 6's kernels; the multi-slice ranks
+# at B=2 take block_core for every block (a stochastic-depth gate on each,
+# so no residual fold), whose backward is ffn_block_bwd
+MS_LAUNCHES = dict(TRAIN_LAUNCHES, block_core=36, ffn_block=0)
+MESH_LAUNCHES = {"tp2": TRAIN_LAUNCHES, "ep2": TRAIN_LAUNCHES, "sp2": TRAIN_LAUNCHES,
+                 "multislice4": MS_LAUNCHES}
+# parameters + optimizer state per TP or EP rank over plain DP's (model
+# size 2: 0.503 and 0.501 of the default UNet's parameters stay per rank)
+MESH_STATE_SHARE = 0.51
+
+
+def mesh_trainer(dev, layout: str, mesh, seed: int, dtype, ema: bool) -> tuple:
+    """(state, step, shards, local): make_trainer's UNet and step as one
+    rank of `layout` on `mesh` (tp2 / ep2: shard_params, sp2:
+    spatial_parallel, multislice4: the hierarchical data-parallel mean);
+    local(x) cuts a global batch to this rank's part."""
+    from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
+    from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.parallel import mesh as tmesh
+    from ldm_image_generator_tpu_torch.train.steps import (
+        LDMTrainState,
+        init_ema,
+        make_ldm_train_step,
+        make_optimizer,
+    )
+
+    unet = UNet(UNetConfig(), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+    shards = None
+    if layout in ("tp2", "ep2"):
+        shards = tmesh.shard_params(unet, mesh, expert_parallel=layout == "ep2")
+    dp = (tmesh.spatial_parallel(unet, mesh, dev) if layout == "sp2"
+          else mesh.data_parallel(dev))
+    tx = make_optimizer("adamw", 1e-4, shards=shards)
+    state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
+                          ema_params=init_ema(unet) if ema else None)
+    step = make_ldm_train_step(unet, make_schedule(DDPMConfig()), tx,
+                               ema_decay=0.999 if ema else None, dtype=dtype,
+                               reduce_grads=dp)
+
+    def local(x):
+        x = x[tmesh.batch_rows(mesh, x.shape[0])]
+        return dp.spatial.own(x) if layout == "sp2" else x
+
+    return state, step, shards, local
+
+
+def whole_params(unet, shards, grads: bool = False) -> dict:
+    """{name: whole parameter (or its gradient)} (shards.gathered where
+    the parameters are split: every rank must call this)."""
+    if shards is not None:
+        return shards.gathered(grads=grads)
+    return {n: (p.grad if grads else p).detach() for n, p in unet.named_parameters()}
+
+
+def merge_spatial_records(recs: list, batch: int) -> dict:
+    """record_preactivations records of the ranks' rows of the height, in
+    rank order, as one record of the whole map."""
+    out = {}
+    for name, first in recs[0].items():
+        if isinstance(first, torch.Tensor):  # FiLM: [B, h, w, F]
+            out[name] = torch.cat([r[name] for r in recs], 1)
+            continue
+        parts = [[r[name][k].reshape(3, batch, -1, r[name][k].shape[-1]) for r in recs]
+                 for k in (0, 1)]
+        b, near = (torch.cat(p, 2).reshape(3, -1, p[0].shape[-1]) for p in parts)
+        out[name] = (b, near, first[2])
+    return out
+
+
+def mesh_fp32_check(dev, layout: str, mesh, rank: int) -> dict:
+    """One fp32 step of `layout` at global B=MESH_FP32_BATCH (phase 7's
+    injected draws) against the 1-process step on the card from the same
+    weights: tp2 / ep2 bitwise on every rank (the loss, and its slice of
+    every gradient and updated parameter against the same slice of the
+    1-process step's, which each rank runs), sp2 and multislice4 on rank
+    0 by phase 17's rules (the loss within TRAIN_LOSS_REL_TOL, the
+    gradients by phase 7's, the ranks' preactivation records merged
+    through files)."""
+    state, step, shards, local = mesh_trainer(dev, layout, mesh, seed=3,
+                                              dtype=torch.float32, ema=False)
+    x, inject = fp32_inject(state.params.plan_length(), MESH_FP32_BATCH)
+    inject = {k: v.to(dev) for k, v in inject.items()}
+    bitwise = layout in ("tp2", "ep2")
+    rec, hooks = ({}, []) if bitwise else record_preactivations(state.params)
+    _, m = step(state, local(x).to(dev), **inject)
+    for h in hooks:
+        h.remove()
+    path = lambda r: os.path.join(PAR_DIR, f"mesh-rec-{r}.pt")
+    if not bitwise and rank:
+        torch.save(rec_to_cpu(rec), path(rank))
+    mesh.barrier()
+    out = {}
+    if bitwise or rank == 0:
+        one, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+        want_rec, hooks = ({}, []) if bitwise else record_preactivations(one.params)
+        _, m1 = one_step(one, x.to(dev), **inject)
+        for h in hooks:
+            h.remove()
+        l_got, l_one = m["loss"].item(), m1["loss"].item()
+        loss_rel = abs(l_got - l_one) / abs(l_one)
+        log(f"{layout} fp32 (rank {rank}): loss {l_got:.8f} vs 1 process {l_one:.8f} "
+            f"(rel {loss_rel:.3e})")
+    if bitwise:
+        require(torch.equal(m["loss"], m1["loss"]), (layout, "loss", l_got, l_one))
+        got = dict(state.params.named_parameters())
+        for n, p in one.params.named_parameters():
+            d, mine = shards.plan[n], got[n]
+            grad, param = p.grad, p.detach()
+            if d is not None:  # this rank's slice of the whole tensor
+                k = mine.shape[d]
+                grad, param = (t.narrow(d, shards.rank * k, k) for t in (grad, param))
+            require(torch.equal(mine.grad, grad), f"{layout} gradient {n} (rank {rank})")
+            require(torch.equal(mine.detach(), param), f"{layout} parameter {n} (rank {rank})")
+        out = dict(bitwise=True, loss=l_got)
+    elif rank == 0:
+        recs = [rec_to_cpu(rec)] + [torch.load(path(r), weights_only=False)
+                                    for r in range(1, mesh.size)]
+        got_rec = (merge_spatial_records(recs, MESH_FP32_BATCH) if layout == "sp2"
+                   else merge_records(recs))
+        want_rec = rec_to_cpu(want_rec)
+        units = flip_units(want_rec, got_rec)
+        require(loss_rel <= TRAIN_LOSS_REL_TOL, (layout, "loss", l_got, l_one))
+        worst, worst_name, flipped = compare_train_grads(
+            dict(one.params.named_parameters()), dict(state.params.named_parameters()),
+            units, want_rec, FLIP_TENSORS, f"{layout} fp32 vs 1 process")
+        out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
+                   flip_touched=flipped)
+        for r in range(1, mesh.size):
+            os.remove(path(r))
+    mesh.barrier()
+    return out
+
+
+def mesh_train(dev, layout: str, mesh, rank: int) -> dict:
+    """A warm-up and MESH_STEPS timed bf16 steps of `layout` (the default
+    UNet, AdamW 1e-4, EMA 0.999) at global B=MESH_BATCH: exact launches
+    per rank, finite losses, steps/s, the whole parameters' hash (equal
+    on every rank, checked by the parent), parameter and optimizer-state
+    bytes per rank, a profile of one more step on rank 0 (device busy,
+    the collectives' host spans) and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    state, step, shards, local = mesh_trainer(dev, layout, mesh, seed=0,
+                                              dtype=torch.bfloat16, ema=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    batch = lambda: local(torch.randn((MESH_BATCH, 32, 32, 8), generator=data, device=dev))
+    state, m = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    mesh.barrier()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {k: v * MESH_STEPS for k, v in MESH_LAUNCHES[layout].items()}
+    require(counts == want, (layout, counts, want))
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses), (layout, losses))
+    params = list(state.params.parameters())
+    out = dict(launches=counts, losses=losses, steps_per_s=MESH_STEPS / dt,
+               params_hash=param_hash(list(whole_params(state.params, shards).values())),
+               state_bytes=sum(p.numel() * p.element_size() for p in params)
+               + opt_state_bytes(state.opt_state))
+    fn = lambda: step(state, batch(), generator=gen)
+    if rank == 0:
+        prof = profile_fn(fn)
+        out.update(device_busy_ms=prof["device_busy_ms"], collective_ms=prof["collective_ms"])
+    else:
+        fn()
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def mesh_child(rank: int, device: str, port: int, queue) -> None:
+    """One of phase 18's MESH_WORLD processes sharing `device`: tp2, ep2
+    and sp2 on the first two (a mesh of 2, the others waiting), then
+    multislice4 on all; each layout's fp32 check and timed steps. Its
+    results as one JSON line on `queue` (or its error, and then it exits
+    non-zero)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from ldm_image_generator_tpu_torch.parallel import mesh as tmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=MESH_WORLD)
+    try:
+        pair = tmesh.make_mesh(2, model_parallel=2)
+        slices = tmesh.make_multislice_mesh(MESH_WORLD, replicas=2, model_parallel=1)
+        out = {}
+        for layout in MESH_LAUNCHES:
+            mesh = slices if layout == "multislice4" else pair
+            if mesh.member:
+                t0 = time.perf_counter()
+                fp32 = mesh_fp32_check(dev, layout, mesh, rank)
+                torch.cuda.empty_cache()
+                out[layout] = dict(mesh_train(dev, layout, mesh, rank), fp32=fp32,
+                                   mesh=mesh.shape, coords=mesh.coords,
+                                   seconds=time.perf_counter() - t0)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        queue.put(json.dumps(dict(rank=rank, ok=True, **out)))
+    except BaseException:
+        queue.put(json.dumps(dict(rank=rank, ok=False, error=traceback.format_exc())))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 18 in one group of MESH_WORLD processes: (a) tp2, (b) ep2, (c)
+    sp2 on a mesh of the first 2 (data 1 x model 2), (d) multislice4 on
+    all 4 (replica 2 x data 2 x model 1); see the module docstring. A plain DP rank's parameter and
+    optimizer-state bytes (phase 17 (a)'s: the fp32 parameters and AdamW's
+    two moments whole) are the TP and EP ranks' yardstick."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+
+    t0 = time.perf_counter()
+    dp_state_bytes = 3 * 4 * sum(p.numel() for p in UNet(UNetConfig(),
+                                                          device="meta").parameters())
+    os.makedirs(PAR_DIR, exist_ok=True)
+    shared = f"cuda:{torch.device(dev).index or 0}"
+    ranks = run_children(mesh_child, MESH_WORLD, (shared, free_port()), timeout_s=600)
+    out = {}
+    card = card_line()
+    for layout in MESH_LAUNCHES:
+        per = [r[layout] for r in ranks if layout in r]
+        if layout in ("tp2", "ep2"):
+            require(len(per) == 2 and all(p["fp32"].get("bitwise") for p in per),
+                    (layout, "fp32 not bitwise on every rank"))
+        require(len({p["params_hash"] for p in per}) == 1,
+                f"{layout}: the ranks' whole parameters differ")
+        r0 = per[0]
+        out[layout] = dict(r0, steps_per_s=[p["steps_per_s"] for p in per],
+                           peak_gib=[p["peak_gib"] for p in per],
+                           state_bytes=[p["state_bytes"] for p in per])
+        if layout in ("tp2", "ep2"):
+            share = [b / dp_state_bytes for b in out[layout]["state_bytes"]]
+            require(all(s <= MESH_STATE_SHARE for s in share), (layout, share))
+            out[layout]["state_share"] = share
+        log(f"phase 18 {layout} {r0['mesh']}: launches {json.dumps(r0['launches'])} "
+            f"over {MESH_STEPS} steps, losses {r0['losses']}, steps/s per rank "
+            f"{out[layout]['steps_per_s']}, device busy {r0['device_busy_ms']} ms and "
+            f"collectives {r0['collective_ms']} ms (one profiled step, rank 0), peak "
+            f"{out[layout]['peak_gib']} GiB, parameter + optimizer-state bytes per rank "
+            f"{out[layout]['state_bytes']} (share of DP's "
+            f"{out[layout].get('state_share')}), fp32 {json.dumps(r0['fp32'])}; {card}")
+    out["dp_state_bytes"] = dp_state_bytes
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 (mesh layouts) took {out['seconds']:.1f} s")
+    return out
+
+
+# phase 19: the data cache on the card's machine: 64 seeded 512px images
+CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_cache")
+CACHE_IMAGES = 64
+CACHE_SIZE = 512
+LATENT_SIZE = 256
+# native against PIL (the JAX package's tests/test_data.py bound)
+NATIVE_PIL_MEAN = 0.08
+
+
+def write_seeded_images(d: str, n: int) -> None:
+    """n seeded 512px-class images, JPEG and PNG in turns, of several
+    aspect ratios (smooth content plus noise, as photos are)."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(0)
+    shapes = [(640, 480), (480, 640), (512, 512), (300, 200), (800, 600)]
+    for i in range(n):
+        w, h = shapes[i % len(shapes)]
+        base = rng.integers(0, 255, (h // 16 + 1, w // 16 + 1, 3)).astype(np.float32)
+        img = np.kron(base, np.ones((16, 16, 1)))[:h, :w]
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(d, f"{i}.{'jpg' if i % 2 else 'png'}"))
+
+
+def phase_data_cache(dev) -> dict:
+    """Phase 19: the native decoder's build (or why it cannot be built
+    here), the image cache of CACHE_IMAGES images at CACHE_SIZE through
+    it and through PIL (images/s each; native within NATIVE_PIL_MEAN of
+    PIL, the pad rows equal), each rebuilt from its cache with no decode
+    and the same bits, the latent cache at LATENT_SIZE with the default
+    encoder on the card (a second construction calls it 0 times, the same
+    bits), then cli/train_vae for one epoch from the image cache (512px,
+    crop 192, B=8), which must exit 0 and decode nothing."""
+    import shutil
+
+    import numpy as np
+
+    from ldm_image_generator_tpu_torch.config import VAEConfig
+    from ldm_image_generator_tpu_torch.data import dataset as tdataset
+    from ldm_image_generator_tpu_torch.data import native_loader
+    from ldm_image_generator_tpu_torch.models.vae import Encoder
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    imgs = os.path.join(CACHE_DIR, "images")
+    out = {}
+    try:
+        out["native_build_s"] = native_loader.build()
+        out["native"] = native_loader.available()
+        log(f"native decoder built in {out['native_build_s']:.2f} s; {card}")
+    except RuntimeError as e:
+        out.update(native=False, native_error=str(e))
+        log(f"native decoder cannot be built on this machine: {e}; the cache "
+            "builds through PIL")
+    t0 = time.perf_counter()
+    write_seeded_images(imgs, CACHE_IMAGES)
+    out["write_s"] = time.perf_counter() - t0
+
+    def build(cache: str, use_native: bool):
+        # the PIL build: the native library taken out of this one build
+        if not use_native:
+            saved = native_loader.available
+            native_loader.available = lambda: False
+        try:
+            t0 = time.perf_counter()
+            ds = tdataset.ImageDataset([imgs], cache_dir=cache, size=CACHE_SIZE)
+            return ds, time.perf_counter() - t0
+        finally:
+            if not use_native:
+                native_loader.available = saved
+
+    runs = [("pil", os.path.join(CACHE_DIR, "pil_cache"), False)]
+    if out["native"]:
+        runs.insert(0, ("native", os.path.join(CACHE_DIR, "dataset_cache"), True))
+    else:
+        runs[0] = ("pil", os.path.join(CACHE_DIR, "dataset_cache"), False)
+    built = {}
+    for name, cache, use_native in runs:
+        ds, secs = build(cache, use_native)
+        require(ds.built[name] == CACHE_IMAGES, (name, ds.built))
+        again, again_s = build(cache, use_native)
+        require(sum(again.built.values()) == 0, (name, "rebuilt", again.built))
+        for i in range(len(ds)):
+            require(np.array_equal(np.asarray(again.load_raw(i)), np.asarray(ds.load_raw(i))),
+                    f"{name} cache item {i} served other bits")
+        out[f"{name}_images_per_s"] = CACHE_IMAGES / secs
+        out[f"{name}_reuse_s"] = again_s
+        built[name] = ds
+        log(f"image cache ({name}): {CACHE_IMAGES} images at {CACHE_SIZE}px in "
+            f"{secs:.3f} s ({CACHE_IMAGES / secs:.1f} images/s); rebuilt from the "
+            f"cache in {again_s:.3f} s with 0 decodes, bitwise; {card}")
+    if out["native"]:
+        nat, pil = built["native"], built["pil"]
+        means = []
+        for i in range(len(nat)):
+            a, b = nat[i], pil[i]
+            pad = np.all(b == -1.0, axis=(1, 2))
+            require(np.array_equal(a[pad], b[pad]), f"native pad rows of item {i}")
+            means.append(float(np.abs(a - b).mean()))
+        require(max(means) < NATIVE_PIL_MEAN, ("native vs PIL", max(means)))
+        out["native_vs_pil_mean_abs"] = max(means)
+    # the latent cache with the default encoder on the card
+    enc = Encoder(VAEConfig(), device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    calls = []
+
+    @torch.no_grad()
+    def encode(x):
+        calls.append(x.shape)
+        return enc(torch.from_numpy(x).to(dev), dtype=torch.bfloat16).float().cpu().numpy()
+
+    fp = tdataset.module_fingerprint(enc)
+    lat_cache = os.path.join(CACHE_DIR, "latent_cache")
+    t0 = time.perf_counter()
+    lat = tdataset.LatentImageDataset([imgs], cache_dir=lat_cache, size=LATENT_SIZE,
+                                      encode_fn=encode, encoder_fingerprint=fp)
+    lat_s = time.perf_counter() - t0
+    n_calls = len(calls)
+    require(lat.encoded == n_calls == -(-CACHE_IMAGES // lat.encode_batch), lat.encoded)
+    again = tdataset.LatentImageDataset([imgs], cache_dir=lat_cache, size=LATENT_SIZE,
+                                        encode_fn=encode, encoder_fingerprint=fp)
+    require(again.encoded == 0 and len(calls) == n_calls, ("latents re-encoded",
+                                                          again.encoded))
+    z0 = lat[0]
+    require(z0.shape == (LATENT_SIZE // 8, LATENT_SIZE // 8, 8) and np.isfinite(z0).all(),
+            z0.shape)
+    for i in range(len(lat)):
+        require(np.array_equal(np.asarray(again.load_raw(i)), np.asarray(lat.load_raw(i))),
+                f"latent item {i} served other bits")
+    out.update(latent_images_per_s=CACHE_IMAGES / lat_s, encoder_calls=n_calls)
+    log(f"latent cache: {CACHE_IMAGES} images at {LATENT_SIZE}px encoded in {lat_s:.3f} s "
+        f"({CACHE_IMAGES / lat_s:.1f} images/s, {n_calls} encoder calls of "
+        f"{lat.encode_batch}); rebuilt with 0 encoder calls, bitwise; {card}")
+    del enc, lat, again
+    torch.cuda.empty_cache()
+    # the VAE trainer CLI from the image cache (./dataset_cache under its cwd)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "ldm_image_generator_tpu_torch.cli.train_vae", imgs,
+         "-s", str(CACHE_SIZE), "-b", "8", "-e", "1", "-fp16", "true", "-r", "results",
+         "--save-every", "1000"],
+        cwd=CACHE_DIR, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    for line in res.stdout.splitlines()[-8:]:
+        log(f"train_vae: {line}")
+    require(res.returncode == 0, f"train_vae exited {res.returncode}")
+    require(f"dataset: {CACHE_IMAGES} images at {CACHE_SIZE}px" in res.stdout
+            and f"0 of {CACHE_IMAGES} decoded" in res.stdout, "train_vae rebuilt the cache")
+    out["train_vae_cli_s"] = cli_s
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 (data cache) took {out['seconds']:.1f} s, train_vae {cli_s:.1f} s; "
+        f"{card}")
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3622,10 +4104,13 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv == ["--phase", "17"]:
-        # phases 1 and 17 alone (a quicker check of the parallel paths);
-        # no result line: the whole check is the script without arguments
-        log(json.dumps({"phase17": phase_parallel(dev)}))
+    if argv[:1] == ["--phase"]:
+        # phase 1 and the given ones of 17-19 alone (a quicker check of
+        # those paths); no result line: the whole check is the script
+        # without arguments
+        runs = {"17": phase_parallel, "18": phase_mesh, "19": phase_data_cache}
+        for p in argv[1:]:
+            log(json.dumps({f"phase{p}": runs[p](dev)}))
         log(name)
         return 0
     kernels = phase_kernels(dev, reps=10)
@@ -3727,6 +4212,16 @@ def main(argv) -> int:
         by_path = kernels[kernel].setdefault("launches_by_path", {})
         by_path.update({p: c[kernel] for p, c in parallel_paths.items() if c[kernel]})
     log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev)
+    mesh_paths = {f"{k}_train_step": {c: v // MESH_STEPS for c, v in mesh[k]["launches"].items()}
+                  for k in MESH_LAUNCHES}
+    for kernel in kernels:
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in mesh_paths.items() if c[kernel]})
+    log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
+    data_cache = phase_data_cache(dev)
+    log(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
     elapsed = time.perf_counter() - t_start
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
@@ -3770,7 +4265,9 @@ def main(argv) -> int:
         "int8_train_card_vs_cpu": int8_vs_cpu,
         "ablation": ablation,
         "kid": kid,
-        "parallel": parallel}}))
+        "parallel": parallel,
+        "mesh": mesh,
+        "data_cache": data_cache}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

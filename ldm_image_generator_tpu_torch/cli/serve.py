@@ -583,7 +583,8 @@ def make_handler(server, encode, default_size=None, default_guidance=1.0,
                         ).encode())
                     image = preprocess_image(
                         io.BytesIO(raw),
-                        size if size is not None else default_size)
+                        size if size is not None else default_size,
+                        use_native=False)  # PIL, as the JAX server decodes uploads
                     # the keep channel: regenerate the whole image
                     payload = np.concatenate(
                         [image, np.zeros(image.shape[:2] + (1,), image.dtype)], -1)

@@ -19,7 +19,9 @@ also after an interrupt or a SIGTERM. Runs on `cuda` unless `-d cpu` is
 given; a CUDA request without a card raises. --coordinator HOST:PORT
 --process-id r --num-processes N (each process the same command) trains
 data-parallel, as train_ldm does: -b is the global batch, the gradients
-are all-reduced, rank 0 writes the files.
+are all-reduced, rank 0 writes the files. The images are decoded once
+into the content-addressed fp16 cache under ./dataset_cache/
+(data/dataset.py) and read back from it on later runs.
 """
 from __future__ import annotations
 
@@ -93,6 +95,7 @@ def main(argv=None):
 
     ds = ImageDataset(args.dataset_path, size=args.size, max_len=args.maxdata)
     print(f"dataset: {len(ds)} images at {args.size}px")
+    print(ds.cache_line())
 
     gen = torch.Generator(device=device).manual_seed(0)
     unet = UNet(ucfg, device=device, generator=gen)
@@ -125,7 +128,8 @@ def main(argv=None):
                               dtype=dtype)
         print(f"validation: {len(val_ds)} images, every {args.val_every} steps")
 
-    return train_loop(state, step, BatchLoader(ds, args.batch), epochs=args.epoch,
+    return train_loop(state, step, BatchLoader(ds, args.batch, device_cast=True),
+                      epochs=args.epoch,
                       batch_size=args.batch,
                       save_all=saver(args.modelpath, ckpt, gen, tx, dp),
                       save_every=args.save_every, validator=validator,

@@ -5,7 +5,10 @@
 
 The flags are those of the JAX package's cli/train_ldm.py that this port
 covers. The images are encoded once by the VAE Encoder of the -ep
-parameter file (seeded random weights where it does not exist), the
+parameter file (seeded random weights where it does not exist) into the
+content-addressed fp16 latent cache under ./dataset_cache/ (its key names
+the encoder's parameters, so another encoder encodes afresh; a resumed
+run reads the latents back), the
 UNet starts from the -mp file where it exists (else seeded random
 weights; either file flax msgpack or the reference's torch state_dict,
 converted), and each step is AdamW on the eps-prediction L1 loss
@@ -288,7 +291,10 @@ def main(argv=None):
         UNetConfig,
         VAEConfig,
     )
-    from ldm_image_generator_tpu_torch.data.dataset import LatentImageDataset
+    from ldm_image_generator_tpu_torch.data.dataset import (
+        LatentImageDataset,
+        module_fingerprint,
+    )
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -332,13 +338,16 @@ def main(argv=None):
     def encode(imgs):
         return encoder(torch.from_numpy(imgs).to(device)).float().cpu().numpy()
 
-    ds = LatentImageDataset(args.dataset_path, encode, size=args.size,
-                            max_len=args.maxdata)
+    fingerprint = module_fingerprint(encoder)
+    ds = LatentImageDataset(args.dataset_path, size=args.size, max_len=args.maxdata,
+                            encode_fn=encode, encoder_fingerprint=fingerprint)
     print(f"dataset: {len(ds)} latents "
           f"({args.size // vcfg.downscale}px, {vcfg.latent_channels}ch)")
+    print(ds.cache_line())
     val_ds = None
     if args.val_dir:
-        val_ds = LatentImageDataset(args.val_dir, encode, size=args.size)
+        val_ds = LatentImageDataset(args.val_dir, size=args.size, encode_fn=encode,
+                                    encoder_fingerprint=fingerprint)
     del encoder
 
     unet = UNet(ucfg, device=device, generator=gen)
@@ -393,7 +402,7 @@ def main(argv=None):
                               dtype=dtype)
         print(f"validation: {len(val_ds)} latents, every {args.val_every} steps")
 
-    loader = BatchLoader(ds, args.batch, with_labels=num_classes > 0)
+    loader = BatchLoader(ds, args.batch, with_labels=num_classes > 0, device_cast=True)
     return train_loop(state, step, loader, epochs=args.epoch, batch_size=args.batch,
                       save_all=saver(args.modelpath, ckpt, gen, tx, dp),
                       save_every=args.save_every,

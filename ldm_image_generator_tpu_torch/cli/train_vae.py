@@ -24,7 +24,10 @@ without a card raises. --coordinator HOST:PORT --process-id r
 --num-processes N (each process the same command) trains data-parallel:
 -b is the global batch, each process loads its stripe of it, both nets'
 gradients are all-reduced (the vq search runs on each process's rows),
-and rank 0 writes the files.
+and rank 0 writes the files. The images are decoded once into the
+content-addressed fp16 cache under ./dataset_cache/ (data/dataset.py,
+the JAX CLIs' place) and read back from it on every later run; batches
+go to the card as fp16 and are cast there.
 """
 from __future__ import annotations
 
@@ -134,6 +137,7 @@ def main(argv=None):
         maybe_load(module, path, converter)
     ds = ImageDataset([args.dataset_path], size=args.size, max_len=args.maxdata)
     print(f"dataset: {len(ds)} images at {args.size}px")
+    print(ds.cache_line())
     crop = 192 if args.size >= 192 else args.size
     tx_vae, tx_d = make_optimizer("adafactor"), make_optimizer("adafactor")
     state = VAETrainState(vae_params=vae, disc_params=disc,
@@ -152,7 +156,7 @@ def main(argv=None):
     step_fn = make_vae_train_step(vae["encoder"], vae["decoder"], vae["quantizer"],
                                   disc, tx_vae, tx_d, weight_recon=args.recon,
                                   crop_size=crop, dtype=dtype, reduce_grads=dp)
-    loader = BatchLoader(ds, args.batch)
+    loader = BatchLoader(ds, args.batch, device_cast=True)
     logger = MetricLogger(log_every=10)
     os.makedirs(args.result, exist_ok=True)
 

@@ -12,8 +12,15 @@ batch_size is the GLOBAL batch. Under a data-parallel group every rank
 builds the loader with the same seed, so the per-epoch permutation is the
 same on every rank, and each rank loads only its stripe [lo, lo + B / W)
 of each global batch (labels striped the same way): shard_index and
-shard_count default to the group's rank and world size (0 and 1 without
-a group), as the JAX loader's default to the process index and count.
+shard_count default to the rank and size of `group` (the default group,
+or a mesh's data group: parallel.mesh.Mesh.data_group; 0 and 1 without
+one), as the JAX loader's default to the process index and count.
+
+A dataset with load_raw (the fp16 cache's memory maps,
+data/dataset.py) is stacked straight from them and cast to float32 once
+per batch; with device_cast=True the batch stays fp16 and the consumer
+casts it on its device (the train steps cast to fp32 there: exact, and
+half the bytes to copy).
 """
 from __future__ import annotations
 
@@ -37,18 +44,20 @@ class _Failed:
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 2,
                  with_labels: bool = False, shard_index: "int | None" = None,
-                 shard_count: "int | None" = None):
+                 shard_count: "int | None" = None, device_cast: bool = False,
+                 group=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.with_labels = with_labels
+        self.device_cast = device_cast
         if shard_index is None or shard_count is None:
             import torch.distributed as dist
 
             grouped = dist.is_available() and dist.is_initialized()
-            shard_index = dist.get_rank() if grouped else 0
-            shard_count = dist.get_world_size() if grouped else 1
+            shard_index = dist.get_rank(group) if grouped else 0
+            shard_count = dist.get_world_size(group) if grouped else 1
         if not 0 <= shard_index < shard_count:
             raise ValueError(f"shard {shard_index} of {shard_count}")
         if batch_size % shard_count:
@@ -61,7 +70,13 @@ class BatchLoader:
         return len(self.dataset) // self.batch_size
 
     def _make(self, sl):
-        batch = np.stack([np.asarray(self.dataset[int(i)]) for i in sl])
+        load = getattr(self.dataset, "load_raw", None)
+        if load is None:  # a dataset without the fp16 cache
+            batch = np.stack([np.asarray(self.dataset[int(i)]) for i in sl])
+        else:
+            batch = np.stack([load(int(i)) for i in sl])
+            if not self.device_cast:
+                batch = batch.astype(np.float32)
         if self.with_labels:
             labels = np.asarray([self.dataset.labels[int(i)] for i in sl],
                                 dtype=np.int32)

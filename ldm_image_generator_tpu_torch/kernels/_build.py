@@ -41,12 +41,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.iterdir()):
+def source_digest(files, flags) -> str:
+    """A short hash of the compiler flags and of each file's name and
+    bytes: the version a build of those sources is named by."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in files:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _digest() -> str:
+    return source_digest(sorted(CSRC.iterdir()), NVCC_FLAGS)
 
 
 def library_path(name: str) -> Path:

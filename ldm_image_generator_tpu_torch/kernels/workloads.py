@@ -48,6 +48,8 @@ class Call:
     residual: bool = True  # block_core: add_residual (False: a conditioned block)
     film_batch: int = 1    # block kernels: the film's batch (a train step's
                            # is the call's: one t per sample)
+    experts: int = 4       # FFN kernels: experts in the weight stack (an
+                           # expert-parallel block's: the 2 routed ones)
 
     @property
     def label(self) -> str:
@@ -58,7 +60,8 @@ class Call:
                 " mask" if self.masked else "")
         return f"[{self.batch},{self.hw},{self.hw},{self.c}]" + (
             "" if self.residual else " no-res") + (
-            f" film{self.film_batch}" if self.film_batch > 1 else "")
+            f" film{self.film_batch}" if self.film_batch > 1 else "") + (
+            f" E{self.experts}" if self.experts != 4 else "")
 
 
 def path_calls(batch: int, latent: int = 32,
@@ -128,10 +131,11 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
                 gen: torch.Generator) -> tuple:
     """Positional arguments of the kernel wrapper for `call` (weights at
     lecun scale, biases and FiLM random, film at batch call.film_batch;
-    FFN width M = C as ffn_mul=1 gives), cast to dtype; for a *_int8 call
-    the FFN weights then go through quantize_cols."""
+    FFN width M = C as ffn_mul=1 gives; call.experts stacked experts,
+    routed to (1, 3), or to (0, 1) in a stack of 2), cast to dtype; for a
+    *_int8 call the FFN weights then go through quantize_cols."""
     c = m = call.c
-    e = 4
+    e = call.experts
     cast = lambda t: t.to(dtype).contiguous()
     if call.kernel == "vq":
         # latents and an N(0, 1) codebook (fp32, as the quantizer keeps it)
@@ -160,7 +164,7 @@ def make_inputs(call: Call, dtype: torch.dtype, device,
            w(e, m, c, fan=m), b(e, c))
     if call.kernel.endswith("_int8"):
         ffn = quantize_ffn(ffn)
-    ids = torch.tensor((1, 3), dtype=torch.int32, device=device)
+    ids = torch.tensor((1, 3) if e > 3 else (0, 1), dtype=torch.int32, device=device)
     if call.kernel == "ffn_block_bwd":
         # h as the norm/FiLM output (about unit scale), g an out-cotangent
         h = cast(_randn((bt * hw * hw, c), gen, device))

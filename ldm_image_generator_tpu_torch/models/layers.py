@@ -388,12 +388,18 @@ class Encodings(nn.Module):
         self.proj1 = FiLMProj1(channels, 4 * channels, init)
         self.proj2 = Dense(4 * channels, 2 * channels, init)
 
-    def film(self, h: int, w: int, t: torch.Tensor, dtype=None):
+    def film(self, h: int, w: int, t: torch.Tensor, dtype=None, rows=None):
         """(mul, bias), each [t.shape[0], h, w, C] and contiguous, in
-        `dtype` (default: the parameters')."""
+        `dtype` (default: the parameters'). rows: (first row, map height)
+        when the h rows are a stripe of a taller map (a spatial split):
+        the positions are the stripe's in the whole map."""
         c = self.proj2.bias.shape[0] // 2
         dt = dtype or self.proj2.kernel.dtype
-        pe = positional_encoding_2d(h, w, c, dtype=dt, device=t.device)
+        if rows is None:
+            pe = positional_encoding_2d(h, w, c, dtype=dt, device=t.device)
+        else:
+            pe = positional_encoding_2d(rows[1], w, c, dtype=dt,
+                                        device=t.device)[rows[0]:rows[0] + h]
         te = time_encoding_2d(t, c, dtype=dt)
         embs = self.proj1(pe[None], te)
         embs = embs.expand(t.shape[0], h, w, 4 * c)
@@ -401,8 +407,8 @@ class Encodings(nn.Module):
         mul, bias = embs.chunk(2, dim=-1)
         return mul.contiguous(), bias.contiguous()
 
-    def forward(self, x, t, return_film: bool = False):
-        mul, bias = self.film(x.shape[1], x.shape[2], t, dtype=x.dtype)
+    def forward(self, x, t, return_film: bool = False, rows=None):
+        mul, bias = self.film(x.shape[1], x.shape[2], t, dtype=x.dtype, rows=rows)
         if return_film:
             return mul, bias
         return x * mul + bias
@@ -474,20 +480,26 @@ class SwinBlock(nn.Module):
             self.cross_attention = CrossAttention(c, heads, init,
                                                   kv_channels=cond_channels or None)
 
-    def forward(self, x, t, film=None, expert_ids=None, gate=None, cond=None):
+    def forward(self, x, t, film=None, expert_ids=None, gate=None, cond=None,
+                spatial=None):
         """film: (mul, bias) replayed from the FiLM schedule, or None to
         run the FiLM tower on t inline; expert_ids: [k] int32 routing, or
         None for the configured fixed indices; gate: the stochastic-depth
         keep (a 0/1 or bool scalar tensor) of a training forward, or None;
         cond: condition tokens [B, T, D] (a decoder stack's blocks of a
-        conditioned forward), or None."""
+        conditioned forward), or None; spatial: a parallel.mesh.SpatialSplit
+        when x is this rank's rows of the map (the FiLM tower at the rows'
+        positions, the grouped conv on a one-row halo, window attention on
+        the gathered map; the body takes ffn_block plus the conv, not
+        block_core, whose fused conv has no halo), or None."""
         skip = self.skip
-        fused_conv = (self.fused and "conv" not in skip
+        fused_conv = (self.fused and "conv" not in skip and spatial is None
                       and x.shape[0] <= BLOCK_CORE_MAX_BATCH)
         fold = fused_conv and gate is None and cond is None
+        rows = None if spatial is None else spatial.rows(x.shape[1])
         if self.fused:
             mul, bias = film if film is not None else self.encodings(
-                x, t, return_film=True)
+                x, t, return_film=True, rows=rows)
             if fused_conv:
                 branch, h = self.ffn(x, mul, bias, conv_kernel=self.conv.kernel,
                                      conv_bias=self.conv.bias, add_residual=fold,
@@ -498,15 +510,20 @@ class SwinBlock(nn.Module):
             h = x if "norm" in skip else channel_norm(x)
             if "film" not in skip:
                 mul, bias = film if film is not None else self.encodings(
-                    h, t, return_film=True)
+                    h, t, return_film=True, rows=rows)
                 h = h * cast(mul, h.dtype) + cast(bias, h.dtype)
             branch = (torch.zeros_like(h) if "moe" in skip
                       else self.ffn.plain(h, expert_ids))
         if not fused_conv and "conv" not in skip:
-            branch = branch + self.conv(h)
+            if spatial is None:
+                branch = branch + self.conv(h)
+            else:
+                branch = branch + self.conv(spatial.halo(h))[:, 1:-1]
         if self.attention:
-            if "attn" not in skip:
+            if "attn" not in skip and spatial is None:
                 branch = branch + self.self_attention(h)
+            elif "attn" not in skip:
+                branch = branch + spatial.own(self.self_attention(spatial.gather(h)))
             if cond is not None:
                 branch = branch + self.cross_attention(branch, cond)
         if gate is not None:
@@ -552,16 +569,19 @@ class SwinStack(nn.Module):
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_blocks)]
 
-    def forward(self, x, t, film=None, expert_ids=None, gates=None, cond=None):
+    def forward(self, x, t, film=None, expert_ids=None, gates=None, cond=None,
+                spatial=None):
         """film: {block_i: (mul, bias)} or None; expert_ids: [n, k] int32
         routing rows (None: each block's fixed indices); gates: [n]
         stochastic-depth keeps, or None (deterministic); cond: condition
-        tokens for every block, or None."""
+        tokens for every block, or None; spatial: the blocks' spatial
+        split (SwinBlock), or None."""
         home = x.device
         for i, block in enumerate(self.blocks()):
             kw = dict(film=None if film is None else film[f"block_{i}"],
                       expert_ids=None if expert_ids is None else expert_ids[i],
-                      gate=None if gates is None else gates[i], cond=cond)
+                      gate=None if gates is None else gates[i], cond=cond,
+                      spatial=spatial)
             dev = block.conv.bias.device
             if dev == x.device:
                 x = block(x, t, **kw)

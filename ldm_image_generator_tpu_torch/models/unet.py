@@ -55,6 +55,12 @@ makes the int8 weights ahead of a sampling run.
 
 ablate_branches (SwinBlock branch names to skip; parameters are still
 created, so files and trees are unchanged) reaches every block.
+
+Spatial parallelism (``spatial``, set by parallel/mesh.py
+spatial_parallel; None by default): the forward takes this rank's rows
+of the input's height and returns its rows of the output; the blocks
+exchange what crosses rows (SwinBlock), and a split that leaves a stage
+an odd or empty stripe before its 2x downsampling is refused.
 """
 from __future__ import annotations
 
@@ -193,6 +199,8 @@ class UNet(nn.Module):
             "pairs", torch.tensor(pair_table(cfg.num_experts),
                                   dtype=torch.int32, device=dev),
             persistent=False)
+        # a parallel.mesh.SpatialSplit, or None (the whole map)
+        self.spatial = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -310,12 +318,16 @@ class UNet(nn.Module):
         gates = None if deterministic else self.sd_gates(sd_gates, generator)
         cond = self.condition_tokens(condition, dt)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        sp = self.spatial
+        if sp is not None:
+            sp.check(x.shape[1], self.cfg.stem_size, n)
 
         def run(name, x):
             kwargs = dict(film=None if film is None else film[name],
                           expert_ids=None if routes is None else routes[name],
                           gates=None if gates is None else gates[name],
-                          cond=cond if name.startswith("dec") else None)
+                          cond=cond if name.startswith("dec") else None,
+                          spatial=sp)
             stack = getattr(self, name)
             if remat:
                 # every draw (routing, gates) was made above: the recompute

@@ -142,11 +142,15 @@ class MultiStepsState:
     acc_grads: List[torch.Tensor]
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> list:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq_sum: Optional[torch.Tensor] = None) -> list:
     """optax.clip_by_global_norm: g * max_norm / ||g|| when ||g|| >=
-    max_norm (no epsilon), with ||g|| over every tensor."""
+    max_norm (no epsilon), with ||g|| over every tensor (sq_sum: its
+    square, given where the gradients are slices of whole ones)."""
     dev = grads[0].device  # a pipelined UNet's parameters span devices
-    g_norm = torch.sqrt(sum(g.float().square().sum().to(dev) for g in grads))
+    if sq_sum is None:
+        sq_sum = sum(g.float().square().sum().to(dev) for g in grads)
+    g_norm = torch.sqrt(sq_sum)
     keep = g_norm < max_norm
     return [torch.where(keep.to(g.device), g, (g / g_norm.to(g.device)) * max_norm)
             for g in grads]
@@ -170,14 +174,18 @@ class AdamW:
     state holds only this rank's slice of each split moment, the update
     reads this rank's slice of each (all-reduced, clipped) gradient and
     writes its slice of each parameter, and the parameters are then
-    all-gathered: elementwise the same update as without it."""
+    all-gathered: elementwise the same update as without it. With shards
+    (a parallel.mesh.ParamShards: the parameters are slices over a model
+    axis) the update is elementwise on the slices, and the clip's norm
+    sums the slices' squares over the model group."""
 
     b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 1e-4
 
-    def __init__(self, learning_rate, grad_clip: float = 0.0, zero1=None):
+    def __init__(self, learning_rate, grad_clip: float = 0.0, zero1=None, shards=None):
         self.learning_rate = learning_rate
         self.grad_clip = grad_clip
         self.zero1 = zero1
+        self.shards = shards
 
     def _local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """This rank's slices of tensors shaped as the parameters."""
@@ -214,7 +222,8 @@ class AdamW:
               state: AdamWState) -> AdamWState:
         """params += the update for grads; returns the new state."""
         if self.grad_clip > 0.0:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            sq = None if self.shards is None else self.shards.sq_sum(params, grads)
+            grads = clip_by_global_norm(grads, self.grad_clip, sq)
         count = state.count + 1
         self._update(self._local(params), self._local(grads), state, count)
         if self.zero1 is not None:
@@ -330,13 +339,37 @@ class Adafactor:
       u /= max(1, rms(u) / 1.0)                        (clip_by_block_rms)
       p += -relative_step(count) max(rms(p), 1e-3) u   (p before the update)
 
-    The three scalings of each tensor are folded into one factor."""
+    The three scalings of each tensor are folded into one factor. With
+    shards (a parallel.mesh.ParamShards) a split parameter's statistics
+    are its whole tensor's: the factoring reads the whole shape, and a
+    mean over the split dimension and the two RMS are summed over the
+    model group."""
 
     decay_rate, eps, min_dim_size_to_factor = 0.8, 1e-30, 128
     clipping_threshold, min_scale = 1.0, 1e-3
 
-    def __init__(self, grad_clip: float = 0.0):
+    def __init__(self, grad_clip: float = 0.0, shards=None):
         self.grad_clip = grad_clip
+        self.shards = shards
+
+    def _split(self, p: torch.Tensor) -> Optional[int]:
+        return None if self.shards is None else self.shards.split_dim.get(id(p))
+
+    def _whole_shape(self, p: torch.Tensor) -> tuple:
+        shape, d = list(p.shape), self._split(p)
+        if d is not None:
+            shape[d] *= self.shards.world
+        return tuple(shape)
+
+    def _mean(self, t: torch.Tensor, dim: int, n: int, split: bool,
+              keepdim: bool = False) -> torch.Tensor:
+        """t's mean over dim (n entries in the whole tensor), summed over
+        the model group where dim is the split one."""
+        if not split:
+            return t.mean(dim, keepdim=keepdim)
+        s = t.sum(dim, keepdim=keepdim)
+        torch.distributed.all_reduce(s, group=self.shards.group)
+        return s / n
 
     def full_state(self, state: AdafactorState) -> AdafactorState:
         return state
@@ -345,7 +378,7 @@ class Adafactor:
         return tree
 
     def _dims(self, p: torch.Tensor):
-        return factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+        return factored_dims(self._whole_shape(p), self.min_dim_size_to_factor)
 
     def init(self, params: List[torch.Tensor]) -> AdafactorState:
         v_row, v_col, v = [], [], []
@@ -370,7 +403,8 @@ class Adafactor:
               state: AdafactorState) -> AdafactorState:
         """params += the update for grads; returns the new state."""
         if self.grad_clip > 0.0:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            sq = None if self.shards is None else self.shards.sq_sum(params, grads)
+            grads = clip_by_global_norm(grads, self.grad_clip, sq)
         decay = F32(1) - F32(state.count + 1) ** F32(-self.decay_rate)
         keep, fresh = float(decay), float(F32(1) - decay)
         updates: List[Optional[torch.Tensor]] = [None] * len(params)
@@ -391,20 +425,29 @@ class Adafactor:
             if v_row is None:
                 continue
             d1, d0 = self._dims(params[i])
+            whole, split = self._whole_shape(params[i]), self._split(params[i])
             g = grads[i].float()
             g2 = g * g + self.eps
             v_col = state.v_col[i]
-            v_row.mul_(keep).add_(g2.mean(d0) * fresh)
-            v_col.mul_(keep).add_(g2.mean(d1) * fresh)
-            row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+            v_row.mul_(keep).add_(self._mean(g2, d0, whole[d0], split == d0) * fresh)
+            v_col.mul_(keep).add_(self._mean(g2, d1, whole[d1], split == d1) * fresh)
+            row_mean = self._mean(v_row, d1 - 1 if d1 > d0 else d1, whole[d1],
+                                  split == d1, keepdim=True)
             updates[i] = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
                           * v_col.rsqrt().unsqueeze(d1))
         neg_lr = -float(relative_step(state.count))
         for p, u in _chunks(params, updates):
-            size = torch.tensor([t.numel() for t in p], dtype=torch.float32,
-                                device=p[0].device)
-            rms_u = torch.stack(torch._foreach_norm(u)) / size.sqrt()
-            rms_p = torch.stack(torch._foreach_norm(p)) / size.sqrt()
+            size = torch.tensor([math.prod(self._whole_shape(t)) for t in p],
+                                dtype=torch.float32, device=p[0].device)
+            norm_u = torch.stack(torch._foreach_norm(u))
+            norm_p = torch.stack(torch._foreach_norm(p))
+            split = [j for j, t in enumerate(p) if self._split(t) is not None]
+            if split:  # whole tensors' norms: the slices' squares summed
+                sq = torch.stack([norm_u[split], norm_p[split]]).square()
+                torch.distributed.all_reduce(sq, group=self.shards.group)
+                norm_u[split], norm_p[split] = sq.sqrt().unbind()
+            rms_u = norm_u / size.sqrt()
+            rms_p = norm_p / size.sqrt()
             scale = (neg_lr / (rms_u / self.clipping_threshold).clamp_min(1.0)
                      * rms_p.clamp_min(self.min_scale))
             torch._foreach_mul_(u, list(scale.unbind()))
@@ -465,21 +508,22 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], step: int,
 def make_optimizer(name: str, learning_rate: float = 1e-4,
                    accumulate: int = 1, grad_clip: float = 0.0,
                    lr_schedule: str = "constant", warmup_steps: int = 0,
-                   total_steps: int = 0, zero1=None):
+                   total_steps: int = 0, zero1=None, shards=None):
     """adamw or radam [with an LR schedule], or adafactor (its own
     relative step; learning_rate and the schedule are not read), each
     with clipping and MultiSteps accumulation, off by default as in the
     JAX package. zero1: a parallel.mesh.Zero1 splitting adamw's or
     radam's moments over a data-parallel group (the gradient sums of
-    MultiSteps stay whole)."""
+    MultiSteps stay whole). shards: the parallel.mesh.ParamShards the
+    parameters are slices of (tensor or expert parallelism)."""
     if name == "adafactor":
         if zero1 is not None:
             raise ValueError("ZeRO-1 splits adamw's and radam's moments only")
-        tx = Adafactor(grad_clip=grad_clip)
+        tx = Adafactor(grad_clip=grad_clip, shards=shards)
     elif name in ("adamw", "radam"):
         lr = make_lr_schedule(learning_rate, lr_schedule, warmup_steps, total_steps)
         tx = (AdamW if name == "adamw" else RAdam)(lr, grad_clip=grad_clip,
-                                                   zero1=zero1)
+                                                   zero1=zero1, shards=shards)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return MultiSteps(tx, accumulate) if accumulate > 1 else tx
@@ -511,6 +555,12 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
     stochastic-depth gates are the batch's, the same on every rank), and
     the gradients are all-reduced (mean) before the optimizer, so the
     clip sees the global gradient. The logged loss is the group's mean.
+    With a spatial split (reduce_grads a parallel.mesh.SpatialDataParallel
+    and the UNet spatial_parallel) the latents are also only this rank's
+    rows of the height, the noise (drawn or injected) is the global
+    batch's whole map, of which the rank keeps its rows, and each rank's
+    loss is its rows' share of the stripe's mean (the model group's sum,
+    as reduce_grads forms it, is the mean).
 
     state.params must be `unet`. Class-conditional training (num_classes
     > 0 and int labels [B]): each label is replaced by the null class
@@ -547,15 +597,20 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
             if rows is not None:
                 drop = drop[rows]
             cond = torch.where(drop.to(x.device), num_classes, labels)
+        sp = getattr(reduce_grads, "spatial", None)
         if rows is not None:
-            # ddpm_loss's draws, of the global batch
+            # ddpm_loss's draws, of the global batch (and the whole map)
             if t is None:
                 t = torch.randint(1, schedule.num_timesteps, (b_all,),
                                   generator=generator, device=x.device)
             if eps is None:
-                eps = torch.randn((b_all,) + tuple(x.shape[1:]), generator=generator,
+                hw = tuple(x.shape[1:]) if sp is None else (
+                    x.shape[1] * sp.world,) + tuple(x.shape[2:])
+                eps = torch.randn((b_all,) + hw, generator=generator,
                                   device=x.device, dtype=x.dtype)
             t, eps = t[rows], eps[rows]
+            if sp is not None:
+                eps = sp.own(eps)
         model = unet
         forward = apply_fn or model
         params = list(model.parameters())
@@ -571,6 +626,8 @@ def make_ldm_train_step(unet: nn.Module, schedule: DiffusionSchedule, tx,
                              prediction=prediction,
                              min_snr_gamma=min_snr_gamma,
                              generator=generator, t=t, eps=eps)
+        if sp is not None:
+            loss_val = loss_val * (1.0 / sp.world)
         loss_val.backward()
         for p in params:
             if p.grad is None:

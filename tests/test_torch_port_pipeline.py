@@ -101,6 +101,7 @@ PORT_MODULES = [
     "ldm_image_generator_tpu_torch.cli.vq_breakdown",
     "ldm_image_generator_tpu_torch.data.dataset",
     "ldm_image_generator_tpu_torch.data.loader",
+    "ldm_image_generator_tpu_torch.data.native_loader",
     "ldm_image_generator_tpu_torch.diffusion.ddpm",
     "ldm_image_generator_tpu_torch.diffusion.dpm_solver",
     "ldm_image_generator_tpu_torch.diffusion.engine",

@@ -540,17 +540,24 @@ def _images(tmp_path, n=4, size=32):
 
 def test_image_dataset_matches_jax(tmp_path):
     """The same files in the same order as the JAX ImageDataset, each
-    preprocessed as the JAX package's PIL path does (a non-square source,
-    downscaled: resize, blur, pad) and held as float16, as its cache
-    stores them."""
+    preprocessed as the JAX package's dataset does (a non-square source,
+    downscaled: resize, blur, pad; both packages' native decoder where it
+    builds, else PIL), held as float16 in the cache and served as float32,
+    as the JAX dataset serves it; where neither decoder is built, equal to
+    the JAX package's PIL path."""
+    from ldm_image_generator_tpu.data import native_loader as jnative
+    from ldm_image_generator_tpu_torch.data import native_loader
+
     imgs = _images(tmp_path)
     ref = JImageDataset([imgs], cache_dir=str(tmp_path / "cache"), size=24, max_len=3)
-    got = ImageDataset([imgs], size=24, max_len=3)
+    got = ImageDataset([imgs], cache_dir=str(tmp_path / "port_cache"), size=24, max_len=3)
     assert len(got) == len(ref) == 3 and got.paths == ref.paths
+    native = native_loader.available() and jnative.available()
     for i, path in enumerate(ref.paths):
-        want = jdataset.preprocess_image(path, 24, use_native=False).astype(np.float16)
-        assert got[i].dtype == np.float16 and got[i].shape == (24, 24, 3)
-        np.testing.assert_array_equal(got[i], want)
+        want = (ref[i] if native else
+                jdataset.preprocess_image(path, 24, use_native=False).astype(np.float16))
+        assert got[i].dtype == np.float32 and got[i].shape == (24, 24, 3)
+        np.testing.assert_array_equal(got[i], np.asarray(want, np.float32))
     with pytest.raises(ValueError, match="no .jpg/.png"):
         ImageDataset([str(tmp_path / "cache")])
 
