@@ -3,7 +3,12 @@
     python3 chip_smoke.py             # the whole check, as below
 
 Phases, each fatal on failure (the script then exits non-zero and prints
-no result line):
+no result line; each logs its seconds, and the summary holds them). The
+paths that only check run the UNet at SHALLOW_STAGES (1/1/3/1 blocks per
+stack, every width, batch and latent the default's): the fp32 card-vs-CPU
+train steps of phases 14-16, phase 14's state round trip and run loop,
+and phases 17 and 18; every launch count, pipelined split and state
+share there is derived from that config.
   1. build the CUDA kernels from kernels/csrc (one nvcc per source, in
      parallel); print the build seconds and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version at every call
@@ -114,29 +119,31 @@ no result line):
      cond-drop 0.1. (1) a warm-up and 5 conditional train steps: exactly
      36 ffn_block, 36 ffn_block_bwd, 8 window MHA and 8 backward per
      step, finite losses, parameters and EMA, a gradient on class_embed;
-     steps/s, peak memory and a profile of one step. (4, run next on that
-     state) TrainCheckpointer writes it (~6.2 GB under build/) and restores
-     it into fresh modules on the card: every tensor, the step and the
+     steps/s, peak memory and a profile of one step. (4, run next) the
+     state of the conditional UNet at SHALLOW_STAGES after two steps:
+     TrainCheckpointer writes it (~2.1 GB under build/) and restores it
+     into fresh modules on the card: every tensor, the step and the
      generator's state bitwise; one more step from each within the train
      tolerances; bytes, write and read seconds; then the default VAE and
      discriminator with Adafactor after one step, the same round trip,
-     bitwise. (2) phase 7 on the conditional UNet with class ids (the
-     null class among them) injected. (3) one step with remat=True from
-     the same weights and draws as one without: 72 ffn_block, 36
-     backward, 16 window MHA and 8 backward; the loss equal and each
-     gradient within 1e-3 of its max abs (largest reported); the memory
-     the forward keeps for the backward must be lower with remat; 3 timed
-     steps each (time, peak above their starting memory, a profile); one
-     step each at B=32, whose peak of forward and backward must be lower
-     with remat (at B=8 the gradients set that peak either way). (5) cli/train_ldm.train_loop over in-memory seeded
-     latents, 12 steps at --fused-steps 2 --save-every 6 --val-every 6
-     --val-batches 2: saves at steps 2, 8 and 12 (the JAX trainer's
-     cadence on the batch index), the last two checkpoints kept and read
-     back (the last bitwise), the parameter and EMA files read back
-     bitwise, one JSON record at step 10 (with loss_gmax), validations at
-     steps 6 and 12 with finite val_loss and val_loss_ema and exactly
-     2 x 8 x 2 x (36 ffn_block + 8 window MHA) launches each (parameters
-     and EMA, 8 grid points, 2 batches).
+     bitwise. (2) phase 7 on the conditional UNet at SHALLOW_STAGES with
+     class ids (the null class among them) injected. (3) one step with
+     remat=True from the same weights and draws as one without: 72
+     ffn_block, 36 backward, 16 window MHA and 8 backward; the loss equal
+     and each gradient within 1e-3 of its max abs (largest reported); the
+     memory the forward keeps for the backward must be lower with remat;
+     3 timed steps each (time, peak above their starting memory, a
+     profile); one step each at B=32, whose peak of forward and backward
+     must be lower with remat (at B=8 the gradients set that peak either
+     way). (5) cli/train_ldm.train_loop on the conditional UNet at
+     SHALLOW_STAGES over in-memory seeded latents, 12 steps at
+     --fused-steps 2 --save-every 6 --val-every 6 --val-batches 2: saves
+     at steps 2, 8 and 12 (the JAX trainer's cadence on the batch index),
+     the last two checkpoints kept and read back (the last bitwise), the
+     parameter and EMA files read back bitwise, one JSON record at step
+     10 (with loss_gmax), validations at steps 6 and 12 with finite
+     val_loss and val_loss_ema and exactly the launches of 2 x 8 x 2 B=8
+     forwards each (parameters and EMA, 8 grid points, 2 batches).
   15. the pixel DDPM and the reference's torch files at full width: the
      default UNet with input_channels=3 at 32px (its maps are the latent
      path's). Phase 2 holds ffn_block, ffn_block_bwd and window MHA both
@@ -159,7 +166,8 @@ no result line):
      bitwise the in-memory weights'; cli/convert .pt -> msgpack ->
      --to-torch bitwise; the same round trip for the default VAE's four
      models through the trainers' loader; write and read seconds. (4)
-     phase 7 on the 3-channel UNet with RAdam, then RAdam on the card
+     phase 7 on the 3-channel UNet at SHALLOW_STAGES with RAdam, then
+     RAdam on the card
      over the CPU's gradients for 7 steps (1-5 unrectified, 6-7
      rectified) against the CPU's, at phase 9's per-element tolerance.
   16. training through int8 FFN weights, k-of-E routing, branch ablation
@@ -177,7 +185,7 @@ no result line):
      EMA; steps/s, peak memory, a profile of one step; then one remat
      step (72 int8 ffn_block, 16 window MHA, still 216 quantizations: the
      recompute makes none) and one B=2 step (36 int8 block_core, 36
-     ffn_block_bwd). (2) phase 7 on the int8 UNet (its own flip budget,
+     ffn_block_bwd). (2) phase 7 on the int8 UNet at SHALLOW_STAGES (its own flip budget,
      INT8_FLIP_TENSORS), the int8 weights and scale-bias rows of both
      sides equal, and the straight-through identity: the card's gradients
      against the same step of a full-precision UNet on the card holding
@@ -194,7 +202,8 @@ no result line):
      seeded sets of 64 smooth 256px images, the second noised, through
      the default Encoder and through random_conv_features: fp32 card vs
      CPU within 1e-3 relative, seconds per call in bf16 and fp32.
-  17. parallel training (PERF.md §4): (a) two spawned ranks sharing the
+  17. parallel training (PERF.md §4), the UNet at SHALLOW_STAGES but
+     the CLI of (f): (a) two spawned ranks sharing the
      card over gloo (one card cannot hold two NCCL ranks), each a
      data-parallel rank of the default UNet's train step at global B=8
      (bf16, AdamW, EMA): a warm-up and 2 timed steps of exactly 36
@@ -213,7 +222,7 @@ no result line):
      PNGs, rank 0 alone writing. Steps/s, the device-busy ms of one
      profiled step, the all-reduce wall and the peak memory of each,
      beside the card's name and power limit.
-  18. the mesh layouts (PERF.md §4), the default UNet at full width, in
+  18. the mesh layouts (PERF.md §4), the UNet at SHALLOW_STAGES, in
      one group of 4 processes sharing the card over gloo: (a) TP and (b)
      EP (data 1 x model 2), (c) SP (data 1 x model 2, 16 of the latent's
      32 rows per rank) on a mesh of the first 2, (d) multi-slice (replica
@@ -238,16 +247,42 @@ no result line):
      default encoder on the card, rebuilt with 0 encoder calls and the
      same bits; `cli/train_vae` for one epoch (8 steps of B=8, 512px, crop
      192) from the image cache, which must exit 0 and decode nothing.
-`--phase 17 [18 19]` runs phase 1 and the given phases alone (no result
-line).
+  20. the CLIs' default size, 512px (latent 64x64x8), the default UNet and
+     decoder at full width, seeded: (a) cli/sample_ldm at its defaults
+     (-n 1, fp32) in a working directory under build/, exactly 20 B=1
+     UNet calls' launches and one 512x512 PNG; (b) LDMPipeline.sample at
+     512px, bf16, DDIM-20, B=1 (720 block_core, 160 window MHA) and B=4
+     (720 ffn_block), (c) B=1 with int8 FFN weights (720 int8
+     block_core): images/s, a profiled call's device busy, peak memory;
+     (d) one fp32 UNet call at latent 64 card vs CPU at STEP_REL_TOL of
+     scale; (e) cli/train_ldm at its defaults (fp32, -b 1) for one epoch
+     of 2 seeded 512px PNGs in a working directory under build/: 2 steps
+     of exactly 36 block_core, 36 ffn_block_bwd, 8 + 8 window MHA, finite
+     losses; (f) the bf16 train step at B=8 (the ffn_block route): a
+     warm-up and 3 steps of exactly phase 6's launches, steps/s, device
+     busy, peak; (g) phase 7 at B=1 on 64x64 latents (the block_core
+     route, 4,096 rows); (h) one SamplerServer over make_variants(pipe,
+     [256, 512]) on the conditional UNet: plain and guided requests of
+     both sizes queued together, one dispatch per variant at its bucket
+     with exact launches, every 512px image bitwise the direct
+     pipe.sample from draw_noise rows.
+`--phase 2 17 18 19 20` runs phase 1 and the given phases alone, each
+even after another fails; exit 1 on any failure, no result line.
 Phase 2 also holds every kernel call of phase 17's paths (one rank's
 B=4 train step, the pipelined B=6 step, one rank's VAE step; tags
 dp2_train, gpipe3_train, dp2_vae_train) and the FFN calls of an EP rank's
 B=8 step (its blocks hold 2 experts; tag ep2_train), rerun bitwise
-between guards. (TP ranks call the kernels at phase 6's shapes;
+between guards. These rows and their per-step sums are the default
+UNet's, whose call shapes hold those of the same paths at SHALLOW_STAGES
+(where only enc_stage_2 pipelines). (TP ranks call the kernels at phase 6's shapes;
 multi-slice ranks block_core at the pipelined step's B=2 shapes and
 window MHA and ffn_block_bwd at the int8 B=2 step's; an SP rank's FFN
 calls have a DP rank's row counts.)
+Phase 2 also holds every kernel call of the 512px paths in both types
+(tags b1-64: block_core and window MHA of a B=1 sample; b4-64: a B=4
+sample; train64: the B=8 train step; train64_b1: the B=1 train step's
+block_core without residual and its backward kernels), rerun bitwise
+between guards, with per-step times and bounds.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -299,27 +334,67 @@ TRAIN_GRAD_REL_TOL = 1e-3
 # output layer). It must stay within FLIP_REL_TOL of its max abs and
 # FLIP_COLS columns, and at most FLIP_TENSORS gradients may be touched.
 # Measured on the H100 (default UNet, B=4, these seeds; the same in every
-# run): 9 of 496 gradients touched, each in 1-6 columns, the worst at
-# 1.5e-2 of its max abs
+# run): 9 of 792 gradients touched, each in 1-6 columns, the worst at
+# 1.5e-2 of its max abs. The budget is the measured count plus 3
 FLIP_REL_TOL = 2e-2
 FLIP_COLS = 6
 FLIP_TENSORS = 12
-# ...and on the pixel DDPM's 3-channel UNet (phase 15, B=4, these seeds),
-# measured on the H100: 15 of 792 gradients touched (seven units'
-# weight and bias, one tensor downstream of a flip in its block), each
-# in 1-2 columns, the worst at 1.15e-2 of its max abs; a unit that may
-# have flipped is as likely there as on the latent UNet (8152 of 123648
-# units against 8158)
-DDPM_FLIP_TENSORS = 18
+# The same rule for the checks of the UNet at SHALLOW_STAGES (B=4, these
+# seeds), measured on the H100, the same in every run: at most 2 of 312-313
+# gradients touched (phase 14's conditional step against the CPU, 2;
+# phase 18's sp2 against one process, 2; phase 17's DP and pipelined
+# steps and phase 18's multi-slice step, 0)
+SHALLOW_FLIP_TENSORS = 5
+# ...and on the pixel DDPM's 3-channel UNet at SHALLOW_STAGES (phase 15):
+# 0 of 312 (at the default depth it was 15 of 792, each in 1-2 columns,
+# the worst at 1.15e-2 of its max abs)
+DDPM_FLIP_TENSORS = 3
 TRAIN_BATCH = 8
 TRAIN_STEPS = 5
 # phase 15: the pixel DDPM trainer's default batch and image side
 DDPM_BATCH = 16
 DDPM_SIZE = 32
-# launches per train step at B=8 on the default UNet
-TRAIN_LAUNCHES = dict(block_core=0, ffn_block=36, ffn_block_bwd=36,
-                      window_mha=8, window_mha_bwd=8, vq=0, block_core_int8=0,
-                      ffn_block_int8=0)
+KERNELS = ("block_core", "ffn_block", "ffn_block_bwd", "window_mha", "window_mha_bwd",
+           "vq", "block_core_int8", "ffn_block_int8")
+# The depth (blocks per stack, UNetConfig.stages) of the paths that check
+# rather than measure: phases 17 and 18 and the fp32 card-vs-CPU checks of
+# phases 14-16 (and phase 14's state round trips and run loop). Every
+# width, batch and latent is the default's, so each kernel call shape of
+# those paths is still checked; each decoder stack keeps an attention
+# block, and the 3-block stack pipelines over phase 17's three stages.
+# Every launch count and state share of those paths is derived from it.
+SHALLOW_STAGES = (1, 1, 3, 1)
+# the suffix of those paths' launches_by_path keys
+SHALLOW_TAG = "_stages_" + "_".join(map(str, SHALLOW_STAGES))
+
+
+def unet_cfg(shallow: bool = False, **kw):
+    """UNetConfig(**kw), at SHALLOW_STAGES where `shallow`."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+
+    return UNetConfig(**(dict(kw, stages=SHALLOW_STAGES) if shallow else kw))
+
+
+def step_launches(batch: int, cfg=None, latent: int = 32, train: bool = False,
+                  int8: bool = False, calls: int = 1) -> dict:
+    """Launches of `calls` UNet forwards at `batch` (workloads.path_calls:
+    the body kernel of every block, window MHA on the attention blocks;
+    with `train` their backward kernels too: ffn_block_bwd for the body,
+    block_core's included), every kernel named."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import path_calls
+
+    counts = dict.fromkeys(KERNELS, 0)
+    for c in path_calls(batch, latent, cfg or unet_cfg(), int8=int8):
+        counts[c.kernel] += calls * c.per_step
+        if train:
+            bwd = "window_mha_bwd" if c.kernel == "window_mha" else "ffn_block_bwd"
+            counts[bwd] += calls * c.per_step
+    return counts
+
+
+# launches per train step at B=8 on the default UNet (36 ffn_block, 36
+# ffn_block_bwd, 8 + 8 window MHA)
+TRAIN_LAUNCHES = step_launches(TRAIN_BATCH, train=True)
 # the VAE train step (the JAX package's: 512px images, crop 192, batch
 # 8) and its launches
 VAE_BATCH = 8
@@ -376,9 +451,10 @@ def card_line() -> str:
 
 # GPU clock cycles the card spins before each timed call, so the host
 # has enqueued the whole call (checks, allocations, every launch of a
-# kernel chain or plain version) before the card reaches it: the events
-# then time device work, not the host's enqueue (~10 ms at H100 clocks)
-SLEEP_CYCLES = 20_000_000
+# kernel chain or plain version: at most a few dozen ops) before the card
+# reaches it: the events then time device work, not the host's enqueue
+# (~4 ms at H100 clocks)
+SLEEP_CYCLES = 8_000_000
 
 
 def cold_ms(fn, args, reps: int, flush: torch.Tensor) -> float:
@@ -492,6 +568,14 @@ def phase_kernels(dev, reps: int) -> dict:
     # ...and the latent-64 B=1 body shapes through ffn_block, beside
     # block_core there
     cross64 = [swap(c, "ffn_block") for c in latent64]
+    # phase 20, the 512px paths (latent 64): window MHA of a B=1 sample
+    # (block_core above), every call of a B=4 sample and of the B=8 train
+    # step, and the B=1 train step's block_core (a stochastic-depth gate
+    # on every block, so no residual fold) and backward kernels
+    b1_64 = [c for c in path_calls(1, latent=64) if c.kernel == "window_mha"]
+    train64_b1 = [dataclasses.replace(c, residual=False) for c in latent64] + [
+        dataclasses.replace(c, kernel="ffn_block_bwd" if c.kernel == "block_core"
+                            else c.kernel + "_bwd") for c in path_calls(1, latent=64)]
     # the backward kernels and the window MHA and ffn_block forwards of a
     # train step
     train = [c for c in train_calls(TRAIN_BATCH)
@@ -514,7 +598,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # B=1 decoder shapes, both weight types
     cond = [(c, "b1-cond") for c in cond_body_calls(1) + cond_body_calls(1, int8=True)]
     calls = [(c, "b1") for c in b1] + [(c, "b4") for c in b4] + cond + [
-        (c, "b1-64") for c in latent64] + [(c, "split") for c in cross] + [
+        (c, "b1-64") for c in latent64 + b1_64] + [(c, "split") for c in cross] + [
         (c, "train") for c in train] + [
         (c, "vae_train") for c in vae_train_calls(VAE_BATCH, VAE_CROP)] + int8 + [
         (c, "split-64") for c in cross64] + [
@@ -531,15 +615,22 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "int8_train_b2") for c in int8_b2] + [
         # phase 17: every call of one data-parallel rank's train step
         # (B=4, a film per sample), of the pipelined train step and of one
-        # rank's VAE step
+        # rank's VAE step, at the default depth: phase 17 runs a subset of
+        # these shapes (SHALLOW_STAGES), and the default UNet pipelines a
+        # block of every stage, so block_core at B=2 is held at all four
+        # maps (those of phase 18's multi-slice ranks too)
         (c, "dp2_train") for c in per_sample_film(train_calls(DP_BATCH // DP_WORLD))] + [
-        (c, "gpipe3_train") for c in gpipe_calls()] + [
+        (c, "gpipe3_train") for c in gpipe_calls(unet_cfg())] + [
         (c, "dp2_vae_train") for c in vae_train_calls(VAE_BATCH // DP_WORLD, VAE_CROP)] + [
         # phase 18: the FFN calls of an expert-parallel rank's train step
         # (B=8, a film per sample), whose blocks hold only the 2 routed
         # experts' weights (ids 0 and 1)
         (dataclasses.replace(c, experts=2), "ep2_train")
-        for c in per_sample_film(train_calls(MESH_BATCH)) if c.kernel.startswith("ffn_block")]
+        for c in per_sample_film(train_calls(MESH_BATCH)) if c.kernel.startswith("ffn_block")] + [
+        # phase 20
+        (c, "b4-64") for c in path_calls(4, latent=64)] + [
+        (c, "train64") for c in per_sample_film(train_calls(TRAIN_BATCH, latent=64))] + [
+        (c, "train64_b1") for c in train64_b1]
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -578,7 +669,7 @@ def phase_kernels(dev, reps: int) -> dict:
             # branch (the ablation of phase 16)
             if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq")
                     or tag in ("ddpm_train", "int8_train", "int8_train_b2", "split")
-                    or tag in PARALLEL_TAGS):
+                    or tag in PARALLEL_TAGS or tag in LATENT64_TAGS):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
@@ -623,7 +714,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # kernel, library (where there is one), bound
     for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
         for tag in ("b1", "b4", "train", "ddpm_train", "int8_train", "int8_train_b2",
-                    *PARALLEL_TAGS):
+                    *PARALLEL_TAGS, *LATENT64_TAGS):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
@@ -706,7 +797,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rs))
             if name == "ffn_block_bwd":
                 summary[name][tag + "_step"]["weights"] = "the int8 round trip of bf16 weights"
-        for tag, batch in PARALLEL_TAGS.items():
+        for tag, batch in {**PARALLEL_TAGS, **LATENT64_TAGS}.items():
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if rs:
                 summary[name][tag + "_step"] = dict(
@@ -730,51 +821,20 @@ def phase_kernels(dev, reps: int) -> dict:
 
 def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str, dtype) -> tuple:
     """The plain version of an ffn_block_bwd call that takes the kernel's
-    ReLU decision where the two decided a b = h @ wb + bb the other way,
-    each such b within C 2^-23 (|h| @ |wb| + |bb|) of 0 (the most two fp32
-    sums over C terms in other orders can differ; phase 7's bound; both
-    sides sum b in fp32 for bf16 operands too): a flip there moves a
-    whole row of dh and a column of dwb (measured on the H100: one at the
+    ReLU decision where the two decided a b = h @ wb + bb the other way
+    (workloads.ffn_bwd_boundary_plain; measured on the H100: one at the
     pipelined step's [6,8,8,512] in fp32, 2e-2 of the scale; in bf16, 2 of
     12 seeded calls at the EP step's [8,8,8,512], one flip each, 0.045 and
-    0.070 of the scale, 0.0040 and 0.0035 with the kernel's decisions).
-    The kernel's decisions are read back from its db (nonzero where it
-    took b > 0) through a rerun that keeps its buffers; a decision apart
-    from the boundary fails the run."""
-    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
-    from ldm_image_generator_tpu_torch.kernels.workloads import GUARD, GuardedBuffers
+    0.070 of the scale, 0.0040 and 0.0035 with the kernel's decisions). A
+    decision apart from the boundary fails the run."""
+    from ldm_image_generator_tpu_torch.kernels.workloads import ffn_bwd_boundary_plain as fbp
 
-    h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids = args
-    (n, c), m = h.shape, wa.shape[-1]
-    saved, tffn._counters = tffn._counters, {}
-    try:
-        with GuardedBuffers() as bufs:
-            again = kernel(*args)
-            torch.cuda.synchronize()
-    finally:
-        tffn._counters = saved
+    want, differ, away, again = fbp(kernel, plain, args)
     require(all(torch.equal(a, b) for a, b in zip(got, again)), "rerun bitwise equal")
-    dgate = next(buf[GUARD:GUARD + numel] for buf, numel, _ in bufs.made
-                 if numel == 9 * n * m).view(9, n, m)
-    kernel_pos = dgate[3:6] != 0  # [da | db | gate] x 3 towers
-    towers = [(gwa, gba, gwb, gbb, gwc)] + [
-        (wa[e], ba[e], wb[e], bb[e], wc[e]) for e in ids.tolist()]
-    plain_pos, matters, near = [], [], []
-    hf, hd = h.float(), h.double()
-    for w_a, b_a, w_b, b_b, w_c in towers:
-        # the plain version's fp32 products, and b in float64 with its bound
-        plain_pos.append(hf @ w_b.float() + b_b.float() > 0)
-        matters.append((hf @ w_a.float() + b_a.float()) * (g.float() @ w_c.float().t()) != 0)
-        exact = hd @ w_b.double() + b_b.double()
-        near.append(exact.abs() <= c * 2.0 ** -23 * (hd.abs() @ w_b.double().abs()
-                                                     + b_b.double().abs()))
-    plain_pos, matters, near = map(torch.stack, (plain_pos, matters, near))
-    differ = (kernel_pos != plain_pos) & matters
-    away = int((differ & ~near).sum())
-    log(f"ffn_block_bwd {label} {dtype}: {int(differ.sum())} ReLU decisions taken the "
+    log(f"ffn_block_bwd {label} {dtype}: {differ} ReLU decisions taken the "
         f"other way by the kernel, {away} away from the boundary")
     require(away == 0, (label, "ReLU decisions differ away from the boundary", away))
-    return plain(*args, b_pos=torch.where(differ, kernel_pos, plain_pos))
+    return want
 
 
 def check_guarded_rerun(kernel, args, got) -> None:
@@ -1013,11 +1073,12 @@ def phase_int8_path(dev, ref_pipe) -> dict:
     return out
 
 
-def phase_card_vs_cpu(dev, cfg=None) -> float:
+def phase_card_vs_cpu(dev, cfg=None, latent: int = 32) -> float:
     """One full-width fp32 denoise step of the UNet of `cfg` (default: the
-    default UNet), card kernels vs CPU plain versions. A class-conditional
-    UNet gives one guided prediction: class 1 and the null class under one
-    routing plan, guidance 3.0, rescale 0.7."""
+    default UNet) at B=1 on a latent x latent input, card kernels vs CPU
+    plain versions. A class-conditional UNet gives one guided prediction:
+    class 1 and the null class under one routing plan, guidance 3.0,
+    rescale 0.7."""
     from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.models.layers import RandomMoE
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1029,7 +1090,7 @@ def phase_card_vs_cpu(dev, cfg=None) -> float:
                generator=torch.Generator().manual_seed(1)).eval()
     card = copy.deepcopy(cpu).to(dev)
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn((1, 32, 32, 8), generator=gen)
+    x = torch.randn((1, latent, latent, 8), generator=gen)
     t = torch.tensor([526], dtype=torch.int32)
     plan = torch.randint(0, 6, (cpu.plan_length(),), generator=gen)
     classes = cpu.cfg.num_classes
@@ -1047,7 +1108,8 @@ def phase_card_vs_cpu(dev, cfg=None) -> float:
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     what = f"guided, {classes} classes" if classes else f"ffn_quant={cpu.cfg.ffn_quant}"
-    log(f"card vs cpu fp32 step ({what}): max abs err {err:.3e}, output max {scale:.3e}")
+    log(f"card vs cpu fp32 step ({what}, latent {latent}): max abs err {err:.3e}, "
+        f"output max {scale:.3e}")
     if cpu.cfg.ffn_quant == "int8":
         # the int8 weights each side made (quantize_cols on its own device)
         made = [(a.ffn_weights(torch.float32)[1][0], b.ffn_weights(torch.float32)[1][0])
@@ -1573,7 +1635,7 @@ def reset_launch_counts() -> None:
 
 
 def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "adamw",
-                 dp=None, zero1: bool = False, stages: int = 0):
+                 dp=None, zero1: bool = False, stages: int = 0, objective=None):
     """(state, step) for the UNet of `cfg` (default: the default UNet) on
     dev: fp32 parameters from `seed`, `optimizer` (AdamW, or the pixel
     DDPM's RAdam) lr 1e-4, eps-prediction L1, stochastic depth on; a
@@ -1581,7 +1643,8 @@ def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "a
     COND_DROP) or class ids (`cond`). dp: a parallel.mesh.DataParallel
     the step is one rank of (zero1: its moments split over it); stages:
     the UNet's deep stacks pipelined in that many stages on dev, one
-    microbatch per stage."""
+    microbatch per stage; objective: (prediction, zero terminal SNR,
+    Min-SNR gamma or None), default eps-prediction."""
     from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1602,7 +1665,10 @@ def make_trainer(dev, seed: int, dtype, ema: bool, cfg=None, optimizer: str = "a
                         zero1=Zero1(list(unet.parameters()), dp) if zero1 else None)
     state = LDMTrainState(params=unet, opt_state=tx.init(list(unet.parameters())),
                           ema_params=init_ema(unet) if ema else None)
-    step = make_ldm_train_step(unet, make_schedule(DDPMConfig()), tx,
+    prediction, zero_snr, gamma = objective or ("eps", False, None)
+    step = make_ldm_train_step(unet, make_schedule(DDPMConfig(prediction=prediction,
+                                                              zero_terminal_snr=zero_snr)),
+                               tx, prediction=prediction, min_snr_gamma=gamma,
                                ema_decay=0.999 if ema else None, dtype=dtype,
                                num_classes=cfg.num_classes, cond_drop=COND_DROP,
                                reduce_grads=dp,
@@ -1652,25 +1718,31 @@ def phase_train(dev) -> dict:
     return out
 
 
-def profile_fn(fn) -> dict:
-    """Device time by kernel name over one call of fn (torch.profiler)."""
+def profile_fn(fn, host_spans: bool = False) -> dict:
+    """Device time by kernel name over one call of fn (torch.profiler),
+    which must show some. The card's activity only (the host's ops would
+    multiply the events the profiler parses after the call), but with
+    host_spans, which also sums the host spans of the process group's
+    collectives (gloo or nccl ops)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_spans else [])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     rows = []  # device kernels only: CPU ops also carry their kernels' time
-    for ev in prof.key_averages():
+    for ev in events:
         dev_us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if dev_us > 0 and "CUDA" in str(getattr(ev, "device_type", "")):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    # the host spans of the process group's collectives (gloo or nccl ops)
-    collective_ms = sum(ev.cpu_time_total for ev in prof.key_averages()
+    require(busy_ms > 0, "the profiler saw no device time")
+    collective_ms = sum(ev.cpu_time_total for ev in events
                         if ev.key.startswith(("gloo:", "nccl:"))) / 1e3
     for ms, count, key in rows[:25]:
         log(f"profile {ms:10.3f} ms {count:6d}x {key[:90]}")
@@ -1777,8 +1849,11 @@ def explain_flip(name: str, over: torch.Tensor, units: dict, cpu_rec: dict,
 
 
 def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
-                            flip_tensors: int = FLIP_TENSORS) -> tuple:
-    """One fp32 train step at B=4, card kernels vs CPU plain versions,
+                            flip_tensors: int = FLIP_TENSORS, batch: int = 4,
+                            latent: int = 32) -> tuple:
+    """One fp32 train step at B=`batch` on latent x latent inputs (default
+    4 and 32; B <= 2 takes the block_core route), card kernels vs CPU
+    plain versions,
     with t, noise, routing, stochastic-depth gates and (a conditional
     `cfg`) class ids injected (TF32 off, as main sets it), at most
     flip_tensors gradients flip-touched; with RAdam, check_radam_replay
@@ -1792,8 +1867,8 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
     card_state.params.load_state_dict(cpu_state.params.state_dict())
     start = {n: p.detach().clone() for n, p in cpu_state.params.named_parameters()}
     gen = torch.Generator().manual_seed(4)
-    b = 4
-    x = torch.randn((b, 32, 32, cpu_state.params.cfg.input_channels), generator=gen)
+    b = batch
+    x = torch.randn((b, latent, latent, cpu_state.params.cfg.input_channels), generator=gen)
     inject = dict(t=torch.randint(1, 1000, (b,), generator=gen),
                   eps=torch.randn(x.shape, generator=gen),
                   moe_plan=torch.randint(0, 6, (cpu_state.params.plan_length(),),
@@ -1814,7 +1889,8 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
     units = flip_units(cpu_rec, card_rec)
     l_cpu, l_card = m_cpu["loss"].item(), m_card["loss"].item()
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    log(f"train card vs cpu: loss {l_card:.8f} vs {l_cpu:.8f} (rel {loss_rel:.3e}), "
+    log(f"train card vs cpu (B={b}, latent {latent}, stages {tuple(cpu_state.params.cfg.stages)}"
+        f"): loss {l_card:.8f} vs {l_cpu:.8f} (rel {loss_rel:.3e}), "
         f"cpu step {cpu_s:.1f} s, gates kept {int(inject['sd_gates'].sum())}"
         f"/{inject['sd_gates'].numel()}, units that may have flipped "
         f"{sum(int(u.sum()) for u in units.values())} of "
@@ -1825,7 +1901,7 @@ def phase_train_card_vs_cpu(dev, cfg=None, optimizer: str = "adamw",
         cpu_params, dict(card_state.params.named_parameters()), units, cpu_rec,
         flip_tensors, "train card vs cpu")
     out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
-               flip_touched=flipped)
+               flip_touched=flipped, stages=list(cpu_state.params.cfg.stages), cpu_s=cpu_s)
     if optimizer == "radam":
         out["radam_replay"] = check_radam_replay(
             dev, start, {n: p.grad for n, p in cpu_params.items()})
@@ -2125,7 +2201,7 @@ def phase_vae_card_vs_cpu(dev) -> dict:
 COND_DROP = 0.1
 # launches of one remat train step at B=8: each stack's forward runs again
 # in the backward
-REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=72, window_mha=16)
+REMAT_LAUNCHES = {k: v + step_launches(TRAIN_BATCH)[k] for k, v in TRAIN_LAUNCHES.items()}
 REMAT_STEPS = 3
 # the batch at which remat's peak of forward and backward is compared. At
 # B=8 a plain forward keeps 0.88 GiB for the backward (0.72 of it the bf16
@@ -2143,9 +2219,7 @@ RUN_VAL_BATCHES = 2
 VAL_NUM_T = 8
 # one validation with an EMA evaluates the parameters and the EMA: per
 # set, VAL_NUM_T grid points x RUN_VAL_BATCHES batches of one B=8 forward
-VAL_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=2 * VAL_NUM_T * RUN_VAL_BATCHES * 36,
-                    ffn_block_bwd=0, window_mha=2 * VAL_NUM_T * RUN_VAL_BATCHES * 8,
-                    window_mha_bwd=0)
+VAL_CALLS = 2 * VAL_NUM_T * RUN_VAL_BATCHES
 # checkpoints the run loop keeps (each ~6.2 GB at full width)
 RUN_KEEP = 2
 SURFACE_DIR = os.path.join("build", "chip_smoke_train_surface")
@@ -2205,11 +2279,10 @@ def grads_of(unet) -> dict:
     return {n: p.grad.detach().clone() for n, p in unet.named_parameters()}
 
 
-def phase_cond_train(dev):
+def phase_cond_train(dev) -> dict:
     """14.1: the conditional train step at B=8 (labels 0-2, cond-drop
     COND_DROP): launches, finiteness, a gradient on the class table,
-    steps/s, peak memory and a profile. Returns (results, state, step,
-    generator) for the resume check."""
+    steps/s, peak memory and a profile."""
     from ldm_image_generator_tpu_torch.config import UNetConfig
 
     cfg = UNetConfig(num_classes=COND_CLASSES)
@@ -2247,27 +2320,28 @@ def phase_cond_train(dev):
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"cond train: {TRAIN_STEPS} steps in {dt:.4f} s, {out['steps_per_s']:.4f} "
         f"steps/s, peak {out['peak_gib']:.3f} GiB")
-    x = batch()
-    box = {}
-
-    def one():
-        box["state"] = step(state, x, generator=gen, labels=labels)[0]
-
-    out["profile"] = profile_fn(one)
-    return out, box["state"], step, gen
+    out["profile"] = profile_fn(lambda: step(state, batch(), generator=gen, labels=labels))
+    return out
 
 
-def phase_resume(dev, state, step, gen) -> dict:
-    """14.4: the conditional state saved with TrainCheckpointer and
+def phase_resume(dev) -> dict:
+    """14.4: a conditional train state of the UNet at SHALLOW_STAGES (two
+    bf16 B=8 steps from seeded weights) saved with TrainCheckpointer and
     restored into fresh modules on the card, bitwise (every tensor, the
     step, the generator's state); one more step from each within the
     train tolerances. Then the default VAE + discriminator with Adafactor
     through the same round trip, bitwise."""
     import shutil
 
-    from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
 
+    cfg = unet_cfg(shallow=True, num_classes=COND_CLASSES)
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(2):
+        state, _ = step(state, torch.randn((TRAIN_BATCH, 32, 32, 8), generator=data,
+                                           device=dev), generator=gen, labels=cond_labels(dev))
     root = os.path.join(SURFACE_DIR, "resume")
     shutil.rmtree(root, ignore_errors=True)
     ck = TrainCheckpointer(root, max_to_keep=1)
@@ -2276,8 +2350,7 @@ def phase_resume(dev, state, step, gen) -> dict:
     path = ck.save(state.step, state, [gen])
     write_s = time.perf_counter() - t0
     nbytes = dir_bytes(path)
-    fresh, fresh_step = make_trainer(dev, seed=7, dtype=torch.bfloat16, ema=True,
-                                     cfg=UNetConfig(num_classes=COND_CLASSES))
+    fresh, fresh_step = make_trainer(dev, seed=7, dtype=torch.bfloat16, ema=True, cfg=cfg)
     fresh_gen = torch.Generator(device=dev).manual_seed(99)
     t0 = time.perf_counter()
     fresh = ck.restore(fresh, [fresh_gen])
@@ -2286,7 +2359,8 @@ def phase_resume(dev, state, step, gen) -> dict:
     require(fresh.step == state.step, (fresh.step, state.step))
     require_bitwise(state, fresh, "LDM resume")
     require(torch.equal(gen.get_state(), fresh_gen.get_state()), "generator state")
-    log(f"resume: {nbytes} bytes at step {state.step}, write {write_s:.3f} s, "
+    log(f"resume (stages {tuple(cfg.stages)}): {nbytes} bytes at step {state.step}, write "
+        f"{write_s:.3f} s, "
         f"read {read_s:.3f} s; every tensor, the step and the generator bitwise")
     x = torch.randn((TRAIN_BATCH, 32, 32, 8), generator=torch.Generator(device=dev)
                     .manual_seed(5), device=dev)
@@ -2470,12 +2544,12 @@ def phase_run_loop(dev) -> dict:
     cadence is the JAX trainer's, on the batch index (after the first
     group and after batch 7, and at the end: steps 2, 8 and 12; RUN_KEEP
     kept); JSON records at the logger's cadence; two validations with
-    exact launches."""
+    exact launches. The UNet at SHALLOW_STAGES (3 classes)."""
     import io
     import shutil
 
     from ldm_image_generator_tpu_torch.cli.train_ldm import train_loop
-    from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
+    from ldm_image_generator_tpu_torch.config import DDPMConfig
     from ldm_image_generator_tpu_torch.convert import load_flax_file, save_flax_file
     from ldm_image_generator_tpu_torch.data.loader import BatchLoader
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
@@ -2484,10 +2558,11 @@ def phase_run_loop(dev) -> dict:
     from ldm_image_generator_tpu_torch.utils.checkpoint import TrainCheckpointer
     from ldm_image_generator_tpu_torch.utils.metrics import MetricLogger
 
-    cfg = UNetConfig(num_classes=COND_CLASSES)
+    cfg = unet_cfg(shallow=True, num_classes=COND_CLASSES)
     state, step_fn = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, cfg=cfg)
     unet = state.params
     gen = torch.Generator(device=dev).manual_seed(0)
+    val_launches = step_launches(TRAIN_BATCH, cfg, calls=VAL_CALLS)
 
     def step(state, item):
         x, lb = item
@@ -2546,11 +2621,12 @@ def phase_run_loop(dev) -> dict:
     log("run loop saves", json.dumps(saves))
     log("run loop validations", json.dumps(validations))
     require(state.step == RUN_STEPS, state.step)
-    want = {k: v * RUN_STEPS + 2 * VAL_LAUNCHES[k] for k, v in TRAIN_LAUNCHES.items()}
+    want = {k: v * RUN_STEPS + 2 * val_launches[k]
+            for k, v in step_launches(TRAIN_BATCH, cfg, train=True).items()}
     require(counts == want, (counts, want))
     require([v["step"] for v in validations] == [6, 12], validations)
     for v in validations:
-        require(v["launches"] == VAL_LAUNCHES, v["launches"])
+        require(v["launches"] == val_launches, v["launches"])
         require(math.isfinite(v["val_loss"]) and math.isfinite(v["val_loss_ema"]), v)
     train_recs = [r for r in records if "loss" in r]
     require([r["step"] for r in train_recs] == [10], records)
@@ -2579,7 +2655,7 @@ def phase_run_loop(dev) -> dict:
     del fresh, older
     shutil.rmtree(SURFACE_DIR)
     return dict(run_s=dt, steps=state.step, launches=counts, records=records,
-                saves=saves, validations=validations)
+                saves=saves, validations=validations, stages=list(cfg.stages))
 
 
 # phase 15: the pixel DDPM (the default UNet with input_channels=3 at
@@ -2587,10 +2663,8 @@ def phase_run_loop(dev) -> dict:
 DDPM_DIR = os.path.join("build", "chip_smoke_ddpm")
 
 
-def ddpm_cfg():
-    from ldm_image_generator_tpu_torch.config import UNetConfig
-
-    return UNetConfig(input_channels=3)
+def ddpm_cfg(shallow: bool = False):
+    return unet_cfg(shallow, input_channels=3)
 
 
 def phase_ddpm_train(dev) -> tuple:
@@ -2817,18 +2891,18 @@ def phase_torch_files(dev, unet) -> dict:
 # block_core): launches per step, and quantize_cols calls per step (the 6
 # matrices of each of the 36 blocks, once: the optimizer changes every
 # weight version)
-INT8_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=0, ffn_block_int8=36)
-INT8_REMAT_LAUNCHES = dict(INT8_TRAIN_LAUNCHES, ffn_block_int8=72, window_mha=16)
-INT8_B2_LAUNCHES = dict(TRAIN_LAUNCHES, ffn_block=0, block_core_int8=36)
-INT8_QUANTIZATIONS = 6 * 36
-# the int8 UNet's fp32 B=4 step, card vs CPU (phase 7's check), and the
-# same step against the dequantized weights on the card: at most this
-# many gradients flip-touched each. Measured on the H100 (these seeds, the
-# same in every run): 2 of 792 against the CPU (one FiLM unit's kernel
-# and bias, 7.1e-3 of max abs), 1 straight-through (one FFN b unit,
-# 1.4e-3); the budget is the measured count plus 3, as phase 7's
-# (9 + 3) and phase 15's (15 + 3)
-INT8_FLIP_TENSORS = 5
+INT8_TRAIN_LAUNCHES = step_launches(TRAIN_BATCH, train=True, int8=True)
+INT8_REMAT_LAUNCHES = {k: v + step_launches(TRAIN_BATCH, int8=True)[k]
+                       for k, v in INT8_TRAIN_LAUNCHES.items()}
+INT8_B2_LAUNCHES = step_launches(2, train=True, int8=True)
+INT8_QUANTIZATIONS = 6 * INT8_TRAIN_LAUNCHES["ffn_block_int8"]
+# the int8 UNet's fp32 B=4 step at SHALLOW_STAGES, card vs CPU (phase
+# 7's check), and the same step against the dequantized weights on the
+# card: at most this many gradients flip-touched each. Measured on the
+# H100 (these seeds, the same in every run): 0 of 312 against the CPU, 1
+# straight-through (one FFN b unit); the budget is the larger count plus
+# 3, as FLIP_TENSORS's (at the default depth: 2 of 792 and 1)
+INT8_FLIP_TENSORS = 4
 # branch ablation: one bf16 denoise step timed as the median of
 # ABLATE_CHAINS chains of ABLATE_CHAIN steps (after one warm-up chain),
 # its device time from a traced chain of ABLATE_TRACED steps, and the
@@ -3131,12 +3205,6 @@ ZERO1_STATE_SHARE = 0.55
 PIPE_STAGES = 3
 PIPE_BATCH = 6      # 3 microbatches of 2: block_core on the pipelined blocks
 PIPE_STEPS = 2
-# launches of one pipelined train step at B=6 (parallel/pipelined_unet.py):
-# the encoder stacks (3/3/9/3 blocks) all pipeline, 18 blocks x 3
-# microbatches of block_core, whose backward is ffn_block_bwd; the decoder
-# prefixes (1/1/7/1) do not divide into 3 and run at B=6 with the
-# attention tails: 18 ffn_block, 8 window MHA
-PIPE_LAUNCHES = dict(TRAIN_LAUNCHES, block_core=54, ffn_block=18, ffn_block_bwd=72)
 VAE_DP_STEPS = 2
 # phase 2's tags for the kernel calls of the phase 17 paths, and the
 # batch of each (per rank, or the pipelined step's)
@@ -3151,26 +3219,39 @@ def per_sample_film(calls: list) -> list:
             if c.kernel in ("block_core", "ffn_block") else c for c in calls]
 
 
-def gpipe_calls() -> list:
-    """Every distinct kernel call of one pipelined train step (PIPE_STAGES
-    stages, PIPE_BATCH in PIPE_STAGES microbatches): the encoder blocks'
-    block_core at the microbatch (a stochastic-depth gate on every block,
-    so no residual fold) and its backward on ffn_block_bwd, once per
-    microbatch; the decoder blocks' ffn_block and the attention blocks'
-    window MHA at PIPE_BATCH, and their backward kernels
-    (PIPE_LAUNCHES)."""
-    from ldm_image_generator_tpu_torch.config import UNetConfig
+def gpipe_calls(cfg) -> list:
+    """Every distinct kernel call of one pipelined train step of the UNet
+    of `cfg` (PIPE_STAGES stages, PIPE_BATCH in PIPE_STAGES microbatches;
+    parallel/pipelined_unet.py): the pipelined blocks' block_core at the
+    microbatch (a stochastic-depth gate on every block, so no residual
+    fold) and its backward on ffn_block_bwd, once per microbatch; every
+    other block's ffn_block and the attention blocks' window MHA at
+    PIPE_BATCH, and their backward kernels (the default UNet: its encoder
+    stacks, 18 blocks, pipeline; the decoder prefixes 1/1/7/1 do not
+    divide into 3)."""
     from ldm_image_generator_tpu_torch.kernels.workloads import Call, path_calls
+    from ldm_image_generator_tpu_torch.parallel.pipelined_unet import pipelined_blocks
 
-    cfg, mb = UNetConfig(), PIPE_BATCH // PIPE_STAGES
-    enc = [Call("block_core", mb, 32 >> i, c, per_step=nb * PIPE_STAGES, residual=False,
-                film_batch=mb) for i, (c, nb) in enumerate(zip(cfg.channels, cfg.stages))]
-    full = per_sample_film(path_calls(PIPE_BATCH))
-    dec = [dataclasses.replace(c, per_step=c.per_step // 2) if c.kernel == "ffn_block"
-           else c for c in full]
+    mb = PIPE_BATCH // PIPE_STAGES
+    piped = [pipelined_blocks(nb, False, PIPE_STAGES) + pipelined_blocks(nb, True, PIPE_STAGES)
+             for nb in cfg.stages]
+    rest = {c: 2 * nb - p for c, nb, p in zip(cfg.channels, cfg.stages, piped)}
+    enc = [Call("block_core", mb, 32 >> i, c, per_step=p * PIPE_STAGES, residual=False,
+                film_batch=mb) for i, (c, p) in enumerate(zip(cfg.channels, piped)) if p]
+    whole = [dataclasses.replace(c, per_step=rest[c.c]) if c.kernel == "ffn_block" else c
+             for c in per_sample_film(path_calls(PIPE_BATCH, cfg=cfg))]
+    whole = [c for c in whole if c.per_step]
     bwd = lambda c: dataclasses.replace(
         c, kernel="ffn_block_bwd" if c.kernel == "block_core" else c.kernel + "_bwd")
-    return enc + dec + [bwd(c) for c in enc + dec]
+    return enc + whole + [bwd(c) for c in enc + whole]
+
+
+def calls_launches(calls: list) -> dict:
+    """Launches per step of a list of workloads.Call (each per_step times)."""
+    counts = dict.fromkeys(KERNELS, 0)
+    for c in calls:
+        counts[c.kernel] += c.per_step
+    return counts
 # the trainer CLI over two processes: 4 seeded 256px images, global batch
 # 2, one epoch (2 steps)
 CLI_IMAGES = 4
@@ -3202,14 +3283,16 @@ def opt_state_bytes(opt_state) -> int:
 
 
 def dp_train(dev, dp, rank: int, steps: int, zero1: bool = False) -> tuple:
-    """The default UNet (bf16 compute, AdamW 1e-4, EMA 0.999) as rank
-    `rank` of `dp`: a warm-up step, then `steps` timed steps on this
+    """The UNet at SHALLOW_STAGES (bf16 compute, AdamW 1e-4, EMA 0.999) as
+    rank `rank` of `dp`: a warm-up step, then `steps` timed steps on this
     rank's rows of seeded global batches of DP_BATCH, each launching
-    exactly TRAIN_LAUNCHES; then the wall of one all-reduce of the
-    gradients and (rank 0) a profile of one more step. (result, state)."""
+    exactly a train step's kernels at its rows (step_launches); then the
+    wall of one all-reduce of the gradients and (rank 0) a profile of one
+    more step. (result, state)."""
     torch.cuda.reset_peak_memory_stats()
+    cfg = unet_cfg(shallow=True)
     state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True, dp=dp,
-                               zero1=zero1)
+                               zero1=zero1, cfg=cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     data = torch.Generator(device=dev).manual_seed(1)
     rows = dp.rows(DP_BATCH)
@@ -3226,7 +3309,8 @@ def dp_train(dev, dp, rank: int, steps: int, zero1: bool = False) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    require(counts == {k: v * steps for k, v in TRAIN_LAUNCHES.items()}, counts)
+    want = step_launches(len(range(DP_BATCH)[rows]), cfg, train=True, calls=steps)
+    require(counts == want, (counts, want))
     losses = [x.item() for x in losses]
     require(all(math.isfinite(x) for x in losses), losses)
     params = list(state.params.parameters())
@@ -3279,7 +3363,8 @@ def dp_fp32_check(dev, dp, rank: int) -> dict:
     the same weights: the loss within DP_LOSS_REL_TOL, the all-reduced
     gradients by phase 7's rule (rank 1's preactivation record joins rank
     0's through a file). Checked on rank 0."""
-    state, step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False, dp=dp)
+    cfg = unet_cfg(shallow=True)
+    state, step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False, dp=dp, cfg=cfg)
     x, inject = fp32_inject(state.params.plan_length(), DP_BATCH)
     rec, hooks = record_preactivations(state.params)
     _, m = step(state, x[dp.rows(DP_BATCH)].to(dev),
@@ -3292,7 +3377,8 @@ def dp_fp32_check(dev, dp, rank: int) -> dict:
     dp.barrier()
     out = {}
     if rank == 0:
-        one_state, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+        one_state, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False,
+                                           cfg=cfg)
         one_rec, hooks = record_preactivations(one_state.params)
         _, m1 = one_step(one_state, x.to(dev), **{k: v.to(dev) for k, v in inject.items()})
         for h in hooks:
@@ -3306,7 +3392,7 @@ def dp_fp32_check(dev, dp, rank: int) -> dict:
         require(loss_rel <= DP_LOSS_REL_TOL, ("dp loss", l_dp, l_one))
         worst, worst_name, flipped = compare_train_grads(
             dict(one_state.params.named_parameters()),
-            dict(state.params.named_parameters()), units, want_rec, FLIP_TENSORS,
+            dict(state.params.named_parameters()), units, want_rec, SHALLOW_FLIP_TENSORS,
             "dp fp32 vs 1 process")
         out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
                    flip_touched=flipped)
@@ -3336,7 +3422,7 @@ def zero1_state_file(dev, dp, rank: int, state) -> dict:
     del full
     dp.barrier()
     save_s = time.perf_counter() - t0
-    one, _ = make_trainer(dev, seed=1, dtype=torch.bfloat16, ema=True)
+    one, _ = make_trainer(dev, seed=1, dtype=torch.bfloat16, ema=True, cfg=state.params.cfg)
     one = TrainCheckpointer(ckpt_dir).restore(one, [torch.Generator(device=dev)])
     require(one.step == state.step, (one.step, state.step))
     for (n, p), q in zip(state.params.named_parameters(), one.params.parameters()):
@@ -3478,14 +3564,15 @@ def run_children(target, n: int, args: tuple, timeout_s: float) -> list:
 
 
 def phase_gpipe(dev) -> dict:
-    """(d) The default UNet pipelined in PIPE_STAGES stages on the card
+    """(d) The UNet at SHALLOW_STAGES pipelined in PIPE_STAGES stages on the card
     (bf16, AdamW, EMA) at B=PIPE_BATCH: exact launches per step, steps/s,
     a profile; then one fp32 pipelined step against the plain step on
     the card (loss within TRAIN_LOSS_REL_TOL, gradients by phase 7's rule;
     block_core at microbatch 2 against ffn_block at 6, so not bitwise)."""
     torch.cuda.reset_peak_memory_stats()
+    cfg = unet_cfg(shallow=True)
     state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True,
-                               stages=PIPE_STAGES)
+                               stages=PIPE_STAGES, cfg=cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     data = torch.Generator(device=dev).manual_seed(1)
     batch = lambda: torch.randn((PIPE_BATCH, 32, 32, 8), generator=data, device=dev)
@@ -3501,7 +3588,8 @@ def phase_gpipe(dev) -> dict:
     dt = time.perf_counter() - t0
     counts = launch_counts()
     log("gpipe launches", json.dumps(counts), f"over {PIPE_STEPS} steps")
-    require(counts == {k: v * PIPE_STEPS for k, v in PIPE_LAUNCHES.items()}, counts)
+    want = calls_launches(gpipe_calls(cfg))
+    require(counts == {k: v * PIPE_STEPS for k, v in want.items()}, (counts, want))
     losses = [x.item() for x in losses]
     require(all(math.isfinite(x) for x in losses), losses)
     out = dict(launches=counts, losses=losses, steps_per_s=PIPE_STEPS / dt,
@@ -3511,9 +3599,9 @@ def phase_gpipe(dev) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del state, step
     torch.cuda.empty_cache()
-    plain, plain_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+    plain, plain_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False, cfg=cfg)
     piped, piped_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False,
-                                     stages=PIPE_STAGES)
+                                     stages=PIPE_STAGES, cfg=cfg)
     x, inject = fp32_inject(plain.params.plan_length(), PIPE_BATCH)
     x, inject = x.to(dev), {k: v.to(dev) for k, v in inject.items()}
     want_rec, h1 = record_preactivations(plain.params)
@@ -3530,7 +3618,7 @@ def phase_gpipe(dev) -> dict:
     require(loss_rel <= TRAIN_LOSS_REL_TOL, ("gpipe loss", l_pipe, l_plain))
     worst, worst_name, flipped = compare_train_grads(
         dict(plain.params.named_parameters()), dict(piped.params.named_parameters()),
-        units, want_rec, FLIP_TENSORS, "gpipe fp32 vs plain")
+        units, want_rec, SHALLOW_FLIP_TENSORS, "gpipe fp32 vs plain")
     out["fp32"] = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
                        flip_touched=flipped)
     return out
@@ -3654,15 +3742,37 @@ MESH_FP32_BATCH = 4     # the fp32 check's global batch
 MESH_STEPS = 2
 # processes of phase 18's group: tp2, ep2 and sp2 run on the first two
 MESH_WORLD = 4
-# (a)-(c) at B=8 per rank launch phase 6's kernels; the multi-slice ranks
-# at B=2 take block_core for every block (a stochastic-depth gate on each,
-# so no residual fold), whose backward is ffn_block_bwd
-MS_LAUNCHES = dict(TRAIN_LAUNCHES, block_core=36, ffn_block=0)
-MESH_LAUNCHES = {"tp2": TRAIN_LAUNCHES, "ep2": TRAIN_LAUNCHES, "sp2": TRAIN_LAUNCHES,
-                 "multislice4": MS_LAUNCHES}
-# parameters + optimizer state per TP or EP rank over plain DP's (model
-# size 2: 0.503 and 0.501 of the default UNet's parameters stay per rank)
-MESH_STATE_SHARE = 0.51
+# the layouts (each on the UNet at SHALLOW_STAGES) and each one's batch per
+# rank: (a)-(c) at B=8 per rank launch a train step's kernels on the
+# ffn_block route; the multi-slice ranks at B=2 take block_core for every
+# block (a stochastic-depth gate on each, so no residual fold), whose
+# backward is ffn_block_bwd
+MESH_RANK_BATCH = {"tp2": MESH_BATCH, "ep2": MESH_BATCH, "sp2": MESH_BATCH,
+                   "multislice4": MESH_BATCH // 4}
+# a TP or EP rank's parameters + optimizer state over a plain DP rank's may
+# exceed the share of the UNet's parameters the rank keeps (mesh_state_share)
+# by at most this (the default UNet: 0.503 and 0.501 kept, gated at 0.51)
+MESH_STATE_SLACK = 0.007
+
+
+def mesh_launches(layout: str) -> dict:
+    """Launches of one train step of `layout` on a rank."""
+    return step_launches(MESH_RANK_BATCH[layout], unet_cfg(shallow=True), train=True)
+
+
+def mesh_state_share(cfg, expert_parallel: bool) -> float:
+    """The share of the UNet's parameters (of `cfg`) one rank keeps on a
+    model axis of 2 (parallel/mesh.py kernel_spec: each split parameter
+    halved), which is also its share of the AdamW moments."""
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.parallel.mesh import kernel_spec
+
+    kept = total = 0
+    for n, p in UNet(cfg, device="meta").named_parameters():
+        split = kernel_spec(n.rsplit(".", 1)[-1], tuple(p.shape), 2, expert_parallel)
+        kept += p.numel() if split is None else p.numel() // 2
+        total += p.numel()
+    return kept / total
 
 
 def mesh_trainer(dev, layout: str, mesh, seed: int, dtype, ema: bool) -> tuple:
@@ -3670,7 +3780,7 @@ def mesh_trainer(dev, layout: str, mesh, seed: int, dtype, ema: bool) -> tuple:
     rank of `layout` on `mesh` (tp2 / ep2: shard_params, sp2:
     spatial_parallel, multislice4: the hierarchical data-parallel mean);
     local(x) cuts a global batch to this rank's part."""
-    from ldm_image_generator_tpu_torch.config import DDPMConfig, UNetConfig
+    from ldm_image_generator_tpu_torch.config import DDPMConfig
     from ldm_image_generator_tpu_torch.diffusion.ddpm import make_schedule
     from ldm_image_generator_tpu_torch.models.unet import UNet
     from ldm_image_generator_tpu_torch.parallel import mesh as tmesh
@@ -3681,7 +3791,7 @@ def mesh_trainer(dev, layout: str, mesh, seed: int, dtype, ema: bool) -> tuple:
         make_optimizer,
     )
 
-    unet = UNet(UNetConfig(), device=dev,
+    unet = UNet(unet_cfg(shallow=True), device=dev,
                 generator=torch.Generator(device=dev).manual_seed(seed))
     shards = None
     if layout in ("tp2", "ep2"):
@@ -3749,7 +3859,8 @@ def mesh_fp32_check(dev, layout: str, mesh, rank: int) -> dict:
     mesh.barrier()
     out = {}
     if bitwise or rank == 0:
-        one, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False)
+        one, one_step = make_trainer(dev, seed=3, dtype=torch.float32, ema=False,
+                                     cfg=state.params.cfg)
         want_rec, hooks = ({}, []) if bitwise else record_preactivations(one.params)
         _, m1 = one_step(one, x.to(dev), **inject)
         for h in hooks:
@@ -3780,7 +3891,7 @@ def mesh_fp32_check(dev, layout: str, mesh, rank: int) -> dict:
         require(loss_rel <= TRAIN_LOSS_REL_TOL, (layout, "loss", l_got, l_one))
         worst, worst_name, flipped = compare_train_grads(
             dict(one.params.named_parameters()), dict(state.params.named_parameters()),
-            units, want_rec, FLIP_TENSORS, f"{layout} fp32 vs 1 process")
+            units, want_rec, SHALLOW_FLIP_TENSORS, f"{layout} fp32 vs 1 process")
         out = dict(loss_rel=loss_rel, grad_rel=worst, grad_rel_name=worst_name,
                    flip_touched=flipped)
         for r in range(1, mesh.size):
@@ -3814,7 +3925,7 @@ def mesh_train(dev, layout: str, mesh, rank: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    want = {k: v * MESH_STEPS for k, v in MESH_LAUNCHES[layout].items()}
+    want = {k: v * MESH_STEPS for k, v in mesh_launches(layout).items()}
     require(counts == want, (layout, counts, want))
     losses = [x.item() for x in losses]
     require(all(math.isfinite(x) for x in losses), (layout, losses))
@@ -3825,7 +3936,7 @@ def mesh_train(dev, layout: str, mesh, rank: int) -> dict:
                + opt_state_bytes(state.opt_state))
     fn = lambda: step(state, batch(), generator=gen)
     if rank == 0:
-        prof = profile_fn(fn)
+        prof = profile_fn(fn, host_spans=True)
         out.update(device_busy_ms=prof["device_busy_ms"], collective_ms=prof["collective_ms"])
     else:
         fn()
@@ -3857,7 +3968,7 @@ def mesh_child(rank: int, device: str, port: int, queue) -> None:
         pair = tmesh.make_mesh(2, model_parallel=2)
         slices = tmesh.make_multislice_mesh(MESH_WORLD, replicas=2, model_parallel=1)
         out = {}
-        for layout in MESH_LAUNCHES:
+        for layout in MESH_RANK_BATCH:
             mesh = slices if layout == "multislice4" else pair
             if mesh.member:
                 t0 = time.perf_counter()
@@ -3882,18 +3993,17 @@ def phase_mesh(dev) -> dict:
     all 4 (replica 2 x data 2 x model 1); see the module docstring. A plain DP rank's parameter and
     optimizer-state bytes (phase 17 (a)'s: the fp32 parameters and AdamW's
     two moments whole) are the TP and EP ranks' yardstick."""
-    from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.models.unet import UNet
 
     t0 = time.perf_counter()
-    dp_state_bytes = 3 * 4 * sum(p.numel() for p in UNet(UNetConfig(),
-                                                          device="meta").parameters())
+    cfg = unet_cfg(shallow=True)
+    dp_state_bytes = 3 * 4 * sum(p.numel() for p in UNet(cfg, device="meta").parameters())
     os.makedirs(PAR_DIR, exist_ok=True)
     shared = f"cuda:{torch.device(dev).index or 0}"
     ranks = run_children(mesh_child, MESH_WORLD, (shared, free_port()), timeout_s=600)
     out = {}
     card = card_line()
-    for layout in MESH_LAUNCHES:
+    for layout in MESH_RANK_BATCH:
         per = [r[layout] for r in ranks if layout in r]
         if layout in ("tp2", "ep2"):
             require(len(per) == 2 and all(p["fp32"].get("bitwise") for p in per),
@@ -3906,8 +4016,10 @@ def phase_mesh(dev) -> dict:
                            state_bytes=[p["state_bytes"] for p in per])
         if layout in ("tp2", "ep2"):
             share = [b / dp_state_bytes for b in out[layout]["state_bytes"]]
-            require(all(s <= MESH_STATE_SHARE for s in share), (layout, share))
+            limit = mesh_state_share(cfg, layout == "ep2") + MESH_STATE_SLACK
+            require(all(s <= limit for s in share), (layout, share, limit))
             out[layout]["state_share"] = share
+            out[layout]["state_share_limit"] = limit
         log(f"phase 18 {layout} {r0['mesh']}: launches {json.dumps(r0['launches'])} "
             f"over {MESH_STEPS} steps, losses {r0['losses']}, steps/s per rank "
             f"{out[layout]['steps_per_s']}, device busy {r0['device_busy_ms']} ms and "
@@ -4084,6 +4196,318 @@ def phase_data_cache(dev) -> dict:
     return out
 
 
+# phase 20: the CLIs' default size, 512px (latent 64x64x8), at full width
+CLI_SIZE = 512
+LATENT64 = CLI_SIZE // 8
+P512_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_512")
+# (e) the training CLI's images (one epoch at its default -b 1: a step each)
+P512_CLI_IMAGES = 2
+# (f) timed bf16 train steps at B=8, then one step of the other objective
+# (prediction, zero terminal SNR, Min-SNR gamma)
+P512_TRAIN_STEPS = 3
+P512_OBJECTIVE = ("v", True, 5.0)
+# phase 2's tags of the 512px paths' kernel calls and the batch of each
+LATENT64_TAGS = {"b1-64": 1, "b4-64": 4, "train64": TRAIN_BATCH, "train64_b1": 1}
+
+
+def in_dir(path: str, fn):
+    """fn() with `path` as the working directory (a CLI writes ./...)."""
+    os.makedirs(path, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def counted(fn) -> tuple:
+    """(fn's result, the launches it made: counts set to 0 just before
+    and read just after, the card synchronised)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def sample_cli_512(dev) -> dict:
+    """(a) cli/sample_ldm at its defaults (-s 512, -fp16 false: fp32) with
+    -n 1, run in a working directory under build/ (no ./ddpm.pt there:
+    seeded weights): exactly 20 B=1 UNet calls' launches at latent 64,
+    one 512x512 PNG."""
+    from ldm_image_generator_tpu_torch.cli import sample_ldm
+
+    work = os.path.join(P512_DIR, "sample_cli")
+    t0 = time.perf_counter()
+    _, counts = counted(lambda: in_dir(work, lambda: sample_ldm.main(["-n", "1", "-o", "out"])))
+    secs = time.perf_counter() - t0
+    log(f"sample_ldm CLI at its defaults (512px, fp32) launches {json.dumps(counts)} in "
+        f"{secs:.2f} s")
+    require(counts == step_launches(1, latent=LATENT64, calls=20), ("sample_ldm CLI", counts))
+    with open(os.path.join(work, "out", "0.png"), "rb") as f:
+        img = png_pixels(f.read())
+    require(img.shape == (CLI_SIZE, CLI_SIZE, 3), ("sample_ldm CLI image", img.shape))
+    return dict(launches=counts, seconds=secs)
+
+
+def train_cli_512(dev) -> dict:
+    """(e) cli/train_ldm at its defaults (-s 512, -fp16 false, -b 1, -e 1)
+    on P512_CLI_IMAGES seeded 512px PNGs, in a working directory under
+    build/ (it writes ./dataset_cache and ./ddpm.pt): one step per image
+    with exactly a B=1 train step's launches at latent 64 (block_core, its
+    backward on ffn_block_bwd), each loss finite, the file written."""
+    import shutil
+
+    import numpy as np
+
+    from ldm_image_generator_tpu_torch.cli import train_ldm
+    from ldm_image_generator_tpu_torch.cli.sample_ldm import save_png
+    from ldm_image_generator_tpu_torch.train import steps as tsteps
+
+    work = os.path.join(P512_DIR, "train_cli")
+    imgs = os.path.join(work, "images")
+    os.makedirs(imgs, exist_ok=True)
+    rng = np.random.default_rng(5)
+    for i in range(P512_CLI_IMAGES):
+        save_png(os.path.join(imgs, f"{i}.png"),
+                 rng.integers(0, 255, (CLI_SIZE, CLI_SIZE, 3), dtype=np.uint8))
+    losses, make = [], tsteps.make_ldm_train_step
+
+    def recording(*a, **k):  # the CLI's step, its losses kept
+        step = make(*a, **k)
+
+        def run(*sa, **sk):
+            state, m = step(*sa, **sk)
+            losses.append(m["loss"])
+            return state, m
+        return run
+
+    tsteps.make_ldm_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        state, counts = counted(lambda: in_dir(work, lambda: train_ldm.main(["images"])))
+    finally:
+        tsteps.make_ldm_train_step = make
+    secs = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    log(f"train_ldm CLI at its defaults (512px, fp32, B=1) launches {json.dumps(counts)}, "
+        f"losses {losses}, {secs:.2f} s")
+    want = step_launches(1, latent=LATENT64, train=True, calls=P512_CLI_IMAGES)
+    require(counts == want, ("train_ldm CLI", counts, want))
+    require(state.step == P512_CLI_IMAGES and len(losses) == P512_CLI_IMAGES
+            and all(math.isfinite(x) for x in losses), ("train_ldm CLI losses", losses))
+    require(os.path.getsize(os.path.join(work, "ddpm.pt")) > 0, "train_ldm wrote ./ddpm.pt")
+    shutil.rmtree(work)
+    return dict(launches=counts, losses=losses, seconds=secs)
+
+
+def sample_512(dev) -> dict:
+    """(b), (c): LDMPipeline.sample at 512px, bf16, DDIM-20: B=1 (block_core
+    route) and B=4 (ffn_block) on the default UNet, then B=1 with int8 FFN
+    weights; exact launches (workloads.path_calls at latent 64),
+    images/s, one profiled call's device busy and the peak memory."""
+    from ldm_image_generator_tpu_torch.config import UNetConfig
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+
+    out = {}
+    for name, cfg, batch in (("b1", UNetConfig(), 1), ("b4", None, 4),
+                             ("int8_b1", UNetConfig(ffn_quant="int8"), 1)):
+        if cfg is not None:
+            pipe = None
+            torch.cuda.empty_cache()
+            pipe = LDMPipeline.random(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+
+        def make(seed, pipe=pipe, batch=batch):
+            gen = torch.Generator(device=dev).manual_seed(500 + seed)
+            return lambda: pipe.sample(gen, batch=batch, image_size=CLI_SIZE, num_steps=20,
+                                       return_latent=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = measure_path(f"sample 512px {name}", make, batch,
+                         step_launches(batch, latent=LATENT64, calls=20,
+                                       int8=name.startswith("int8")),
+                         image=CLI_SIZE, latent=(LATENT64, LATENT64, 8))
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"sample 512px {name}: peak {r['peak_gib']:.3f} GiB; {card_line()}")
+        out[name] = r
+    return out
+
+
+def train_512(dev) -> dict:
+    """(f) the bf16 train step at 512px and B=8 (the default UNet, fp32
+    parameters, AdamW 1e-4, EMA 0.999; the ffn_block route): a warm-up
+    and P512_TRAIN_STEPS timed steps of exactly a train step's launches at
+    latent 64, finite losses; steps/s, a profile of one step, the peak
+    memory."""
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    data = torch.Generator(device=dev).manual_seed(1)
+    batch = lambda: torch.randn((TRAIN_BATCH, LATENT64, LATENT64, 8), generator=data,
+                                device=dev)
+    state, _ = step(state, batch(), generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(P512_TRAIN_STEPS):
+        state, m = step(state, batch(), generator=gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    want = step_launches(TRAIN_BATCH, latent=LATENT64, train=True, calls=P512_TRAIN_STEPS)
+    require(counts == want, ("train 512px", counts, want))
+    losses = [x.item() for x in losses]
+    require(all(math.isfinite(x) for x in losses), losses)
+    out = dict(launches=counts, losses=losses, train_s=dt, steps_per_s=P512_TRAIN_STEPS / dt,
+               images_per_s=P512_TRAIN_STEPS * TRAIN_BATCH / dt)
+    out["profile"] = profile_fn(lambda: step(state, batch(), generator=gen))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train 512px B={TRAIN_BATCH}: {P512_TRAIN_STEPS} steps in {dt:.4f} s, "
+        f"{out['steps_per_s']:.4f} steps/s, device busy "
+        f"{out['profile']['device_busy_ms']:.3f} ms, peak {out['peak_gib']:.3f} GiB, losses "
+        f"{losses}; {card_line()}")
+    # the trainers' other objective: v-prediction on the zero-terminal-SNR
+    # schedule with Min-SNR weighting (gamma 5), one step from fresh state
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = make_trainer(dev, seed=0, dtype=torch.bfloat16, ema=True,
+                               objective=P512_OBJECTIVE)
+    (state, m), counts = counted(lambda: step(state, batch(), generator=gen))
+    want = step_launches(TRAIN_BATCH, latent=LATENT64, train=True)
+    log(f"train 512px B={TRAIN_BATCH} {P512_OBJECTIVE}: launches {json.dumps(counts)}, "
+        f"loss {m['loss'].item():.6f}")
+    require(counts == want and math.isfinite(m["loss"].item()), ("v, zero SNR, Min-SNR", counts))
+    out["v_zero_snr_min_snr"] = dict(launches=counts, loss=m["loss"].item())
+    return out
+
+
+def serve_two_sizes(dev) -> dict:
+    """(h) one SamplerServer over cli/serve.make_variants(pipe, [256, 512])
+    on the conditional UNet (phase 10's, bf16, buckets SERVE_BUCKETS): 256
+    and 512 requests, plain and guided, queued together before the worker
+    starts. Each dispatch holds one variant, so one size (its bucket the
+    smallest that takes that variant's requests), with exactly the
+    launches of its batch and guidance; every 512px image bitwise the
+    direct pipe.sample at 512 from draw_noise(seed) rows at that bucket."""
+    import numpy as np
+
+    from ldm_image_generator_tpu_torch.cli import serve
+    from ldm_image_generator_tpu_torch.config import UNetConfig, VAEConfig
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.vae import Decoder
+    from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
+    from ldm_image_generator_tpu_torch.serving import SamplerServer
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pipe = LDMPipeline(UNet(UNetConfig(num_classes=COND_CLASSES), device=dev, generator=gen),
+                       Decoder(VAEConfig(), device=dev, generator=gen), dtype=torch.bfloat16)
+    variants, _ = serve.make_variants(pipe, [256, CLI_SIZE], num_steps=20)
+    null = COND_CLASSES
+    reqs = [(256, dict(seed=10)), (CLI_SIZE, dict(seed=20)), (256, dict(seed=11)),
+            (("cfg", CLI_SIZE), dict(seed=30, class_id=1, guidance=3.0)),
+            (CLI_SIZE, dict(seed=21)), (("cfg", 256), dict(seed=40, class_id=0, guidance=3.0)),
+            (CLI_SIZE, dict(seed=22)),
+            (("cfg", CLI_SIZE), dict(seed=31, class_id=2, guidance=5.0, negative_class=0))]
+    srv = SamplerServer(variants, batch_buckets=SERVE_BUCKETS, max_wait_ms=5,
+                        num_classes=COND_CLASSES, device=dev)
+    futs = [srv.submit(variant=v, **r) for v, r in reqs]
+    dispatches, sample = [], pipe.sample
+
+    def counting(*a, **k):
+        img, counts = counted(lambda: sample(*a, **k))
+        dispatches.append(dict(size=k["image_size"], batch=k["batch"],
+                               guided=k.get("guidance_scales") is not None, launches=counts))
+        return img
+
+    pipe.sample = counting
+    t0 = time.perf_counter()
+    try:
+        with srv:
+            imgs = [f.result(timeout=600) for f in futs]
+    finally:
+        del pipe.sample
+    wall = time.perf_counter() - t0
+    snap = srv.stats.snapshot()
+    log(f"serve 256 + 512: {json.dumps(dispatches)}; stats batches {snap['batches']} images "
+        f"{snap['images']} padded {snap['padded_images']}; {wall:.3f} s")
+    # one dispatch per variant, at the smallest bucket taking its requests
+    want = []
+    for key in dict.fromkeys(v for v, _ in reqs):
+        n = sum(v == key for v, _ in reqs)
+        bucket = min(b for b in SERVE_BUCKETS if b >= n)
+        guided = isinstance(key, tuple)
+        size = key[-1] if guided else key
+        want.append(dict(size=size, batch=bucket, guided=guided,
+                         launches=step_launches(bucket, calls=20 * (2 if guided else 1))))
+    order = lambda ds: sorted(ds, key=lambda d: (d["size"], d["guided"]))
+    require(order(dispatches) == order(want), ("serve 256 + 512 dispatches", dispatches, want))
+    require((snap["batches"], snap["images"]) == (len(want), len(reqs)), snap)
+    for i, ((v, _), img) in enumerate(zip(reqs, imgs)):
+        size = v[-1] if isinstance(v, tuple) else v
+        require(img.shape == (size, size, 3) and img.dtype == np.uint8, (i, img.shape))
+    # the 512px groups against the direct calls (rows in submission order,
+    # padding seeded 0)
+    side = CLI_SIZE // pipe.decoder.cfg.downscale
+    rows = lambda seeds: torch.stack([serve.draw_noise(s, (side, side, 8))
+                                      for s in seeds]).to(dev)
+    ids = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    routing = lambda: torch.Generator(device=dev).manual_seed(0)
+    plain = [i for i, (v, _) in enumerate(reqs) if v == CLI_SIZE]
+    guided = [i for i, (v, _) in enumerate(reqs) if v == ("cfg", CLI_SIZE)]
+    bucket = min(b for b in SERVE_BUCKETS if b >= len(plain))
+    seeds = [reqs[i][1]["seed"] for i in plain] + [0] * (bucket - len(plain))
+    direct = {"plain": (plain, pipe.sample(routing(), batch=bucket, image_size=CLI_SIZE,
+                                           num_steps=20, init_noise=rows(seeds),
+                                           condition=ids([null] * bucket)))}
+    g = [reqs[i][1] for i in guided]
+    direct["guided"] = (guided, pipe.sample(
+        routing(), batch=len(g), image_size=CLI_SIZE, num_steps=20,
+        init_noise=rows([r["seed"] for r in g]), condition=ids([r["class_id"] for r in g]),
+        guidance_scales=torch.tensor([r["guidance"] for r in g], device=dev),
+        cfg_rescales=torch.zeros(len(g), device=dev),
+        negative_condition=ids([r.get("negative_class", null) for r in g])))
+    for name, (idx, ref) in direct.items():
+        ref = ref.cpu().numpy()
+        same = all(np.array_equal(imgs[i], ref[j]) for j, i in enumerate(idx))
+        log(f"serve 512 {name}: served images bitwise the direct call's: {same}")
+        require(same, ("serve 512", name, "served images equal the direct pipeline call's"))
+    return dict(dispatches=dispatches, wall_s=wall, stats=snap)
+
+
+def phase_512(dev) -> dict:
+    """Phase 20, (a)-(h): see the module docstring."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P512_DIR, ignore_errors=True)
+    out = {}
+    parts = (("sample_cli", lambda: sample_cli_512(dev)),
+             ("sample", lambda: sample_512(dev)),
+             ("card_vs_cpu_latent64", lambda: phase_card_vs_cpu(dev, latent=LATENT64)),
+             ("train_cli", lambda: train_cli_512(dev)),
+             ("train_b8", lambda: train_512(dev)),
+             ("train_card_vs_cpu_b1", lambda: phase_train_card_vs_cpu(
+                 dev, batch=1, latent=LATENT64)[0]),
+             ("serve", lambda: serve_two_sizes(dev)))
+    seconds = {}
+    for name, fn in parts:
+        t1 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        log(f"phase 20 {name} took {seconds[name]:.1f} s")
+    shutil.rmtree(P512_DIR, ignore_errors=True)
+    out["part_seconds"] = seconds
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 20 (512px) took {out['seconds']:.1f} s; {card_line()}")
+    return out
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4101,131 +4525,139 @@ def main(argv) -> int:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
+    seconds = {"1 build": build_s}
+
+    def run(label: str, fn, *a, **k):
+        """fn(*a, **k), its seconds logged and kept under `label`."""
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        seconds[label] = time.perf_counter() - t0
+        log(f"phase {label} took {seconds[label]:.1f} s, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        return out
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv[:1] == ["--phase"]:
-        # phase 1 and the given ones of 17-19 alone (a quicker check of
-        # those paths); no result line: the whole check is the script
+        # phase 1 and the given ones alone, a quicker check of those
+        # paths: each runs even where an earlier one failed, and any
+        # failure exits 1. No result line: the whole check is the script
         # without arguments
-        runs = {"17": phase_parallel, "18": phase_mesh, "19": phase_data_cache}
+        runs = {"2": lambda d: phase_kernels(d, reps=10),
+                "17": phase_parallel, "18": phase_mesh, "19": phase_data_cache,
+                "20": phase_512}
+        failed = []
         for p in argv[1:]:
-            log(json.dumps({f"phase{p}": runs[p](dev)}))
+            try:
+                log(json.dumps({f"phase{p}": run(p, runs[p], dev)}))
+            except Exception:
+                import traceback
+
+                log(f"phase {p} failed:\n{traceback.format_exc()}")
+                failed.append(p)
+        log(json.dumps({"phase_seconds": seconds, "failed": failed}))
         log(name)
-        return 0
-    kernels = phase_kernels(dev, reps=10)
-    log(f"kernels checked at {time.perf_counter() - t_start:.1f} s")
-    path, pipe = phase_path(dev)
+        return 1 if failed else 0
+    kernels = run("2 kernels", phase_kernels, dev, reps=10)
+    path, pipe = run("3-4 sampling", phase_path, dev)
     kernels["block_core"]["launches"] = path["launches_b1"]["block_core"]
     kernels["window_mha"]["launches"] = path["launches_b1"]["window_mha"]
     kernels["ffn_block"]["launches"] = path["launches_b4"]["ffn_block"]
-    int8_path = phase_int8_path(dev, pipe)
-    fast = phase_dpm_deepcache(dev, pipe)
+    int8_path = run("4 int8 sampling", phase_int8_path, dev, pipe)
+    fast = run("10 dpm++ and deepcache", phase_dpm_deepcache, dev, pipe)
     del pipe
     kernels["block_core_int8"]["launches"] = int8_path["b1"]["launches"]["block_core_int8"]
     kernels["ffn_block_int8"]["launches"] = int8_path["b4"]["launches"]["ffn_block_int8"]
-    rel = phase_card_vs_cpu(dev)
-    rel_int8 = phase_card_vs_cpu(dev, UNetConfig(ffn_quant="int8"))
-    log(f"sampling phases done at {time.perf_counter() - t_start:.1f} s")
-    cond, cond_pipe, cond_modules = phase_cond(dev)
-    files = phase_param_files(dev, cond_pipe, *cond_modules)
+    rel = run("5 card vs cpu", phase_card_vs_cpu, dev)
+    rel_int8 = run("5 int8 card vs cpu", phase_card_vs_cpu, dev, UNetConfig(ffn_quant="int8"))
+    cond, cond_pipe, cond_modules = run("10 cond sampling", phase_cond, dev)
+    files = run("12 param files", phase_param_files, dev, cond_pipe, *cond_modules)
     del cond_pipe, cond_modules
-    rel_cond = phase_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))
-    log(f"conditional phases done at {time.perf_counter() - t_start:.1f} s")
-    serving = phase_serving(dev)
-    img2img_vs_cpu = phase_img2img_card_vs_cpu(dev)
+    rel_cond = run("11 cond card vs cpu", phase_card_vs_cpu, dev,
+                   UNetConfig(num_classes=COND_CLASSES))
+    serving = run("13 serving", phase_serving, dev)
+    img2img_vs_cpu = run("13 img2img card vs cpu", phase_img2img_card_vs_cpu, dev)
     paths = dict(fast, **cond, **{k: v for k, v in serving.items()
                                   if isinstance(v, dict) and "launches" in v})
     for kernel in ("block_core", "window_mha", "ffn_block", "block_core_int8"):
         kernels[kernel]["launches_by_path"] = {
             path: r["launches"][kernel] for path, r in paths.items() if r["launches"][kernel]}
-    log(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
-    train = phase_train(dev)
+    train = run("6 train", phase_train, dev)
     kernels["ffn_block_bwd"]["launches"] = train["launches"]["ffn_block_bwd"]
     kernels["window_mha_bwd"]["launches"] = train["launches"]["window_mha_bwd"]
-    train_vs_cpu = phase_train_card_vs_cpu(dev)[0]
-    log(f"LDM training phases done at {time.perf_counter() - t_start:.1f} s")
-    vae = phase_vae_train(dev)
+    train_vs_cpu = run("7 train card vs cpu", phase_train_card_vs_cpu, dev)[0]
+    vae = run("8 vae train", phase_vae_train, dev)
     kernels["vq"]["launches"] = vae["launches"]["vq"]
-    vae_vs_cpu = phase_vae_card_vs_cpu(dev)
-    log(f"VAE training phases done at {time.perf_counter() - t_start:.1f} s")
-    cond_train, state, step, gen = phase_cond_train(dev)
-    resume = phase_resume(dev, state, step, gen)
-    del state, step, gen
-    torch.cuda.empty_cache()
-    cond_train_vs_cpu = phase_train_card_vs_cpu(dev, UNetConfig(num_classes=COND_CLASSES))[0]
-    remat = phase_remat(dev)
-    run_loop = phase_run_loop(dev)
-    log(f"training surface phases done at {time.perf_counter() - t_start:.1f} s")
+    vae_vs_cpu = run("9 vae card vs cpu", phase_vae_card_vs_cpu, dev)
+    cond_train = run("14.1 cond train", phase_cond_train, dev)
+    resume = run("14.4 resume", phase_resume, dev)
+    shallow_cond = unet_cfg(shallow=True, num_classes=COND_CLASSES)
+    cond_train_vs_cpu = run("14.2 cond train card vs cpu", phase_train_card_vs_cpu, dev,
+                            shallow_cond, flip_tensors=SHALLOW_FLIP_TENSORS)[0]
+    remat = run("14.3 remat", phase_remat, dev)
+    run_loop = run("14.5 run loop", phase_run_loop, dev)
     surface_paths = {f"cond_train_{TRAIN_STEPS}_steps": cond_train["launches"],
                      "remat_step": remat["remat"]["launches"],
-                     "validation": run_loop["validations"][0]["launches"]}
-    for kernel in ("ffn_block", "ffn_block_bwd", "window_mha", "window_mha_bwd"):
-        by_path = kernels[kernel].setdefault("launches_by_path", {})
-        by_path.update({p: c[kernel] for p, c in surface_paths.items() if c[kernel]})
-    torch.cuda.empty_cache()
-    ddpm_train, ddpm_state, ddpm_path = phase_ddpm_train(dev)
-    ddpm_sample = phase_ddpm_sample(dev, ddpm_state.params, ddpm_path)
-    torch_files = phase_torch_files(dev, ddpm_state.params)
+                     "validation" + SHALLOW_TAG:
+                         run_loop["validations"][0]["launches"]}
+    add_paths(kernels, surface_paths)
+    ddpm_train, ddpm_state, ddpm_path = run("15.1 ddpm train", phase_ddpm_train, dev)
+    ddpm_sample = run("15.2 ddpm sample", phase_ddpm_sample, dev, ddpm_state.params,
+                      ddpm_path)
+    torch_files = run("15.3 torch files", phase_torch_files, dev, ddpm_state.params)
     del ddpm_state
-    torch.cuda.empty_cache()
-    ddpm_vs_cpu = phase_train_card_vs_cpu(dev, ddpm_cfg(), optimizer="radam",
-                                          flip_tensors=DDPM_FLIP_TENSORS)[0]
-    log(f"pixel DDPM phases done at {time.perf_counter() - t_start:.1f} s")
+    ddpm_vs_cpu = run("15.4 ddpm card vs cpu", phase_train_card_vs_cpu, dev,
+                      ddpm_cfg(shallow=True), optimizer="radam",
+                      flip_tensors=DDPM_FLIP_TENSORS)[0]
     ddpm_paths = {f"ddpm_train_{TRAIN_STEPS}_steps": ddpm_train["launches"]}
     ddpm_paths.update({k: v["launches"] for k, v in ddpm_sample.items() if k != "cli"})
-    for kernel in ("block_core", "ffn_block", "ffn_block_bwd", "window_mha",
-                   "window_mha_bwd"):
-        by_path = kernels[kernel].setdefault("launches_by_path", {})
-        by_path.update({p: c[kernel] for p, c in ddpm_paths.items() if c[kernel]})
-    t16 = time.perf_counter()
-    int8_train = phase_int8_train(dev)
-    torch.cuda.empty_cache()
-    int8_vs_cpu, run = phase_train_card_vs_cpu(dev, UNetConfig(ffn_quant="int8"),
-                                               flip_tensors=INT8_FLIP_TENSORS)
-    int8_vs_cpu.update(check_int8_card_vs_cpu(dev, run))
-    del run
-    torch.cuda.empty_cache()
-    ablation = phase_ablation(dev)
-    kid = phase_kid(dev)
-    log(f"phase 16 (int8 training, ablation, KID) took {time.perf_counter() - t16:.1f} s; "
-        f"done at {time.perf_counter() - t_start:.1f} s")
+    add_paths(kernels, ddpm_paths)
+    int8_train = run("16.1 int8 train", phase_int8_train, dev)
+
+    def int8_card_vs_cpu():
+        out, run8 = phase_train_card_vs_cpu(dev, unet_cfg(shallow=True, ffn_quant="int8"),
+                                            flip_tensors=INT8_FLIP_TENSORS)
+        out.update(check_int8_card_vs_cpu(dev, run8))
+        return out
+
+    int8_vs_cpu = run("16.2 int8 card vs cpu", int8_card_vs_cpu)
+    ablation = run("16.3 ablation", phase_ablation, dev)
+    kid = run("16.4 kid", phase_kid, dev)
     int8_paths = {f"int8_train_{TRAIN_STEPS}_steps": int8_train["launches"],
                   "int8_remat_step": int8_train["remat_launches"],
                   "int8_train_b2_step": int8_train["b2_launches"]}
     int8_paths.update({f"ablate_{k}_b1": v["launches"] for k, v in ablation.items()
                        if k != "full"})
-    for kernel in kernels:
-        by_path = kernels[kernel].setdefault("launches_by_path", {})
-        by_path.update({p: c[kernel] for p, c in int8_paths.items() if c[kernel]})
-    torch.cuda.empty_cache()
-    parallel = phase_parallel(dev)
-    parallel_paths = {
-        "dp2_train_step": {k: v // DP_STEPS for k, v in parallel["dp"]["launches"].items()},
-        "zero1_train_step": {k: v // DP_STEPS
-                             for k, v in parallel["zero1"]["launches"].items()},
-        "nccl1_train_step": parallel["nccl"]["launches"],
-        "gpipe3_train_step": {k: v // PIPE_STEPS
-                              for k, v in parallel["gpipe"]["launches"].items()},
-        "dp2_vae_step": {k: v // VAE_DP_STEPS for k, v in parallel["vae"]["launches"].items()}}
-    for kernel in kernels:
-        by_path = kernels[kernel].setdefault("launches_by_path", {})
-        by_path.update({p: c[kernel] for p, c in parallel_paths.items() if c[kernel]})
-    log(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
-    torch.cuda.empty_cache()
-    mesh = phase_mesh(dev)
-    mesh_paths = {f"{k}_train_step": {c: v // MESH_STEPS for c, v in mesh[k]["launches"].items()}
-                  for k in MESH_LAUNCHES}
-    for kernel in kernels:
-        by_path = kernels[kernel].setdefault("launches_by_path", {})
-        by_path.update({p: c[kernel] for p, c in mesh_paths.items() if c[kernel]})
-    log(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
-    data_cache = phase_data_cache(dev)
-    log(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
+    add_paths(kernels, int8_paths)
+    parallel = run("17 parallel", phase_parallel, dev)
+    per_step = lambda counts, n: {k: v // n for k, v in counts.items()}
+    add_paths(kernels, {
+        "dp2_train_step" + SHALLOW_TAG: per_step(parallel["dp"]["launches"], DP_STEPS),
+        "zero1_train_step" + SHALLOW_TAG: per_step(parallel["zero1"]["launches"], DP_STEPS),
+        "nccl1_train_step" + SHALLOW_TAG: parallel["nccl"]["launches"],
+        "gpipe3_train_step" + SHALLOW_TAG: per_step(parallel["gpipe"]["launches"], PIPE_STEPS),
+        "dp2_vae_step": per_step(parallel["vae"]["launches"], VAE_DP_STEPS)})
+    mesh = run("18 mesh", phase_mesh, dev)
+    add_paths(kernels, {f"{k}_train_step{SHALLOW_TAG}": per_step(mesh[k]["launches"], MESH_STEPS)
+                        for k in MESH_RANK_BATCH})
+    data_cache = run("19 data cache", phase_data_cache, dev)
+    p512 = run("20 512px", phase_512, dev)
+    add_paths(kernels, {
+        "sample_ldm_cli_512px_fp32": p512["sample_cli"]["launches"],
+        **{f"sample_512px_{k}": v["launches"] for k, v in p512["sample"].items()},
+        f"train_ldm_cli_512px_fp32_b1_{P512_CLI_IMAGES}_steps": p512["train_cli"]["launches"],
+        f"train_512px_b8_{P512_TRAIN_STEPS}_steps": p512["train_b8"]["launches"],
+        "train_512px_b8_v_zero_snr_min_snr_step":
+            p512["train_b8"]["v_zero_snr_min_snr"]["launches"],
+        **{f"serve_{d['size']}px_{'cfg_' if d['guided'] else ''}b{d['batch']}": d["launches"]
+           for d in p512["serve"]["dispatches"]}})
     elapsed = time.perf_counter() - t_start
+    log(json.dumps({"phase_seconds": seconds, "elapsed_s": elapsed}))
     require(elapsed < TIME_LIMIT_S, elapsed)
     log(json.dumps({"summary": {
-        "card": name, "build_s": build_s, "elapsed_s": elapsed,
+        "card": name, "build_s": build_s, "elapsed_s": elapsed, "phase_seconds": seconds,
+        "shallow_stages": list(SHALLOW_STAGES),
         "b1_images_per_s": path["b1_images_per_s"],
         "b4_images_per_s": path["b4_images_per_s"],
         "b1_device_busy_ms": path["profile_b1"]["device_busy_ms"],
@@ -4267,7 +4699,8 @@ def main(argv) -> int:
         "kid": kid,
         "parallel": parallel,
         "mesh": mesh,
-        "data_cache": data_cache}}))
+        "data_cache": data_cache,
+        "p512": p512}}))
     log(name)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
@@ -4275,6 +4708,13 @@ def main(argv) -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+
+def add_paths(kernels: dict, paths: dict) -> None:
+    """Each path's launch counts into the kernels line's launches_by_path
+    (its nonzero ones)."""
+    for kernel in kernels:
+        by_path = kernels[kernel].setdefault("launches_by_path", {})
+        by_path.update({p: c[kernel] for p, c in paths.items() if c[kernel]})
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -211,9 +211,12 @@ def make_variants(pipe, sizes, num_steps: int = 20, sampler: str = "ddim",
 
 def make_handler(server, encode, default_size=None, default_guidance=1.0,
                  step_tiers=(), default_steps=None, default_rescale=0.0,
-                 content_type="image/jpeg"):
+                 content_type="image/jpeg", result_timeout=600.0):
     """The BaseHTTPRequestHandler class of the endpoints above over
-    `server`; encode(uint8 [H, W, 3]) -> bytes of `content_type`."""
+    `server`; encode(uint8 [H, W, 3]) -> bytes of `content_type`.
+    result_timeout: seconds a request waits for its image (504), or a
+    /sample_batch for all of its images (a JSON error part, the
+    unfinished items cancelled)."""
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
@@ -306,7 +309,7 @@ def make_handler(server, encode, default_size=None, default_guidance=1.0,
                     400, json.dumps({"error": str(e)}).encode()
                 )
             try:
-                img = fut.result(timeout=600)
+                img = fut.result(timeout=result_timeout)
             except TimeoutError as e:
                 return self._send(
                     504, json.dumps({"error": f"expired: {e}"}).encode()
@@ -328,7 +331,10 @@ def make_handler(server, encode, default_size=None, default_guidance=1.0,
             items on the same cost bucket share device batches. Parts
             carry X-Index (position in the request) and X-Seed; a failed
             item becomes an application/json part. Close-delimited body:
-            the terminating boundary ends the stream."""
+            the terminating boundary ends the stream. Items unfinished
+            after result_timeout are cancelled (those no dispatch has
+            claimed yet never run) and reported in one JSON part, {"error", "indices"},
+            before the terminating boundary."""
             from concurrent.futures import as_completed
 
             from ldm_image_generator_tpu_torch.serving import ServerOverloaded
@@ -364,29 +370,43 @@ def make_handler(server, encode, default_size=None, default_guidance=1.0,
                              f"multipart/mixed; boundary={boundary}")
             self.send_header("Connection", "close")
             self.end_headers()
-            for fut in as_completed(list(futs), timeout=600):
-                index, seed = futs[fut]
+            def part(ctype, body, head=""):
+                self.wfile.write(
+                    f"--{boundary}\r\nContent-Type: {ctype}\r\n{head}"
+                    f"Content-Length: {len(body)}\r\n\r\n".encode())
+                self.wfile.write(body)
+                self.wfile.write(b"\r\n")
+                self.wfile.flush()
+
+            sent = set()  # the indices written as a part
+            try:
                 try:
-                    body = encode(fut.result())
-                    ctype = content_type
-                except Exception as e:
-                    body = json.dumps({"index": index, "seed": seed,
-                                       "error": str(e)}).encode()
-                    ctype = "application/json"
-                try:
-                    self.wfile.write(
-                        f"--{boundary}\r\nContent-Type: {ctype}\r\n"
-                        f"X-Index: {index}\r\nX-Seed: {seed}\r\n"
-                        f"Content-Length: {len(body)}\r\n\r\n".encode())
-                    self.wfile.write(body)
-                    self.wfile.write(b"\r\n")
-                    self.wfile.flush()
-                except (BrokenPipeError, ConnectionError, OSError):
-                    # client went away: free the undispatched slots
+                    for fut in as_completed(list(futs), timeout=result_timeout):
+                        index, seed = futs[fut]
+                        try:
+                            body = encode(fut.result())
+                            ctype = content_type
+                        except Exception as e:
+                            body = json.dumps({"index": index, "seed": seed,
+                                               "error": str(e)}).encode()
+                            ctype = "application/json"
+                        part(ctype, body, f"X-Index: {index}\r\nX-Seed: {seed}\r\n")
+                        sent.add(index)
+                except TimeoutError:
+                    # every item not written yet, those that finished
+                    # since the deadline too
+                    late = sorted(i for i, _ in futs.values() if i not in sent)
                     for f in futs:
                         f.cancel()
-                    return
-            self.wfile.write(f"--{boundary}--\r\n".encode())
+                    part("application/json", json.dumps(
+                        {"error": f"expired: {len(late)} of {len(futs)} items "
+                                  f"unfinished after {result_timeout} s",
+                         "indices": late}).encode())
+                self.wfile.write(f"--{boundary}--\r\n".encode())
+            except (BrokenPipeError, ConnectionError, OSError):
+                # client went away: free the undispatched slots
+                for f in futs:
+                    f.cancel()
 
         _PRIORITY_NAMES = {"interactive": 0, "high": 0, "normal": 1,
                            "low": 2, "background": 2, "batch": 2}

@@ -422,3 +422,46 @@ class GuardedBuffers:
             if zeroed and bool((buf[GUARD:GUARD + numel] != 0).any()):
                 out.append((i, "not left zero"))
         return out
+
+
+def ffn_bwd_boundary_plain(kernel, plain, args) -> tuple:
+    """For an ffn_block_bwd call (make_inputs' args) whose kernel and plain
+    version decided a b = h @ wb + bb of the ReLU the other way: (the
+    plain version taking the kernel's decision there, decisions that
+    differ, those of them not within C 2^-23 (|h| @ |wb| + |bb|) of 0,
+    the kernel's outputs of a rerun). The bound is the most two fp32 sums
+    over C terms in other orders can differ (both sides sum b in fp32 for
+    bf16 operands too); a flip there moves a whole row of dh and a column
+    of dwb. The kernel's decisions are read back from its db (nonzero
+    where it took b > 0) through a rerun that keeps its buffers; only a
+    decision near the boundary (away == 0) explains a difference."""
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
+
+    h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids = args
+    (n, c), m = h.shape, wa.shape[-1]
+    saved, tffn._counters = tffn._counters, {}
+    try:
+        with GuardedBuffers() as bufs:
+            again = kernel(*args)
+            torch.cuda.synchronize()
+    finally:
+        tffn._counters = saved
+    dgate = next(buf[GUARD:GUARD + numel] for buf, numel, _ in bufs.made
+                 if numel == 9 * n * m).view(9, n, m)
+    kernel_pos = dgate[3:6] != 0  # [da | db | gate] x 3 towers
+    towers = [(gwa, gba, gwb, gbb, gwc)] + [
+        (wa[e], ba[e], wb[e], bb[e], wc[e]) for e in ids.tolist()]
+    plain_pos, matters, near = [], [], []
+    hf, hd = h.float(), h.double()
+    for w_a, b_a, w_b, b_b, w_c in towers:
+        # the plain version's fp32 products, and b in float64 with its bound
+        plain_pos.append(hf @ w_b.float() + b_b.float() > 0)
+        matters.append((hf @ w_a.float() + b_a.float()) * (g.float() @ w_c.float().t()) != 0)
+        exact = hd @ w_b.double() + b_b.double()
+        near.append(exact.abs() <= c * 2.0 ** -23 * (hd.abs() @ w_b.double().abs()
+                                                     + b_b.double().abs()))
+    plain_pos, matters, near = map(torch.stack, (plain_pos, matters, near))
+    differ = (kernel_pos != plain_pos) & matters
+    away = int((differ & ~near).sum())
+    want = plain(*args, b_pos=torch.where(differ, kernel_pos, plain_pos))
+    return want, int(differ.sum()), away, again

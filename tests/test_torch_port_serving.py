@@ -9,6 +9,7 @@ groups the worker cuts do not depend on timing; every wait has a timeout
 and every server is stopped in a finally."""
 import base64
 import contextlib
+import inspect
 import http.client
 import io
 import json
@@ -701,6 +702,81 @@ def test_http_sample_batch_streams_multipart():
         for bad in ("/sample_batch?seeds=,,", "/sample_batch?n=9999",
                     "/sample_batch?seeds=1,x"):
             assert fetch(port, bad)[0] == 400, bad
+
+
+def test_http_sample_batch_timeout_ends_the_stream():
+    """A /sample_batch whose batch outlives the handler's result timeout:
+    one JSON error part naming the unfinished items, then the closing
+    boundary; the items no dispatch has claimed yet (here the step
+    tier's, queued behind the first item's variant) are cancelled and
+    never run. The timeout defaults to 600 s."""
+    assert inspect.signature(serve.make_handler).parameters["result_timeout"].default == 600
+    release, seen, futs = threading.Event(), [], []
+
+    def slow(seeds, batch):
+        seen.append(list(seeds))
+        release.wait(WAIT)
+        return tiny_sample(seeds, batch)
+
+    srv = SamplerServer({8: slow, ("steps", 5, 8): slow}, batch_buckets=(1,),
+                        max_wait_ms=1, device="cpu")
+    submit = srv.submit
+    srv.submit = lambda *a, **k: futs.append(submit(*a, **k)) or futs[-1]
+    items = [{"seed": 3}, {"seed": 9, "steps": 5}, {"seed": 5, "steps": 5}]
+    try:
+        with http_server(srv, default_size=8, step_tiers=(5,), default_steps=20,
+                         result_timeout=0.5) as port:
+            t0 = time.perf_counter()
+            status, ctype, raw = fetch(port, "/sample_batch", "POST",
+                                       json.dumps({"items": items}))
+            waited = time.perf_counter() - t0
+            release.set()
+    finally:
+        release.set()
+    assert status == 200 and ctype.startswith("multipart/mixed") and waited < WAIT / 2
+    assert raw.endswith(b"--ldmframe--\r\n")
+    parts = multipart_parts(raw)
+    assert len(parts) == 1
+    head, body = parts[0]
+    assert head["Content-Type"] == "application/json" and "X-Index" not in head
+    err = json.loads(body)
+    assert err["indices"] == [0, 1, 2] and err["error"].startswith("expired: 3 of 3")
+    assert [f.cancelled() for f in futs] == [False, True, True]
+    assert seen == [[3]] and srv.stats.cancelled == 2
+
+
+def test_http_sample_batch_timeout_lists_every_item_not_written():
+    """The items written before the deadline are not listed again; every
+    other one is, here the step tier's two, which its dispatch claimed
+    together (running: cancel() cannot stop them)."""
+    release, seen, futs = threading.Event(), [], []
+
+    def slow(seeds, batch):
+        seen.append(list(seeds))
+        release.wait(WAIT)
+        return tiny_sample(seeds, batch)
+
+    srv = SamplerServer({8: tiny_sample, ("steps", 5, 8): slow}, batch_buckets=(1,),
+                        max_wait_ms=1, device="cpu")
+    submit = srv.submit
+    srv.submit = lambda *a, **k: futs.append(submit(*a, **k)) or futs[-1]
+    items = [{"seed": 3}, {"seed": 9, "steps": 5}, {"seed": 5, "steps": 5}]
+    try:
+        with http_server(srv, default_size=8, step_tiers=(5,), default_steps=20,
+                         result_timeout=2.0) as port:
+            status, ctype, raw = fetch(port, "/sample_batch", "POST",
+                                       json.dumps({"items": items}))
+            release.set()
+    finally:
+        release.set()
+    assert status == 200 and raw.endswith(b"--ldmframe--\r\n")
+    (head0, body0), (head1, body1) = multipart_parts(raw)
+    assert head0["X-Index"] == "0" and head0["X-Seed"] == "3"
+    assert body0 == encode_jpeg(tiny_sample([3], 1)[0])
+    err = json.loads(body1)
+    assert err["indices"] == [1, 2] and err["error"].startswith("expired: 2 of 3")
+    assert [f.cancelled() for f in futs] == [False, False, False]
+    assert seen[0] == [9] and srv.stats.cancelled == 0
 
 
 def test_http_step_tiers_route_by_cost():
