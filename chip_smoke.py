@@ -250,7 +250,8 @@ share there is derived from that config.
   20. the CLIs' default size, 512px (latent 64x64x8), the default UNet and
      decoder at full width, seeded: (a) cli/sample_ldm at its defaults
      (-n 1, fp32) in a working directory under build/, exactly 20 B=1
-     UNet calls' launches and one 512x512 PNG; (b) LDMPipeline.sample at
+     UNet calls' launches and one 512x512 PNG, then one more call under
+     the profiler for the card's busy time in it; (b) LDMPipeline.sample at
      512px, bf16, DDIM-20, B=1 (720 block_core, 160 window MHA) and B=4
      (720 ffn_block), (c) B=1 with int8 FFN weights (720 int8
      block_core): images/s, a profiled call's device busy, peak memory;
@@ -283,6 +284,17 @@ Phase 2 also holds every kernel call of the 512px paths in both types
 sample; train64: the B=8 train step; train64_b1: the B=1 train step's
 block_core without residual and its backward kernels), rerun bitwise
 between guards, with per-step times and bounds.
+Phase 2 first profiles one fp32 call of block_core and of window MHA at
+each shape of a 512px B=1 sample: each launches its tensor-core chain
+(three TF32 kernels for block_core, two for window MHA) and nothing else.
+Phase 2 also times the fp32 calls of the paths that sample_ldm and
+train_ldm run at their default precision (FP32_TIMED_TAGS: b1, b1-64,
+train64_b1, and the B=1 body shapes through ffn_block, split and
+split-64): kernel, plain, library (window MHA: F.multi_head_attention_
+forward with TF32 off) and bound per row and per step, the bound of
+block_core and window MHA forward from three TF32 passes at the tensor
+cores' rate (workloads.TF32_KERNELS), every other fp32 route's from the
+CUDA cores' 67 TFLOP/s.
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -631,9 +643,10 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b4-64") for c in path_calls(4, latent=64)] + [
         (c, "train64") for c in per_sample_film(train_calls(TRAIN_BATCH, latent=64))] + [
         (c, "train64_b1") for c in train64_b1]
+    check_fp32_chains(dev, latent64 + b1_64)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, rows32 = [], []  # the timed bf16 and fp32 calls
     for call, tag in calls:
         kernel, plain, library = fns[call.kernel]
         bwd = call.kernel.endswith("_bwd")
@@ -673,7 +686,8 @@ def phase_kernels(dev, reps: int) -> dict:
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
-                continue
+                if tag not in FP32_TIMED_TAGS:
+                    continue
             ms = cold_ms(kernel, args, reps, flush)
             plain_ms = cold_ms(plain, args, reps, flush)
             lib_ms = None if library is None else cold_ms(library(args), (), reps, flush)
@@ -692,6 +706,10 @@ def phase_kernels(dev, reps: int) -> dict:
                 row["error_metric"] = ("largest exact score gap between the "
                                        "kernel's and the plain's codes over "
                                        "the scores' magnitude (0: equal)")
+            if dtype == torch.float32:
+                rows32.append(row)
+                log("kernel fp32", json.dumps(row))
+                continue
             if call.kernel == "ffn_block":
                 # the grouped conv ffn_block leaves outside (plain
                 # PyTorch, as the SwinBlock runs it), for the batch split
@@ -766,6 +784,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 line += (f"; bf16 weights {fp_ms:.4f} ms, bound "
                          f"{step(bf16, 'bound_ms'):.5f} ms (int8/bf16 {ms / fp_ms:.3f})")
             log(line)
+    fp32_steps = fp32_per_step(rows32)
     summary = {}
     ddpm_rows = [r for r in rows if r["tag"] == "ddpm_train"]
     for name in fns:
@@ -816,7 +835,75 @@ def phase_kernels(dev, reps: int) -> dict:
                 max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in ddpm),
                 library_ms=(None if ddpm[0]["library_ms"] is None
                             else sum(r["library_ms"] * r["per_step"] for r in ddpm)))
+        if name in fp32_steps:
+            summary[name]["fp32_steps"] = fp32_steps[name]
     return summary
+
+
+# the paths whose fp32 kernel calls phase 2 times (every other fp32 call
+# is checked, not timed): the B=1 samples at latent 32 and 64 (the
+# sample_ldm CLI's default precision), the B=1 body shapes through
+# ffn_block, and the fp32 train_ldm CLI's B=1 step at latent 64
+FP32_TIMED_TAGS = ("b1", "b1-64", "split", "split-64", "train64_b1")
+
+
+def check_fp32_chains(dev, calls) -> None:
+    """The device kernels of one fp32 call of block_core and of window MHA
+    at each of `calls` (a B=1 sample's at latent 64; torch.profiler, the
+    card's activity): the tensor-core route's launches (block_core's
+    norm/FiLM, gate_kernel_f32 and out_kernel_f32, window MHA's
+    wtf::fwd_core_kernel and wtf::out_proj_kernel), nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldm_image_generator_tpu_torch.kernels import block_core as tbc
+    from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
+    from ldm_image_generator_tpu_torch.kernels.workloads import make_inputs
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    want = {"block_core": ("norm_film_rows_kernel<float>", "gate_kernel_f32", "out_kernel_f32"),
+            "window_mha": ("wtf::fwd_core_kernel", "wtf::out_proj_kernel")}
+    for call in calls:
+        args = make_inputs(call, torch.float32, dev, gen)
+        fn = (tbc.block_core if call.kernel == "block_core"
+              else lambda *a: tattn.window_mha(*a, num_heads=call.heads))
+        with torch.no_grad():
+            fn(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(*args)
+                torch.cuda.synchronize()
+        chain = {ev.key: ev.count for ev in prof.key_averages()
+                 if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0}
+        names = want[call.kernel]
+        log(f"{call.kernel} {call.label} fp32 launch chain: {json.dumps(chain)}")
+        require(sum(chain.values()) == len(names)
+                and all(any(n in k for k in chain) for n in names),
+                ("fp32 tensor-core chain", call.kernel, call.label, chain))
+
+
+def fp32_per_step(rows32: list) -> dict:
+    """{kernel: {tag: per-step sums}} of phase 2's timed fp32 rows:
+    kernel, plain and library ms, the bound and what sets most of it,
+    each logged."""
+    out = {}
+    for r in rows32:
+        out.setdefault(r["kernel"], {}).setdefault(r["tag"], []).append(r)
+    for name, tags in out.items():
+        for tag, rs in tags.items():
+            step = lambda k: sum(r[k] * r["per_step"] for r in rs)
+            bound = step("bound_ms")
+            ops = sum(r["bound_ms"] * r["per_step"] for r in rs
+                      if r["bound_by"] == "operations")
+            lib = None if rs[0]["library_ms"] is None else step("library_ms")
+            tags[tag] = d = dict(
+                ms=step("ms"), plain_ms=step("plain_ms"), library_ms=lib,
+                bound_ms=bound, bound_by="operations" if ops > bound / 2 else "bytes",
+                max_abs_err=max(r["max_abs_err"] for r in rs))
+            lib_s = "" if lib is None else f", library {lib:.4f} ms"
+            log(f"{name} {tag} fp32 per step: kernel {d['ms']:.4f} ms, plain "
+                f"{d['plain_ms']:.4f} ms{lib_s}, bound {bound:.5f} ms ({d['bound_by']}; "
+                f"bound/kernel {bound / d['ms']:.4f}), max abs err {d['max_abs_err']:.3e}")
+    return out
 
 
 def ffn_bwd_boundary_plain(kernel, plain, args, got, label: str, dtype) -> tuple:
@@ -912,10 +999,10 @@ def check_vq_ties(dev) -> None:
 def check_block_core_grads(dev, calls) -> None:
     """block_core's gradients through the card path (the composed
     backward with the ffn_block_bwd kernel) against autograd through its
-    plain version on the card at the B=1 body shapes: fp32 (the FMA
-    chain forward) within BWD_REL[fp32], and bf16 (the tensor-core
-    forward) within BWD_REL[bf16], each of max abs err over max(max
-    |plain|, 1)."""
+    plain version on the card at the B=1 body shapes: fp32 (the forward
+    as three TF32 passes on the tensor cores) within BWD_REL[fp32], and
+    bf16 (bf16 tensor cores) within BWD_REL[bf16], each of max abs err
+    over max(max |plain|, 1)."""
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels.workloads import (
         BWD_REL,
@@ -4249,7 +4336,13 @@ def sample_cli_512(dev) -> dict:
     with open(os.path.join(work, "out", "0.png"), "rb") as f:
         img = png_pixels(f.read())
     require(img.shape == (CLI_SIZE, CLI_SIZE, 3), ("sample_ldm CLI image", img.shape))
-    return dict(launches=counts, seconds=secs)
+    # one more call under the profiler: the card's busy time in it (the
+    # seeded weights, 20 UNet calls, the decoder)
+    prof = profile_fn(lambda: in_dir(work, lambda: sample_ldm.main(["-n", "1", "-o", "out"])))
+    log(f"sample_ldm CLI at its defaults: device busy {prof['device_busy_ms']:.3f} ms "
+        f"(profiled wall {prof['wall_ms']:.1f} ms); {card_line()}")
+    return dict(launches=counts, seconds=secs, device_busy_ms=prof["device_busy_ms"],
+                profile=prof)
 
 
 def train_cli_512(dev) -> dict:

@@ -1,14 +1,16 @@
 """Where one kernel call's device time goes, on the card: a torch.profiler
-trace of one bf16 call of each kernel wrapper at each of its path shapes,
-listing the device kernels of the call's launch chain with their times.
-A redesign of a kernel starts from this trace.
+trace of one call (bf16, or --dtype float32) of each kernel wrapper at
+each of its path shapes, listing the device kernels of the call's launch
+chain with their times. A redesign of a kernel starts from this trace.
 
     python -m ldm_image_generator_tpu_torch.cli.trace_kernels \
-        [--kernels ffn_block_bwd ffn_block ...] [--out FILE]
+        [--kernels ffn_block_bwd ffn_block ...] [--dtype float32] \
+        [--latent 64] [--out FILE]
 
 The shapes are those of `kernels.workloads`: the batch-1 and batch-4
 sampling paths (tags b1, b4), the B=8 train step (tag train) and the VAE
-train step (tag vae_train); every kernel by default. Each call is warmed
+train step (tag vae_train), on 32x32 latents (256px) or with --latent 64
+on the 512px paths' (tags b1-64, ...); every kernel by default. Each call is warmed
 up once, then traced once (the L2 holds what the warm-up left there).
 Prints, per call, one line per device kernel (name, device us, launches)
 and the call's total device time; with --out, the same as JSON.
@@ -44,10 +46,12 @@ KERNELS = {
 }
 
 
-def calls_of(names) -> list:
+def calls_of(names, latent: int = 32) -> list:
     """(tag, call) for every path shape of the named kernels."""
-    tagged = ([("b1", c) for c in path_calls(1)] + [("b4", c) for c in path_calls(4)]
-              + [("train", c) for c in train_calls(8)]
+    sfx = "" if latent == 32 else f"-{latent}"
+    tagged = ([("b1" + sfx, c) for c in path_calls(1, latent=latent)]
+              + [("b4" + sfx, c) for c in path_calls(4, latent=latent)]
+              + [("train" + sfx, c) for c in train_calls(8, latent=latent)]
               + [("vae_train", c) for c in vae_train_calls()])
     return [(t, c) for t, c in tagged if c.kernel in names]
 
@@ -73,8 +77,11 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", nargs="+", default=sorted(KERNELS),
                     choices=sorted(KERNELS))
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--latent", type=int, default=32, choices=[32, 64])
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         print("trace_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -83,8 +90,8 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     print(torch.cuda.get_device_name(0), flush=True)
     records = []
-    for tag, call in calls_of(args.kernels):
-        inputs = make_inputs(call, torch.bfloat16, dev, gen)
+    for tag, call in calls_of(args.kernels, args.latent):
+        inputs = make_inputs(call, dtype, dev, gen)
         if call.kernel.startswith("window_mha"):
             inputs += (call.heads,)
         rows = trace_call(KERNELS[call.kernel], inputs)
@@ -99,7 +106,7 @@ def main(argv) -> int:
                                    for us, n, name in rows]))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=torch.cuda.get_device_name(0), dtype="bf16",
+            json.dump(dict(card=torch.cuda.get_device_name(0), dtype=args.dtype,
                            calls=records), f, indent=1)
     return 0
 

@@ -117,9 +117,9 @@ _SIGNATURES = {
     "block_core": {
         "block_core_forward": ([_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P, _P, _P]
                                + [_I] * 6 + [_P] * 6, _I),
-        "block_core_scratch_floats": ([_I] * 4, _LL),
+        "block_core_scratch_floats": ([_I] * 5, _LL),
         "block_core_smem_bytes": ([_I] * 6, _LL),
-        "ffn_tensor_cores": ([_I] * 4, _I),
+        "block_core_tensor_cores": ([_I] * 5, _I),
         "ffn_counter_ints": ([], _LL),
     },
     "ffn_block": {
@@ -139,6 +139,7 @@ _SIGNATURES = {
     },
     "window_attention": {
         "window_mha_tensor_cores": ([_I] * 4, _I),
+        "window_mha_bwd_tensor_cores": ([_I] * 4, _I),
         "window_mha_forward": ([_I] + [_P] * 10 + [_I] * 4 + [_P] * 6, _I),
         "window_mha_smem_bytes": ([_I] * 4, _LL),
         "window_mha_scratch_floats": ([_I] * 5, _LL),

@@ -14,18 +14,20 @@ residual summed in fp32 before the one final rounding.
 On the H100 (csrc/block_core.cu): at batch 1 the call is bound by bytes,
 the 9 C x C FFN weight matrices it streams (the conv weights are 9 * 32
 * C values). The TPU kernel held whole images or row bands with a halo
-in 16 MB of VMEM. Here bfloat16 at the widths ``ffn_tensor_cores`` takes
+in 16 MB of VMEM. Here bfloat16 at the widths ``block_core_tensor_cores`` takes
 (C a multiple of 64 up to 1024: every UNet shape; the route depends on
 dtype and shape alone) runs ffn_block's three tensor-core launches
 (csrc/ffn_tc_fwd.cuh): the output product's k-loop runs on over 9 more
 k-tiles, one per conv tap, each a product of h shifted by the tap (zero
 rows outside the image) with that tap's weights, each warp's 32 output
 columns being one conv group; the conv bias and the residual join the
-output biases in its epilogue, so out is written once. float32, and
-bfloat16 at other widths, keep the FMA chain of ffn_block (TF32 would
-break the fp32 gates), whose last pass takes one image row and one
-32-channel group per block with the row's 3 x (W + 2) x 32 window of h
-and the group's taps in shared memory.
+output biases in its epilogue, so out is written once. float32 with
+float32 FFN weights runs the same three launches on the tensor cores as
+three TF32 passes per product, fp32 accurate (csrc/ffn_tf32_fwd.cuh,
+``block_core_tensor_cores``). bfloat16 at other widths, and int8 weights
+at float32, keep the FMA chain of ffn_block, whose last pass takes one
+image row and one 32-channel group per block with the row's 3 x (W + 2)
+x 32 window of h and the group's taps in shared memory.
 
 int8 FFN weights (``block_core_pallas(..., quantized=True)``; see
 ffn_block.py): the same routes with the weights read as int8 and each
@@ -122,12 +124,13 @@ def _block_core_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc,
     if lib.block_core_smem_bytes(code, int(q), n, c, m, ww) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"map width {ww} exceeds the conv pass's shared "
                          "memory")
-    _check_chunk_aligned(lib, code, n, c, m, x, film_mul, film_bias, gwa, gwb,
-                         gwc, wa, wb, wc, conv_kernel)
+    _check_chunk_aligned(lib.block_core_tensor_cores(code, int(q), n, c, m), x,
+                         film_mul, film_bias, gwa, gwb, gwc, wa, wb, wc,
+                         conv_kernel)
     out = torch.empty_like(x)
     h = torch.empty_like(x)
     g = torch.empty((3, n, m), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(lib.block_core_scratch_floats(code, n, c, m),
+    scratch = torch.empty(lib.block_core_scratch_floats(code, int(q), n, c, m),
                           dtype=torch.float32, device=x.device)
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, conv_kernel,
                          conv_bias, expert_ids, out, h, g, scratch,

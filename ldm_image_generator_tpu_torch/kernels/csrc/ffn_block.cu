@@ -18,7 +18,9 @@
 // three launches' latency, not bytes or FLOP, sets a call's time
 // (PERF.md).
 // float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
-// ffn_common.cuh on purpose: TF32 would break the fp32 gates.
+// ffn_common.cuh. A float32 route on the tensor cores would hold the fp32
+// gates as three TF32 passes, as block_core's does (ffn_tf32_fwd.cuh); it
+// is queued (ROADMAP A0).
 //
 // int8 weights (wq = 1; ffn_block_pallas(quantized=True)): the same
 // launches and plans on either route (ffn_tc_fwd.cuh, ffn_common.cuh).

@@ -34,8 +34,9 @@
 //      blocks run more k-tiles is scheduled first.
 // Splits meet in split_fixup in a fixed order: reruns are bitwise equal.
 //
-// float32, and bfloat16 at other widths, keep the CUDA-core FMA chain on
-// purpose (TF32 would break the fp32 gates): gate_grad_kernel (the two
+// float32, and bfloat16 at other widths, keep the CUDA-core FMA chain (a
+// float32 route of three TF32 passes, as block_core's forward, is queued:
+// ROADMAP A0): gate_grad_kernel (the two
 // recompute products and dg in one block, da/db/gate to scratch in T), the
 // weight gradients as atb products over the N rows (split over blocks,
 // partials added in a second pass; the bias gradients are the ones-row of

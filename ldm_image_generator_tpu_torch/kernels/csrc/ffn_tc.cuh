@@ -52,7 +52,8 @@ constexpr int GATE_F = GateG::MI * GateG::NI * 4 * THREADS;   // ... of a gate t
 // the SM count (only tiles with fewer blocks than two per SM split)
 constexpr int kCounters = 4096;
 
-// 8-element chunks of a row each lane of norm_film_rows_kernel holds
+// 16-byte chunks of a bf16 row (8 elements) each lane of
+// norm_film_rows_kernel holds (of an fp32 row, twice as many)
 constexpr int kNormChunks = 4;
 
 // The shapes the route takes: C and M multiples of 64, C <= 1024 (every
@@ -63,54 +64,54 @@ __host__ __device__ inline bool takes(int N, int C, int M) {
 }
 
 // h = T(channel_norm(x) * mul + bias) as norm_film_kernel computes it, for
-// the shapes takes() accepts: one warp per row holds the row in registers
-// (16-byte loads, one pass over x), so a row costs a few load latencies,
-// not C / 32 dependent ones. A programmatic dependent launch after it may
-// start at once. 256 threads a block.
+// the shapes takes() accepts (T bf16, or float for block_core's fp32
+// route): one warp per row holds the row in registers (16-byte loads, one
+// pass over x), so a row costs a few load latencies, not C / 32 dependent
+// ones. A programmatic dependent launch after it may start at once. 256
+// threads a block.
+template <typename T>
 __global__ void __launch_bounds__(256)
-norm_film_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ mul,
-                      const bf16* __restrict__ bias, int rows, int C, int film_rows, float eps,
-                      bf16* __restrict__ h) {
+norm_film_rows_kernel(const T* __restrict__ x, const T* __restrict__ mul,
+                      const T* __restrict__ bias, int rows, int C, int film_rows, float eps,
+                      T* __restrict__ h) {
+  // elements of a 16-byte chunk, and chunks a lane holds
+  constexpr int E = 16 / sizeof(T), U = kNormChunks * 8 / E;
   tc::griddep_launch();
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const int chunks = C / 8;
-  float v[kNormChunks][8];
+  const int chunks = C / E;
+  float v[U][E];
   float s = 0.f;
 #pragma unroll
-  for (int u = 0; u < kNormChunks; ++u) {
-    const int c = 8 * (lane + 32 * u);
+  for (int u = 0; u < U; ++u) {
+    const int c = E * (lane + 32 * u);
     if (c >= C) continue;
     const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)row * C + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) s += v[u][k] = to_f(e[k]);
+    for (int k = 0; k < E; ++k) s += v[u][k] = to_f(e[k]);
   }
   const float mean = warp_sum(s) / C;
   float q = 0.f;
 #pragma unroll
-  for (int u = 0; u < kNormChunks; ++u) {
+  for (int u = 0; u < U; ++u) {
     if (lane + 32 * u >= chunks) continue;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) q += (v[u][k] - mean) * (v[u][k] - mean);
+    for (int k = 0; k < E; ++k) q += (v[u][k] - mean) * (v[u][k] - mean);
   }
   const float rs = rsqrtf(warp_sum(q) / (C - 1) + eps);
   const size_t fr = (size_t)(row % film_rows) * C;
 #pragma unroll
-  for (int u = 0; u < kNormChunks; ++u) {
-    const int c = 8 * (lane + 32 * u);
+  for (int u = 0; u < U; ++u) {
+    const int c = E * (lane + 32 * u);
     if (c >= C) continue;
     const uint4 mr = *reinterpret_cast<const uint4*>(mul + fr + c);
     const uint4 br = *reinterpret_cast<const uint4*>(bias + fr + c);
-    const bf16 *m = reinterpret_cast<const bf16*>(&mr), *b = reinterpret_cast<const bf16*>(&br);
+    const T *m = reinterpret_cast<const T*>(&mr), *b = reinterpret_cast<const T*>(&br);
     uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+    T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float h0 = (v[u][2 * k] - mean) * rs * to_f(m[2 * k]) + to_f(b[2 * k]);
-      const float h1 = (v[u][2 * k + 1] - mean) * rs * to_f(m[2 * k + 1]) + to_f(b[2 * k + 1]);
-      o[k] = tc::pack_bf16(h0, h1);
-    }
+    for (int k = 0; k < E; ++k) o[k] = from_f<T>((v[u][k] - mean) * rs * to_f(m[k]) + to_f(b[k]));
     *reinterpret_cast<uint4*>(h + (size_t)row * C + c) = out;
   }
 }
@@ -268,10 +269,11 @@ __device__ __forceinline__ void for_gate_pairs(int mb, int nbh, F f) {
 }  // namespace ftc
 }  // namespace ldm
 
-// The route of a call (both directions): bfloat16 at widths the
-// tensor-core kernels take (every UNet shape) runs on them; float32, and
-// bfloat16 at any other width, on the FMA chain. It depends on the shape
-// alone.
+// The route of an ffn_block call (both directions): bfloat16 at widths
+// the tensor-core kernels take (every UNet shape) runs on them; float32,
+// and bfloat16 at any other width, on the FMA chain (block_core, whose
+// float32 forward runs as three TF32 passes, has block_core_tensor_cores).
+// It depends on the dtype and the shape alone.
 extern "C" int ffn_tensor_cores(int dtype, int N, int C, int M) {
   return dtype == 1 && ldm::ftc::takes(N, C, M);
 }

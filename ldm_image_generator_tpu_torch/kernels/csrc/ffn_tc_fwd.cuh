@@ -43,7 +43,7 @@ struct FwdArgs {
   float *gate_part, *out_part;      // fp32 split partials
   int *gate_counters, *out_counters;
   ConvArgs conv;                    // CONV: taps [3, 3, 32, C], bias [C], map H x W
-  const bf16* residual;             // CONV: x, or null
+  const void* residual;             // CONV: x, or null
 };
 
 using OutTile = Gemm<64, 64, 2, 2, 4>;
@@ -305,7 +305,8 @@ __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
     v0 += bias.at(0, col - nb);
     v1 += bias.at(0, col - nb + 1);
     if (CONV && a.residual != nullptr) {
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(a.residual + (size_t)row * C + col);
+      const __nv_bfloat162 x =
+          *reinterpret_cast<const __nv_bfloat162*>((const bf16*)a.residual + (size_t)row * C + col);
       v0 += __low2float(x);
       v1 += __high2float(x);
     }
@@ -363,7 +364,7 @@ inline int forward(const FfnArgs& f, const ConvArgs& conv, const void* residual,
   const bool with_conv = conv.kernel != nullptr;
   const FwdPlan p = fwd_plan(f.N, f.C, f.M, with_conv);
   if (p.counters > kCounters) return (int)cudaErrorInvalidValue;
-  norm_film_rows_kernel<<<(f.N * 32 + 255) / 256, 256, 0, st>>>(
+  norm_film_rows_kernel<bf16><<<(f.N * 32 + 255) / 256, 256, 0, st>>>(
       (const bf16*)f.x, (const bf16*)f.mul, (const bf16*)f.bias, f.N, f.C, f.film_rows, 1e-4f,
       (bf16*)f.h);
   const FwdArgs a{f,
@@ -374,7 +375,7 @@ inline int forward(const FfnArgs& f, const ConvArgs& conv, const void* residual,
                   counters,
                   counters + (p.gate.splits > 1 ? p.gate_tiles : 0),
                   conv,
-                  (const bf16*)residual};
+                  residual};
   const dim3 gate_grid(f.M / HN, p.rt, 3 * p.gate.splits);
   cudaError_t e =
       p.gate.per <= 2

@@ -38,17 +38,19 @@
 //   It takes d = 32 (every head of the UNet) and L <= 64 (windows up to
 //   8 x 8); other bfloat16 shapes take the FMA route below, by shape.
 //
-// float32 keeps the CUDA-core FMA tiles of common.cuh and grad_common.cuh
-// on purpose: TF32 tensor cores would round the operands to 10 mantissa
-// bits and break the fp32 gates (kernel against plain at 1e-4, the card
-// against the CPU). That route is three launches forward (qkv
-// projection, one block per (window, head) holding q, k, v and the
+// float32's forward runs on the tensor cores too (namespace wtf): the
+// same two launches, every product as three TF32 passes over fp32 tiles
+// (tf32_common.cuh), fp32 accurate, the softmax in fp32 on the CUDA cores.
+// The float32 backward, and both types at other shapes, keep the CUDA-core
+// FMA tiles of common.cuh and grad_common.cuh: three launches forward
+// (qkv projection, one block per (window, head) holding q, k, v and the
 // scores in fp32 shared memory, output projection; k split over blocks
 // with a summing pass at few rows) and the backward chain of
 // window_mha_bwd below.
 #include "common.cuh"
 #include "grad_common.cuh"
 #include "mma_common.cuh"
+#include "tf32_common.cuh"
 
 #include <cooperative_groups.h>
 
@@ -433,7 +435,8 @@ struct HeadArgs {
 // ballot happens where the bits are needed.
 struct KeyPad {
   bool lo, hi;
-  __device__ __forceinline__ KeyPad(const HeadArgs& a, int n) {
+  template <class Args>
+  __device__ __forceinline__ KeyPad(const Args& a, int n) {
     const int lane = threadIdx.x & 31;
     const uint8_t* m = a.mask ? a.mask + (size_t)n * a.L : nullptr;
     lo = m != nullptr && lane < a.L && m[lane];
@@ -552,29 +555,12 @@ __device__ __forceinline__ bool project_head(const HeadArgs& a, int n, int head,
   return rank == 0;
 }
 
-// Probabilities of query rows [16 w, 16 w + 16) against the 16 mt keys:
-// softmax(q k^T * scale + mask) in fp32 in this warp's accumulator
-// layout (p[j]: keys 8 j..), exactly 0 at keys >= L.
-__device__ __forceinline__ void softmax_rows(float (&p)[8][4], const bf16* qs, const bf16* ks,
-                                             uint64_t padded, int L, int mt, float scale, int w) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    uint32_t a[4];
-    tc::frag_a<false>(a, qs, LDH, 16 * w, k0);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      if (jj >= mt) continue;
-      uint32_t b[4];
-      tc::frag_b2<true>(b, ks, LDH, k0, 16 * jj);
-      tc::mma16816(p[2 * jj], a, b[0], b[1]);
-      tc::mma16816(p[2 * jj + 1], a, b[2], b[3]);
-    }
-  }
+// The scores p (q k^T of a warp's 16 query rows against the 16 mt keys,
+// in the accumulator layout) in place as softmax(p * scale + mask) in
+// fp32, exactly 0 at keys >= L.
+__device__ __forceinline__ void softmax_scores(float (&p)[8][4], uint64_t padded, int L, int mt,
+                                               float scale) {
+  const int t = threadIdx.x & 3;
   const float ninf = __int_as_float((int)0xff800000);
   float mx[2] = {ninf, ninf};
 #pragma unroll
@@ -616,6 +602,31 @@ __device__ __forceinline__ void softmax_rows(float (&p)[8][4], const bf16* qs, c
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) p[j][e] *= inv[e >> 1];
+}
+
+// Probabilities of query rows [16 w, 16 w + 16) against the 16 mt keys:
+// softmax(q k^T * scale + mask) in fp32 in this warp's accumulator
+// layout (p[j]: keys 8 j..), exactly 0 at keys >= L.
+__device__ __forceinline__ void softmax_rows(float (&p)[8][4], const bf16* qs, const bf16* ks,
+                                             uint64_t padded, int L, int mt, float scale, int w) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    uint32_t a[4];
+    tc::frag_a<false>(a, qs, LDH, 16 * w, k0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (jj >= mt) continue;
+      uint32_t b[4];
+      tc::frag_b2<true>(b, ks, LDH, k0, 16 * jj);
+      tc::mma16816(p[2 * jj], a, b[0], b[1]);
+      tc::mma16816(p[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+  softmax_scores(p, padded, L, mt, scale);
 }
 
 // T(p) as A fragments: key block kk is p[2 kk] and p[2 kk + 1].
@@ -1081,17 +1092,292 @@ inline int backward(const void* x, const uint8_t* mask, const void* g, const voi
 
 }  // namespace wtc
 
+// ---------------------------------------------------------------------
+// float32 forward on the tensor cores (three TF32 passes,
+// tf32_common.cuh): wtc's two launches with fp32 operands, the products
+// fp32 accurate. The softmax stays fp32 on the CUDA cores, and the
+// probabilities stay in registers: the product P v takes each 8-key block
+// of P with its keys in the order 0 2 4 6 1 3 5 7 (the fragment's column
+// t is key 2t, column t + 4 key 2t + 1), so a thread's accumulator
+// elements are its A fragment, and v's rows are read in the same order.
+// The projections stream 32-deep k-tiles (128 bytes a row, as bf16's 64)
+// through a ring of 3: 22 KB a stage (14 KB for a cluster rank's one
+// segment), 66 KB alone, 69 KB with a cluster's q, k, v, so three CTAs
+// fit on an SM either way (bf16's 3 stages are 42 KB). The output
+// projection is wtc's, with fp32 tiles (GemmF32) and the same plan,
+// scratch and counters.
+// ---------------------------------------------------------------------
+namespace wtf {
+
+using wtc::D;
+using wtc::LMAX;
+using tc::THREADS;
+constexpr int KB = 32;      // k-tile depth of the q, k, v projections
+constexpr int STAGES = 3;
+// shared-memory leading dimensions (floats): A rows 4 mod 32, B rows 8
+constexpr int LDX = KB + 4;       // token tile [LMAX][KB]
+constexpr int LDH = D + 4;        // q, k, v [LMAX][d] (v read at rows 2t, 2t + 1: 8 t + 4 + g)
+constexpr int X_EL = LMAX * LDX;
+// a stage of the projection of NSEG segments: the token tile, then the
+// weight tile [KB][NSEG d + 8]
+template <int NSEG>
+__host__ __device__ constexpr int stage_el() { return X_EL + KB * (NSEG * D + 8); }
+constexpr int RING_EL = STAGES * stage_el<3>();   // a CTA alone
+constexpr int RING1_EL = STAGES * stage_el<1>();  // a cluster rank
+constexpr int HEAD_EL = LMAX * LDH;
+constexpr size_t FWD_SMEM = 4 * (size_t)(RING_EL > 3 * HEAD_EL ? RING_EL : 3 * HEAD_EL);
+constexpr size_t FWD_SMEM_CLUSTER = 4 * ((size_t)RING1_EL + 3 * HEAD_EL);
+static_assert(LDX % 32 == 4 && LDH % 16 == 4, "conflict-free fragment loads");
+
+struct HeadArgs {
+  const float* x;       // [N, L, C]
+  const uint8_t* mask;  // [N, L] (1 = padded key) or null
+  const float* w[3];    // wq, wk, wv [C, C] ([in, out])
+  const float* b[3];    // bq, bk, bv
+  int L, C;
+  int cs;               // CTAs of a cluster splitting one head's projections
+  float scale;
+  float* o;             // [N, L, C]
+};
+
+// wtc::project_qkv in fp32: NSEG of the head's q, k, v column segments
+// (from `first` on) of window n, x_n @ w[:, cols] + b, rows >= L zero,
+// into dst[segment] ([LMAX][LDH]). Warp w owns columns [8 NSEG w, 8 NSEG
+// (w + 1)) and every 16-row tile of the window.
+template <int NSEG>
+__device__ __forceinline__ void project_qkv(const HeadArgs& a, int n, int head, int mt,
+                                            float* ring, int first, float* const (&dst)[3]) {
+  constexpr int COLS = NSEG * D, LD = COLS + 8, SE = stage_el<NSEG>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = a.L, C = a.C, col0 = head * D;
+  const float* xw = a.x + (size_t)n * L * C;
+  float acc[4][NSEG][4];
+  tc::zero<4, NSEG>(acc);
+  auto load = [&](int buf, int kt) {
+    float* xs = ring + buf * SE;
+    const int k0 = kt * KB;
+    tc::load_tile_f32<LMAX, KB, THREADS>(xs, LDX, 16 * mt, [&](int r, int c) -> const float* {
+      return r < L && k0 + c < C ? xw + (size_t)r * C + k0 + c : nullptr;
+    });
+    tc::load_tile_f32<KB, COLS, THREADS>(xs + X_EL, LD, KB, [&](int r, int c) -> const float* {
+      return k0 + r < C ? a.w[first + c / D] + (size_t)(k0 + r) * C + col0 + c % D : nullptr;
+    });
+  };
+  auto compute = [&](int buf) {
+    const float* xs = ring + buf * SE;
+    tc::warp_mma_f32<4, NSEG, false, true>(acc, xs, LDX, xs + X_EL, LD, 0, 8 * NSEG * warp, KB,
+                                           mt);
+  };
+  tc::pipeline<STAGES>((C + KB - 1) / KB, load, compute);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NSEG; ++j) {
+    const int col = 8 * NSEG * warp + 8 * j + 2 * t, seg = first + col / D, cc = col % D;
+    const float b0 = a.b[seg][col0 + cc], b1 = a.b[seg][col0 + cc + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= mt) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        const bool live = row < L;
+        tc::store2f(dst[seg] + row * LDH + cc, live ? acc[i][j][2 * h] + b0 : 0.f,
+                    live ? acc[i][j][2 * h + 1] + b1 : 0.f);
+      }
+    }
+  }
+}
+
+// wtc::project_head in fp32: q, k, v of (window n, head) into this CTA's
+// qs, ks, vs, by this CTA alone (a.cs == 1) or by a cluster of 3, rank r
+// storing segment r into rank 0's shared memory. True on the CTA that
+// goes on to the attention.
+__device__ __forceinline__ bool project_head(const HeadArgs& a, int n, int head, int mt,
+                                             float* ring, float* qs, float* ks, float* vs) {
+  if (a.cs == 1) {
+    float* const dst[3] = {qs, ks, vs};
+    project_qkv<3>(a, n, head, mt, ring, 0, dst);
+    return true;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  float* const dst[3] = {cl.map_shared_rank(qs, 0), cl.map_shared_rank(ks, 0),
+                         cl.map_shared_rank(vs, 0)};
+  project_qkv<1>(a, n, head, mt, ring, rank, dst);
+  cl.sync();  // every segment stored in rank 0
+  return rank == 0;
+}
+
+// Query rows [16 w, 16 w + 16): o = softmax(q k^T * scale + mask) v,
+// written to a.o at this head's columns for rows < L.
+__device__ __forceinline__ void attend(const HeadArgs& a, const float* qs, const float* ks,
+                                       const float* vs, uint64_t padded, int n, int head, int mt,
+                                       int w) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float p[8][4], acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[j][e] = acc[j % 4][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    tc::Frag<4> qa;
+    tc::frag_a_f32(qa, qs, LDH, 16 * w, k0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= 2 * mt) continue;
+      tc::Frag<2> kb;
+      tc::frag_b_f32<true>(kb, ks, LDH, k0, 8 * j);
+      tc::mma3(p[j], qa, kb);
+    }
+  }
+  wtc::softmax_scores(p, padded, a.L, mt, a.scale);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk >= 2 * mt) continue;
+    // columns t and t + 4 of the fragment are keys 2t and 2t + 1
+    tc::Frag<4> pa;
+    pa.set(0, p[kk][0]);
+    pa.set(1, p[kk][2]);
+    pa.set(2, p[kk][1]);
+    pa.set(3, p[kk][3]);
+    const float* v0 = vs + (8 * kk + 2 * t) * LDH + g;
+#pragma unroll
+    for (int jd = 0; jd < 4; ++jd) {
+      tc::Frag<2> vb;
+      vb.set(0, v0[8 * jd]);
+      vb.set(1, v0[LDH + 8 * jd]);
+      tc::mma3(acc[jd], pa, vb);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * w + g + 8 * h;
+    if (row >= a.L) continue;
+    float* dst = a.o + ((size_t)n * a.L + row) * a.C + head * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tc::store2f(dst + 8 * j, acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// grid (heads * a.cs, N) in clusters of a.cs CTAs; FWD_SMEM bytes of
+// dynamic shared memory alone, FWD_SMEM_CLUSTER in a cluster.
+__global__ void __launch_bounds__(THREADS) fwd_core_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* qs = a.cs == 1 ? ring : ring + RING1_EL;  // aliases the drained ring when alone
+  float *ks = qs + HEAD_EL, *vs = ks + HEAD_EL;
+  const int head = blockIdx.x / a.cs, n = blockIdx.y, mt = (a.L + 15) / 16;
+  const int warp = threadIdx.x >> 5;
+  tc::griddep_launch();  // the output projection may start streaming wo
+  const wtc::KeyPad pad(a, n);
+  if (!project_head(a, n, head, mt, ring, qs, ks, vs)) return;
+  __syncthreads();
+  const uint64_t padded = pad.bits();
+  if (warp >= mt) return;
+  attend(a, qs, ks, vs, padded, n, head, mt, warp);
+}
+
+using WideF = tc::GemmF32<64, 64, 2, 2, 3>;    // wtc::Wide's tile
+using NarrowF = tc::GemmF32<16, 32, 1, 4, 6>;  // wtc::Narrow's
+static_assert(WideF::BM == wtc::Wide::BM && WideF::BN == wtc::Wide::BN &&
+                  NarrowF::BM == wtc::Narrow::BM && NarrowF::BN == wtc::Narrow::BN,
+              "wtc::out_plan's tiles");
+
+struct OutArgs {
+  const float* o;   // [rows, C]
+  const float* wo;  // [C, C]
+  const float* bo;
+  float* out;
+  int rows, C, splits, per;
+  float* part;
+  int* counters;
+};
+
+// out = o @ wo + bo; grid (ceil(C / BN), ceil(rows / BM), splits).
+template <class G>
+__global__ void __launch_bounds__(THREADS) out_proj_kernel(OutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int mb = blockIdx.y * G::BM, nb = blockIdx.x * G::BN, s = blockIdx.z;
+  const int kt = (a.C + tc::BK - 1) / tc::BK, kt0 = s * a.per, kt1 = min(kt, kt0 + a.per);
+  const int C = a.C, rows = a.rows;
+  float acc[G::MI][G::NI][4];
+  tc::gemm_tile_f32<G>(
+      acc, reinterpret_cast<float*>(smem_raw), kt0, kt1,
+      [&](int r, int c, int k0) -> const float* {
+        return mb + r < rows && k0 + c < C ? a.o + (size_t)(mb + r) * C + k0 + c : nullptr;
+      },
+      [&](int r, int c, int k0) -> const float* {
+        return k0 + r < C && nb + c < C ? a.wo + (size_t)(k0 + r) * C + nb + c : nullptr;
+      },
+      [] { tc::griddep_wait(); });
+  if (a.splits > 1) {
+    float none[1];
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    const size_t per_split = (size_t)G::BM * G::BN;
+    if (!tc::split_fixup<THREADS, G::MI, G::NI, 0>(acc, none, a.part + tile * a.splits * per_split,
+                                                   a.splits, s, a.counters + tile))
+      return;
+  }
+  tc::for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+    if (row < rows && col < C)
+      tc::store2f(a.out + (size_t)row * C + col, v0 + a.bo[col], v1 + a.bo[col + 1]);
+  });
+}
+
+inline int forward(const void* x, const uint8_t* mask, const void* wq, const void* bq,
+                   const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
+                   const void* bo, int N, int L, int C, int heads, void* o, void* out,
+                   float* scratch, int* counters, cudaStream_t st) {
+  if (!wtc::takes(L, C / heads) || C % heads) return (int)cudaErrorInvalidValue;
+  HeadArgs h{};
+  h.x = (const float*)x;
+  h.mask = mask;
+  h.w[0] = (const float*)wq; h.w[1] = (const float*)wk; h.w[2] = (const float*)wv;
+  h.b[0] = (const float*)bq; h.b[1] = (const float*)bk; h.b[2] = (const float*)bv;
+  h.L = L; h.C = C;
+  h.scale = 1.0f / sqrtf((float)(C / heads));
+  h.o = (float*)o;
+  h.cs = wtc::cluster_size(heads * N);
+  cudaError_t e = tc::launch(fwd_core_kernel, dim3(heads * h.cs, N),
+                             h.cs == 1 ? FWD_SMEM : FWD_SMEM_CLUSTER, st, wtc::cluster_of(h.cs), h);
+  if (e != cudaSuccess) return (int)e;
+  const wtc::OutPlan p = wtc::out_plan(N * L, C);
+  if (p.splits > 1 && p.tiles > wtc::kCounters) return (int)cudaErrorInvalidValue;
+  const OutArgs oa{(const float*)o, (const float*)wo, (const float*)bo, (float*)out, N * L, C,
+                   p.splits, p.per, scratch, counters};
+  e = p.narrow ? tc::launch(out_proj_kernel<NarrowF>, p.grid, NarrowF::smem_bytes, st,
+                            tc::after_previous(), oa)
+               : tc::launch(out_proj_kernel<WideF>, p.grid, WideF::smem_bytes, st,
+                            tc::after_previous(), oa);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace wtf
+
 }  // namespace ldm
 
-// The route of a call: bfloat16 at head dim 32 and L <= 64 (every shape
-// of the UNet) runs on the tensor cores; float32, and bfloat16 at any
-// other shape, on the FMA tiles. It depends on the shape alone.
+// The routes of a call, by dtype and shape alone. At head dim 32 and L
+// <= 64 (every shape of the UNet) the forward runs on the tensor cores in
+// bfloat16 and in float32 (three TF32 passes); the backward in bfloat16
+// only. Other shapes, and the float32 backward, take the FMA tiles.
+static bool tc_shape(int L, int C, int heads) {
+  return heads > 0 && C % heads == 0 && ldm::wtc::takes(L, C / heads);
+}
 static bool on_tensor_cores(int dtype, int L, int C, int heads) {
-  return dtype == 1 && heads > 0 && C % heads == 0 && ldm::wtc::takes(L, C / heads);
+  return (dtype == 0 || dtype == 1) && tc_shape(L, C, heads);
+}
+static bool bwd_on_tensor_cores(int dtype, int L, int C, int heads) {
+  return dtype == 1 && tc_shape(L, C, heads);
 }
 
 extern "C" int window_mha_tensor_cores(int dtype, int L, int C, int heads) {
   return on_tensor_cores(dtype, L, C, heads);
+}
+
+extern "C" int window_mha_bwd_tensor_cores(int dtype, int L, int C, int heads) {
+  return bwd_on_tensor_cores(dtype, L, C, heads);
 }
 
 extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, const void* wq,
@@ -1103,8 +1389,10 @@ extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (on_tensor_cores(dtype, L, C, heads))
-    return ldm::wtc::forward(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads, o, out,
-                             (float*)scratch, (int*)counters, st);
+    return dtype == 0 ? ldm::wtf::forward(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads,
+                                          o, out, (float*)scratch, (int*)counters, st)
+                      : ldm::wtc::forward(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads,
+                                          o, out, (float*)scratch, (int*)counters, st);
   if (dtype == 0)
     return ldm::window_mha<float>(x, m, wq, bq, wk, bk, wv, bv, wo, bo, N, L, C, heads, qkv, o,
                                   out, (float*)scratch, st);
@@ -1116,7 +1404,8 @@ extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, co
 
 // Shared memory one attention block needs, for the wrapper's check.
 extern "C" long long window_mha_smem_bytes(int dtype, int L, int C, int heads) {
-  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::FWD_SMEM_CLUSTER;
+  if (on_tensor_cores(dtype, L, C, heads))
+    return (long long)(dtype == 0 ? ldm::wtf::FWD_SMEM_CLUSTER : ldm::wtc::FWD_SMEM_CLUSTER);
   return (long long)ldm::attn_smem_bytes(L, C / heads);
 }
 
@@ -1140,7 +1429,7 @@ extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, c
                                    void* scratch, void* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (on_tensor_cores(dtype, L, C, heads))
+  if (bwd_on_tensor_cores(dtype, L, C, heads))
     return ldm::wtc::backward(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx, o, dqkv,
                               (float*)grads, (float*)scratch, (int*)counters, st);
   if (dtype == 0)
@@ -1155,12 +1444,13 @@ extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, c
 
 // Shared memory one backward attention block needs, for the wrapper's check.
 extern "C" long long window_mha_bwd_smem_bytes(int dtype, int L, int C, int heads) {
-  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::BWD_SMEM;
+  if (bwd_on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::BWD_SMEM;
   return (long long)ldm::attn_bwd_smem_bytes(L, C / heads);
 }
 
 // fp32 scratch (split partial sums) one backward call needs.
 extern "C" long long window_mha_bwd_scratch_floats(int dtype, int N, int L, int C, int heads) {
-  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::tail_plan(N * L, C).floats;
+  if (bwd_on_tensor_cores(dtype, L, C, heads))
+    return (long long)ldm::wtc::tail_plan(N * L, C).floats;
   return (long long)ldm::attn_bwd_scratch_floats(N, L, C);
 }

@@ -27,9 +27,10 @@ epilogue;
 k is split over blocks where the grid has fewer than two blocks per SM,
 the splits summed in a fixed order by the last block of each tile.
 float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
-csrc/ffn_common.cuh on purpose (TF32 would break the fp32 gates): it
-splits k until the card has about four blocks per SM and sums the fp32
-partials in an elementwise pass. h, the gate g and the partials live
+csrc/ffn_common.cuh (a float32 tensor-core route, three TF32 passes as
+block_core's, is queued: ROADMAP A0): it splits k until the card has
+about four blocks per SM and sums the fp32 partials in an elementwise
+pass. h, the gate g and the partials live
 in scratch this wrapper allocates. Film rows repeat with period
 film_mul.shape[0], so the batch-1 FiLM schedule needs no broadcast copy.
 
@@ -93,12 +94,12 @@ def _split_counters(lib, device) -> torch.Tensor:
     return t
 
 
-def _check_chunk_aligned(lib, code, n, c, m, *tensors) -> None:
-    """The tensor-core route reads these tensors (activations and weight
+def _check_chunk_aligned(tensor_cores: bool, *tensors) -> None:
+    """A tensor-core route reads these tensors (activations and weight
     matrices) in 16-byte chunks: each must start on a 16-byte boundary.
     Biases and the expert ids are read element by element."""
-    if lib.ffn_tensor_cores(code, n, c, m) and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bf16 tensor-core FFN kernels take activations "
+    if tensor_cores and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the tensor-core FFN kernels take activations "
                          "and weight matrices that start on 16-byte boundaries")
 
 
@@ -274,8 +275,8 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
     lib = _build.load("ffn_block")
     scratch = torch.empty(lib.ffn_block_scratch_floats(code, n, c, m),
                           dtype=torch.float32, device=x.device)
-    _check_chunk_aligned(lib, code, n, c, m, x, film_mul, film_bias, gwa, gwb,
-                         gwc, wa, wb, wc)
+    _check_chunk_aligned(lib.ffn_tensor_cores(code, n, c, m), x, film_mul,
+                         film_bias, gwa, gwb, gwc, wa, wb, wc)
     p = _build.cuda_ptrs(x, film_mul, film_bias, *weights, expert_ids, out,
                          h, g, scratch, _split_counters(lib, x.device))
     rc = lib.ffn_block_forward(
@@ -354,7 +355,8 @@ def ffn_block_bwd(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
     dgate = torch.empty((9, n, m), dtype=h.dtype, device=h.device)
     grads = torch.empty(lib.ffn_bwd_grad_floats(c, m), **f32)
     scratch = torch.empty(lib.ffn_bwd_scratch_floats(code, n, c, m), **f32)
-    _check_chunk_aligned(lib, code, n, c, m, h, g, gwa, gwb, gwc, wa, wb, wc)
+    _check_chunk_aligned(lib.ffn_tensor_cores(code, n, c, m), h, g, gwa, gwb,
+                         gwc, wa, wb, wc)
     p = _build.cuda_ptrs(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
                          expert_ids, dh, dgate, grads, scratch,
                          _split_counters(lib, h.device))

@@ -32,13 +32,16 @@ fp32 accumulators, csrc/mma_common.cuh) in two launches each way:
     the rows and summed in a fixed order, so reruns are bitwise equal.
   It takes head dim 32 and L <= 64 (every shape of the UNet); other
   bfloat16 shapes take the FMA path below, chosen by shape alone.
-float32 keeps the CUDA-core FMA path on purpose: TF32 tensor cores would
-break the fp32 gates (kernel vs plain at 1e-4, card vs CPU). It runs a
-qkv projection, one block per (window, head) holding q, k, v and the
-scores in fp32 shared memory, and the output projection (k split over
-blocks at few rows, with a summing pass); its backward recomputes qkv,
-dO, the per-head gradients, dx and the weight gradients in a chain of
-such passes. The TPU kernel's head folding is a Mosaic workaround and is
+float32's forward runs the same two launches on the tensor cores at the
+same shapes, each product as three TF32 passes (csrc/tf32_common.cuh),
+fp32 accurate: it holds the fp32 gates (kernel vs plain at 1e-4, card vs
+CPU); the softmax stays fp32 on the CUDA cores. The float32 backward, and
+both types at other shapes, keep the CUDA-core FMA path: a qkv
+projection, one block per (window, head) holding q, k, v and the scores
+in fp32 shared memory, and the output projection (k split over blocks at
+few rows, with a summing pass); the backward recomputes qkv, dO, the
+per-head gradients, dx and the weight gradients in a chain of such
+passes (``window_mha_bwd_tensor_cores`` is bf16 only). The TPU kernel's head folding is a Mosaic workaround and is
 not carried over. ``window_mha`` is an autograd Function around both
 directions; the JAX package kept C=1024 on its XLA VJP (a Mosaic
 limit), the port has no such cap.
@@ -127,7 +130,7 @@ def _window_mha_forward(x, mask, wq, bq, wk, bk, wv, bv, wo, bo,
     lib = _build.load("window_attention")
     _check_smem(lib.window_mha_smem_bytes(code, l, c, num_heads), l,
                 c // num_heads, "")
-    # qkv: the FMA route's projection output (the tensor-core route keeps
+    # qkv: the FMA route's projection output (the tensor-core routes keep
     # q, k, v of a head in shared memory)
     tc = lib.window_mha_tensor_cores(code, l, c, num_heads)
     qkv = torch.empty((0,) if tc else (n, l, 3 * c), dtype=x.dtype,
@@ -211,7 +214,7 @@ def window_mha_bwd(x, mask, g, wq, bq, wk, bk, wv, bv, wo, bo,
     like = dict(dtype=x.dtype, device=x.device)
     # qkv and dO: the FMA route's intermediates (the tensor-core route
     # keeps a head's q, k, v and dO in shared memory)
-    tc = lib.window_mha_tensor_cores(code, l, c, num_heads)
+    tc = lib.window_mha_bwd_tensor_cores(code, l, c, num_heads)
     dx = torch.empty_like(x)
     qkv = torch.empty((0,) if tc else (n, l, 3 * c), **like)
     o = torch.empty_like(x)

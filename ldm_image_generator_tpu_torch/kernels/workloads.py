@@ -29,6 +29,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 # product on this card. fp32: big*big, big*small, small*big; bf16 is
 # exact in TF32: x*big, x*small
 TF32_PASSES = {torch.float32: 3, torch.bfloat16: 2}
+# kernels whose float32 calls run their products on the tensor cores, as
+# TF32_PASSES[torch.float32] TF32 passes (block_core with full-precision
+# FFN weights, window MHA forward); every other float32 route runs on the
+# CUDA cores' FMA units at PEAK_FLOPS[torch.float32]
+TF32_KERNELS = ("block_core", "window_mha")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +209,8 @@ def work(call: Call, dtype: torch.dtype):
     it = torch.finfo(dtype).bits // 8
     if call.kernel != "vq":
         nbytes, flops = _block_work(call, it)
+        if dtype == torch.float32 and call.kernel in TF32_KERNELS:
+            return nbytes, {"tf32": TF32_PASSES[dtype] * flops}
         return nbytes, {dtype: flops}
     # x in, fp32 codebook in, int32 indices out; per (vector, code) a
     # D-term dot accurate to fp32, as TF32_PASSES[dtype] TF32 tensor-core

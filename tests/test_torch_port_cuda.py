@@ -292,16 +292,28 @@ def test_window_mha_writes_only_inside_its_buffers(card, monkeypatch, call, dire
 
 @pytest.mark.cuda
 def test_window_mha_route_depends_on_shape_alone(card):
-    """bf16 runs the tensor-core route at every window MHA shape of the
-    UNet (head dim 32, L <= 64) and the FMA route elsewhere; fp32 always
-    runs the FMA route."""
+    """The forward runs the tensor-core route at every window MHA shape of
+    the UNet (head dim 32, L <= 64) in bf16 and in fp32 (three TF32
+    passes), the FMA route elsewhere; the backward's tensor-core route
+    takes bf16 only."""
     lib = _build.load("window_attention")
     unet = [c for c in path_calls(1) + path_calls(4) + path_calls(8)
             if c.kernel == "window_mha"]
     for c in unet + MHA_EDGES:
-        tc = lib.window_mha_tensor_cores(1, c.l, c.c, c.heads)
-        assert tc == (c not in MHA_FMA_ONLY), c.label
-        assert lib.window_mha_tensor_cores(0, c.l, c.c, c.heads) == 0, c.label
+        tc = c not in MHA_FMA_ONLY
+        for code in (0, 1):
+            assert lib.window_mha_tensor_cores(code, c.l, c.c, c.heads) == tc, c.label
+        assert lib.window_mha_bwd_tensor_cores(1, c.l, c.c, c.heads) == tc, c.label
+        assert lib.window_mha_bwd_tensor_cores(0, c.l, c.c, c.heads) == 0, c.label
+    # the fp32 forward's launch chain: the two TF32 kernels, no FMA kernel
+    gen = torch.Generator(device=card).manual_seed(25)
+    call = path_calls(1)[1]
+    args = make_inputs(call, torch.float32, card, gen)
+    with torch.no_grad():
+        chain = _device_kernels(lambda: tattn.window_mha(*args, num_heads=call.heads))
+    assert sum(chain.values()) == 2, chain
+    assert all(any(name in k for k in chain)
+               for name in ("wtf::fwd_core_kernel", "wtf::out_proj_kernel")), chain
 
 
 def _ffn_call(direction, call, dtype, device, gen):
@@ -529,7 +541,7 @@ def test_block_core_tensor_cores_match_plain_rerun_bitwise_inside_their_buffers(
     between images read zeros, the conv bias and residual added once)."""
     lib = _build.load("block_core")
     n = call.batch * call.hw * call.hw
-    assert lib.ffn_tensor_cores(1, n, call.c, call.c) == 1
+    assert lib.block_core_tensor_cores(1, int(weights == "int8"), n, call.c, call.c) == 1
     kernel = "block_core_int8" if weights == "int8" else "block_core"
     gen = torch.Generator(device=card).manual_seed(17)
     args = make_inputs(dataclasses.replace(call, kernel=kernel), torch.bfloat16, card, gen)
@@ -629,19 +641,22 @@ def _device_kernels(fn) -> dict:
 @pytest.mark.cuda
 @pytest.mark.parametrize("weights", ["bf16", "int8"])
 def test_block_core_route_depends_on_shape_alone(card, weights):
-    """bf16 at a tensor-core width runs three launches (norm/FiLM, the
-    gate, the output product with the conv) and no finish_kernel; fp32,
-    and bf16 at C=96, run the FMA chain with its finish_kernel; each
-    matches the plain version."""
+    """bf16 at a tensor-core width, and fp32 with fp32 FFN weights, run
+    three launches (norm/FiLM, the gate, the output product with the
+    conv) and no finish_kernel; fp32 with int8 weights, and bf16 at C=96,
+    run the FMA chain with its finish_kernel; each matches the plain
+    version."""
     lib = _build.load("block_core")
     gen = torch.Generator(device=card).manual_seed(19)
     suffix = "_int8" if weights == "int8" else ""
     tc_call = Call("block_core" + suffix, 1, 8, 128, 1)
     fma_call = dataclasses.replace(BLOCK_CORE_FMA_ONLY, kernel="block_core" + suffix)
-    for call, dtype, tc in ((tc_call, torch.bfloat16, True), (tc_call, torch.float32, False),
+    for call, dtype, tc in ((tc_call, torch.bfloat16, True),
+                            (tc_call, torch.float32, weights == "bf16"),
                             (fma_call, torch.bfloat16, False)):
         n = call.batch * call.hw * call.hw
-        assert lib.ffn_tensor_cores(_build.DTYPE_CODES[dtype], n, call.c, call.c) == tc
+        assert lib.block_core_tensor_cores(_build.DTYPE_CODES[dtype], int(weights == "int8"),
+                                           n, call.c, call.c) == tc
         args = make_inputs(call, dtype, card, gen)
         with torch.no_grad():
             chain = _device_kernels(lambda: tbc.block_core(*args))
@@ -654,6 +669,59 @@ def test_block_core_route_depends_on_shape_alone(card, weights):
             assert finish, chain
         for g, w in zip(got, tbc.block_core_plain(*args)):
             torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+# fp32 block_core and window MHA forward on the tensor cores (three TF32
+# passes): every call of a B=1 sample at latent 32 and 64, block_core at
+# the fp32 train steps' B=2 shapes (a film per image, no residual fold:
+# the stochastic-depth gate) and an odd map (2 images of 5 x 5, C=64)
+FP32_TC_CALLS = path_calls(1) + path_calls(1, latent=64) + [
+    dataclasses.replace(c, residual=False, film_batch=2)
+    for c in path_calls(2) if c.kernel == "block_core"] + [Call("block_core", 2, 5, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", FP32_TC_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
+def test_fp32_tensor_core_routes_match_plain_rerun_bitwise_inside_their_buffers(
+        card, monkeypatch, call):
+    """fp32 block_core and window MHA forward at the sampling and train
+    shapes: the tensor-core route taken (its predicate; the launch chains
+    themselves: test_block_core_route_depends_on_shape_alone,
+    test_window_mha_route_depends_on_shape_alone), every buffer the
+    wrapper allocates between sentinel guards (none changed, the split
+    counters back to 0), two reruns with the same bits, and the plain
+    version within 1e-4."""
+    mod, kernel, plain = WRAPPERS[call.kernel]
+    gen = torch.Generator(device=card).manual_seed(24)
+    args = make_inputs(call, torch.float32, card, gen)
+    if call.kernel == "window_mha":
+        args = args + (call.heads,)
+        lib = _build.load("window_attention")
+        assert lib.window_mha_tensor_cores(0, call.l, call.c, call.heads) == 1
+    else:
+        n = call.batch * call.hw * call.hw
+        assert _build.load("block_core").block_core_tensor_cores(0, 0, n, call.c, call.c) == 1
+    with torch.no_grad():
+        before = mod.launches
+        # split counters: block_core keeps ffn_block's
+        monkeypatch.setattr(tattn if call.kernel == "window_mha" else tffn, "_counters", {})
+        with GuardedBuffers() as guarded:
+            first = kernel(*args)
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert mod.launches == before + 1
+        assert guarded.made and guarded.faults() == []
+        first = first if isinstance(first, tuple) else (first,)
+        for _ in range(2):
+            again = kernel(*args)
+            again = again if isinstance(again, tuple) else (again,)
+            for i, (a, b) in enumerate(zip(first, again)):
+                assert torch.equal(a, b), i
+        want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(first, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, **TOL[torch.float32])
 
 
 @pytest.mark.cuda
