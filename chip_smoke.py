@@ -259,9 +259,9 @@ share there is derived from that config.
      scale; (e) cli/train_ldm at its defaults (fp32, -b 1) for one epoch
      of 2 seeded 512px PNGs in a working directory under build/: 2 steps
      of exactly 36 block_core, 36 ffn_block_bwd, 8 + 8 window MHA, finite
-     losses; (f) the bf16 train step at B=8 (the ffn_block route): a
-     warm-up and 3 steps of exactly phase 6's launches, steps/s, device
-     busy, peak; (g) phase 7 at B=1 on 64x64 latents (the block_core
+     losses, the last step profiled (its device busy); (f) the bf16 train
+     step at B=8 (the ffn_block route): a warm-up and 3 steps of exactly
+     phase 6's launches, steps/s, device busy, peak; (g) phase 7 at B=1 on 64x64 latents (the block_core
      route, 4,096 rows); (h) one SamplerServer over make_variants(pipe,
      [256, 512]) on the conditional UNet: plain and guided requests of
      both sizes queued together, one dispatch per variant at its bucket
@@ -285,16 +285,20 @@ sample; train64: the B=8 train step; train64_b1: the B=1 train step's
 block_core without residual and its backward kernels), rerun bitwise
 between guards, with per-step times and bounds.
 Phase 2 first profiles one fp32 call of block_core and of window MHA at
-each shape of a 512px B=1 sample: each launches its tensor-core chain
-(three TF32 kernels for block_core, two for window MHA) and nothing else.
-Phase 2 also times the fp32 calls of the paths that sample_ldm and
-train_ldm run at their default precision (FP32_TIMED_TAGS: b1, b1-64,
-train64_b1, and the B=1 body shapes through ffn_block, split and
-split-64): kernel, plain, library (window MHA: F.multi_head_attention_
-forward with TF32 off) and bound per row and per step, the bound of
-block_core and window MHA forward from three TF32 passes at the tensor
+each shape of a 512px B=1 sample, and of ffn_block_bwd and window MHA's
+backward at each shape of a 512px B=1 train step: each launches its
+tensor-core chain (three TF32 kernels for block_core, two for each of
+the others) and nothing else. Phase 2 also times the fp32 calls of the
+paths that sample_ldm and train_ldm run at their default precision
+(FP32_TIMED_TAGS: b1, b1-64, train64_b1, and the B=1 body shapes through
+ffn_block, split and split-64), and the backward kernels' of the B=8
+512px train step (FP32_TIMED_BWD_TAGS: train64): kernel, plain, library
+(window MHA: F.multi_head_attention_forward with TF32 off, and its
+backward) and bound per row and per step, the bound of block_core, window
+MHA both ways and ffn_block_bwd from three TF32 passes at the tensor
 cores' rate (workloads.TF32_KERNELS), every other fp32 route's from the
-CUDA cores' 67 TFLOP/s.
+CUDA cores' 67 TFLOP/s. The kernels line names each kernel's route by
+dtype (ROUTES).
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -643,7 +647,8 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b4-64") for c in path_calls(4, latent=64)] + [
         (c, "train64") for c in per_sample_film(train_calls(TRAIN_BATCH, latent=64))] + [
         (c, "train64_b1") for c in train64_b1]
-    check_fp32_chains(dev, latent64 + b1_64)
+    check_fp32_chains(dev, latent64 + b1_64 + [c for c in train64_b1
+                                               if c.kernel.endswith("_bwd")])
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, rows32 = [], []  # the timed bf16 and fp32 calls
@@ -686,7 +691,7 @@ def phase_kernels(dev, reps: int) -> dict:
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
                 err_fp32 = err
-                if tag not in FP32_TIMED_TAGS:
+                if not fp32_timed(call, tag):
                     continue
             ms = cold_ms(kernel, args, reps, flush)
             plain_ms = cold_ms(plain, args, reps, flush)
@@ -797,7 +802,7 @@ def phase_kernels(dev, reps: int) -> dict:
         step = step_name.get(main_tag[name], "denoise step")
         summary[name] = dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1], launches=None,
+            replaces=sources[name][1], routes=ROUTES[name], launches=None,
             max_abs_err=max(r["max_abs_err"] for r in main),
             ms=per_step("ms"), kernel_ms=per_step("ms"),
             plain_ms=per_step("plain_ms"), bound_ms=bound,
@@ -843,29 +848,61 @@ def phase_kernels(dev, reps: int) -> dict:
 # the paths whose fp32 kernel calls phase 2 times (every other fp32 call
 # is checked, not timed): the B=1 samples at latent 32 and 64 (the
 # sample_ldm CLI's default precision), the B=1 body shapes through
-# ffn_block, and the fp32 train_ldm CLI's B=1 step at latent 64
+# ffn_block, and the fp32 train_ldm CLI's B=1 step at latent 64; the
+# backward kernels also at the B=8 train step at latent 64
 FP32_TIMED_TAGS = ("b1", "b1-64", "split", "split-64", "train64_b1")
+FP32_TIMED_BWD_TAGS = ("train64",)
+
+# each kernel's route at the UNet's shapes, by dtype (the kernels line
+# names them; other shapes take the CUDA-core FMA tiles)
+_TF32 = "tensor cores, three TF32 passes"
+ROUTES = {
+    "block_core": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
+    "ffn_block": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
+    "window_mha": {"bf16": "tensor cores", "fp32": _TF32 + " (window_attention.cu wtf)"},
+    "ffn_block_bwd": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_bwd.cuh)"},
+    "window_mha_bwd": {"bf16": "tensor cores",
+                       "fp32": _TF32 + " (window_attention.cu wtf)"},
+    "vq": {"bf16": _TF32, "fp32": _TF32},
+    "block_core_int8": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
+    "ffn_block_int8": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
+}
+
+
+def fp32_timed(call, tag: str) -> bool:
+    """Whether phase 2 times the fp32 call (FP32_TIMED_TAGS,
+    FP32_TIMED_BWD_TAGS)."""
+    return tag in FP32_TIMED_TAGS or (call.kernel.endswith("_bwd")
+                                      and tag in FP32_TIMED_BWD_TAGS)
 
 
 def check_fp32_chains(dev, calls) -> None:
-    """The device kernels of one fp32 call of block_core and of window MHA
-    at each of `calls` (a B=1 sample's at latent 64; torch.profiler, the
-    card's activity): the tensor-core route's launches (block_core's
-    norm/FiLM, gate_kernel_f32 and out_kernel_f32, window MHA's
-    wtf::fwd_core_kernel and wtf::out_proj_kernel), nothing else."""
+    """The device kernels of one fp32 call of block_core, window MHA and
+    the two backward kernels at each of `calls` (a B=1 sample's and a B=1
+    train step's at latent 64; torch.profiler, the card's activity): the
+    tensor-core route's launches (block_core's norm/FiLM, gate_kernel_f32
+    and out_kernel_f32; window MHA's wtf::fwd_core_kernel and
+    wtf::out_proj_kernel; ffn_block_bwd's gate_grad_kernel_f32 and
+    tail_kernel_f32; window MHA backward's wtf::bwd_core_kernel and
+    wtf::bwd_tail_kernel), nothing else."""
     from torch.profiler import ProfilerActivity, profile
 
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
+    from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
     from ldm_image_generator_tpu_torch.kernels import window_attention as tattn
     from ldm_image_generator_tpu_torch.kernels.workloads import make_inputs
 
     gen = torch.Generator(device=dev).manual_seed(9)
     want = {"block_core": ("norm_film_rows_kernel<float>", "gate_kernel_f32", "out_kernel_f32"),
-            "window_mha": ("wtf::fwd_core_kernel", "wtf::out_proj_kernel")}
+            "window_mha": ("wtf::fwd_core_kernel", "wtf::out_proj_kernel"),
+            "ffn_block_bwd": ("gate_grad_kernel_f32", "tail_kernel_f32"),
+            "window_mha_bwd": ("wtf::bwd_core_kernel", "wtf::bwd_tail_kernel")}
     for call in calls:
         args = make_inputs(call, torch.float32, dev, gen)
-        fn = (tbc.block_core if call.kernel == "block_core"
-              else lambda *a: tattn.window_mha(*a, num_heads=call.heads))
+        fn = {"block_core": tbc.block_core, "ffn_block_bwd": tffn.ffn_block_bwd,
+              "window_mha": lambda *a: tattn.window_mha(*a, num_heads=call.heads),
+              "window_mha_bwd": lambda *a: tattn.window_mha_bwd(*a, num_heads=call.heads),
+              }[call.kernel]
         with torch.no_grad():
             fn(*args)
             torch.cuda.synchronize()
@@ -4350,7 +4387,9 @@ def train_cli_512(dev) -> dict:
     on P512_CLI_IMAGES seeded 512px PNGs, in a working directory under
     build/ (it writes ./dataset_cache and ./ddpm.pt): one step per image
     with exactly a B=1 train step's launches at latent 64 (block_core, its
-    backward on ffn_block_bwd), each loss finite, the file written."""
+    backward on ffn_block_bwd), each loss finite, the file written; the
+    last step under the profiler (the card's busy time in one fp32 B=1
+    512px train step: every kernel on the tensor cores)."""
     import shutil
 
     import numpy as np
@@ -4366,13 +4405,18 @@ def train_cli_512(dev) -> dict:
     for i in range(P512_CLI_IMAGES):
         save_png(os.path.join(imgs, f"{i}.png"),
                  rng.integers(0, 255, (CLI_SIZE, CLI_SIZE, 3), dtype=np.uint8))
-    losses, make = [], tsteps.make_ldm_train_step
+    losses, make, prof = [], tsteps.make_ldm_train_step, {}
 
-    def recording(*a, **k):  # the CLI's step, its losses kept
+    def recording(*a, **k):  # the CLI's step, its losses kept, its last step profiled
         step = make(*a, **k)
 
         def run(*sa, **sk):
-            state, m = step(*sa, **sk)
+            if len(losses) < P512_CLI_IMAGES - 1:
+                state, m = step(*sa, **sk)
+            else:
+                out = []
+                prof.update(profile_fn(lambda: out.append(step(*sa, **sk))))
+                state, m = out[0]
             losses.append(m["loss"])
             return state, m
         return run
@@ -4392,8 +4436,12 @@ def train_cli_512(dev) -> dict:
     require(state.step == P512_CLI_IMAGES and len(losses) == P512_CLI_IMAGES
             and all(math.isfinite(x) for x in losses), ("train_ldm CLI losses", losses))
     require(os.path.getsize(os.path.join(work, "ddpm.pt")) > 0, "train_ldm wrote ./ddpm.pt")
+    log(f"train_ldm CLI at its defaults: one B=1 512px fp32 train step's device busy "
+        f"{prof['device_busy_ms']:.3f} ms (profiled wall {prof['wall_ms']:.1f} ms); "
+        f"{card_line()}")
     shutil.rmtree(work)
-    return dict(launches=counts, losses=losses, seconds=secs)
+    return dict(launches=counts, losses=losses, seconds=secs,
+                step_device_busy_ms=prof["device_busy_ms"], step_profile=prof)
 
 
 def sample_512(dev) -> dict:

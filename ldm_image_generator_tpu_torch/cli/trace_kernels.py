@@ -8,9 +8,10 @@ chain with their times. A redesign of a kernel starts from this trace.
         [--latent 64] [--out FILE]
 
 The shapes are those of `kernels.workloads`: the batch-1 and batch-4
-sampling paths (tags b1, b4), the B=8 train step (tag train) and the VAE
-train step (tag vae_train), on 32x32 latents (256px) or with --latent 64
-on the 512px paths' (tags b1-64, ...); every kernel by default. Each call is warmed
+sampling paths (tags b1, b4), the backward kernels of the B=1 train step
+(tag train_b1), the B=8 train step (tag train) and the VAE train step
+(tag vae_train), on 32x32 latents (256px) or with --latent 64 on the
+512px paths' (tags b1-64, ...); every kernel by default. Each call is warmed
 up once, then traced once (the L2 holds what the warm-up left there).
 Prints, per call, one line per device kernel (name, device us, launches)
 and the call's total device time; with --out, the same as JSON.
@@ -18,6 +19,7 @@ and the call's total device time; with --out, the same as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -49,8 +51,13 @@ KERNELS = {
 def calls_of(names, latent: int = 32) -> list:
     """(tag, call) for every path shape of the named kernels."""
     sfx = "" if latent == 32 else f"-{latent}"
+    # the B=1 train step's backward kernels (block_core's body backward
+    # runs on ffn_block_bwd)
+    bwd_b1 = [dataclasses.replace(c, kernel="ffn_block_bwd" if c.kernel == "block_core"
+                                  else c.kernel + "_bwd") for c in path_calls(1, latent=latent)]
     tagged = ([("b1" + sfx, c) for c in path_calls(1, latent=latent)]
               + [("b4" + sfx, c) for c in path_calls(4, latent=latent)]
+              + [("train_b1" + sfx, c) for c in bwd_b1]
               + [("train" + sfx, c) for c in train_calls(8, latent=latent)]
               + [("vae_train", c) for c in vae_train_calls()])
     return [(t, c) for t, c in tagged if c.kernel in names]

@@ -134,6 +134,7 @@ _SIGNATURES = {
                                + [_P] * 6, _I),
         "ffn_bwd_grad_floats": ([_I] * 2, _LL),
         "ffn_bwd_scratch_floats": ([_I] * 4, _LL),
+        "ffn_bwd_tensor_cores": ([_I] * 4, _I),
         "ffn_tensor_cores": ([_I] * 4, _I),
         "ffn_counter_ints": ([], _LL),
     },

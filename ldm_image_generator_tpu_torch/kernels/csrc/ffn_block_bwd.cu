@@ -16,7 +16,7 @@
 // dtype: 0 = float32, 1 = bfloat16.
 //
 // bfloat16 at the widths ffn_tc.cuh takes (every UNet shape) runs on the
-// tensor cores in two launches. What bounds a call on the H100: the 48 N C
+// tensor cores in two launches (namespace ftc). What bounds a call on the H100: the 48 N C
 // M FLOP (6.4 GFLOP per call at every B=8 train shape), against 24-40 MB
 // of operands and fp32 gradients, so operations below C = 1024; the
 // design keeps every product on mma.sync and every block busy:
@@ -34,9 +34,10 @@
 //      blocks run more k-tiles is scheduled first.
 // Splits meet in split_fixup in a fixed order: reruns are bitwise equal.
 //
-// float32, and bfloat16 at other widths, keep the CUDA-core FMA chain (a
-// float32 route of three TF32 passes, as block_core's forward, is queued:
-// ROADMAP A0): gate_grad_kernel (the two
+// float32 at the same widths runs the same two launches with every
+// product as three TF32 passes on the tensor cores (ffn_tf32_bwd.cuh),
+// fp32 accurate. Both types at other widths keep the CUDA-core FMA
+// chain: gate_grad_kernel (the two
 // recompute products and dg in one block, da/db/gate to scratch in T), the
 // weight gradients as atb products over the N rows (split over blocks,
 // partials added in a second pass; the bias gradients are the ones-row of
@@ -215,14 +216,17 @@ inline TailPlan tail_plan(int N, int C, int M) {
   return p;
 }
 
-struct BwdArgs {
+// T: dh's type (bf16 here, float on the fp32 route of ffn_tf32_bwd.cuh)
+template <typename T>
+struct BwdArgsT {
   FfnBwdArgs f;
   TailPlan p;
-  bf16* dh;
+  T* dh;
   float* grads;
   float *part, *dh_part;
   int* counters;
 };
+using BwdArgs = BwdArgsT<bf16>;
 
 // grid (M / 64, ceil(N / 64), 3 towers).
 __global__ void __launch_bounds__(THREADS) gate_grad_kernel(BwdArgs a) {
@@ -387,6 +391,18 @@ inline int backward(const FfnBwdArgs& f, void* dh, float* grads, float* scratch,
 }  // namespace ftc
 }  // namespace ldm
 
+// the float32 route, after the definitions it shares with the bf16 one
+#include "ffn_tf32_bwd.cuh"
+
+// The route of a backward call: bfloat16 and float32 at the widths the
+// tensor-core kernels take (every UNet shape) run on them, as bf16
+// mma.sync and as three TF32 passes; other widths on the FMA chain. It
+// depends on the dtype and the shape alone (ffn_block's forward has its
+// own rule, ffn_tensor_cores).
+extern "C" int ffn_bwd_tensor_cores(int dtype, int N, int C, int M) {
+  return (dtype == 0 || dtype == 1) && ldm::ftc::takes(N, C, M);
+}
+
 extern "C" int ffn_block_backward(int dtype, const void* h, const void* g, const void* gwa,
                                   const void* gba, const void* gwb, const void* gbb,
                                   const void* gwc, const void* wa, const void* ba,
@@ -396,8 +412,10 @@ extern "C" int ffn_block_backward(int dtype, const void* h, const void* g, const
   const ldm::FfnBwdArgs a{h,  g,  gwa, gba, gwb, gbb, gwc, wa, ba, wb,
                           bb, wc, E,   (const int*)ids,     N,   C,  M,  dgate};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ffn_tensor_cores(dtype, N, C, M))
-    return ldm::ftc::backward(a, dh, (float*)grads, (float*)scratch, (int*)counters, st);
+  if (ffn_bwd_tensor_cores(dtype, N, C, M))
+    return dtype == 0
+               ? ldm::ftc::backward_f32(a, dh, (float*)grads, (float*)scratch, (int*)counters, st)
+               : ldm::ftc::backward(a, dh, (float*)grads, (float*)scratch, (int*)counters, st);
   if (dtype == 0) return ldm::ffn_backward<float>(a, dh, (float*)grads, (float*)scratch, st);
   if (dtype == 1)
     return ldm::ffn_backward<__nv_bfloat16>(a, dh, (float*)grads, (float*)scratch, st);
@@ -410,6 +428,8 @@ extern "C" long long ffn_bwd_grad_floats(int C, int M) {
 }
 
 extern "C" long long ffn_bwd_scratch_floats(int dtype, int N, int C, int M) {
-  if (ffn_tensor_cores(dtype, N, C, M)) return (long long)ldm::ftc::tail_plan(N, C, M).floats;
+  if (ffn_bwd_tensor_cores(dtype, N, C, M))
+    return (long long)(dtype == 0 ? ldm::ftc::bwd_scratch_floats_f32(N, C, M)
+                                  : ldm::ftc::tail_plan(N, C, M).floats);
   return (long long)ldm::bwd_scratch_floats(N, C, M);
 }

@@ -269,11 +269,12 @@ __device__ __forceinline__ void for_gate_pairs(int mb, int nbh, F f) {
 }  // namespace ftc
 }  // namespace ldm
 
-// The route of an ffn_block call (both directions): bfloat16 at widths
-// the tensor-core kernels take (every UNet shape) runs on them; float32,
-// and bfloat16 at any other width, on the FMA chain (block_core, whose
-// float32 forward runs as three TF32 passes, has block_core_tensor_cores).
-// It depends on the dtype and the shape alone.
+// The route of an ffn_block forward call: bfloat16 at widths the
+// tensor-core kernels take (every UNet shape) runs on them; float32, and
+// bfloat16 at any other width, on the FMA chain (block_core, whose float32
+// forward runs as three TF32 passes, has block_core_tensor_cores; the
+// backward, whose float32 runs so too, ffn_bwd_tensor_cores). It depends
+// on the dtype and the shape alone.
 extern "C" int ffn_tensor_cores(int dtype, int N, int C, int M) {
   return dtype == 1 && ldm::ftc::takes(N, C, M);
 }

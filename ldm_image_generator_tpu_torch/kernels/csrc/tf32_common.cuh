@@ -1,5 +1,6 @@
 // fp32-accurate products on the H100's tensor cores, for the float32
-// routes of block_core (ffn_tf32_fwd.cuh) and of window MHA's forward
+// routes of block_core (ffn_tf32_fwd.cuh), of ffn_block's backward
+// (ffn_tf32_bwd.cuh) and of window MHA's forward and backward
 // (window_attention.cu, namespace wtf): mma.sync m16n8k8 with TF32
 // operands and fp32 accumulators, fp32 tiles streamed through the ring of
 // mma_common.cuh.
@@ -16,11 +17,24 @@
 // Running sums. The tensor cores add into their fp32 accumulator with
 // truncation, so a long k-loop drifts by up to a few 2**-23 of the sum per
 // addition: over the deepest product of the ports (block_core's output
-// product, 3M + 288 deep, up to 3,360 at C = 1024) that is past the fp32
-// gates' 1e-4. So the passes of one k-tile (at most 64 deep: 8 k-steps of
-// 3 passes) go into a zeroed fragment, and that partial joins the running
-// sum by an fp32 add on the CUDA cores, rounded to nearest
-// (warp_mma_f32).
+// product, 3M + 288 deep, up to 3,360 at C = 1024; ffn_block's dh, 6M
+// deep, 6,144; a weight gradient's sum over the rows, 32,768 at the B=8
+// 512px train step) that is past the fp32 gates' 1e-4. So the passes of
+// one k-tile (at most 64 deep: 8 k-steps of 3 passes) go into a zeroed
+// fragment, and that partial joins the running sum by an fp32 add on the
+// CUDA cores, rounded to nearest (warp_mma_f32).
+//
+// The error of one product, sum_i x_i y_i over K terms (S = sum_i |x_i
+// y_i|), in this model: the split leaves v - hi - lo within 2**-22 |v|,
+// so each term's three passes miss it by at most 3 * 2**-22 |x_i y_i|
+// (lo*lo and the two tails' roundings; the TF32 products themselves are
+// exact in fp32); each of the 3K / 8 mma.sync truncates its partial by
+// less than one ulp, 2**-23 S; each of the K / 64 partials and a bias
+// join with a rounding of 2**-24 S. In all below (12 + 3K / 4 + K / 64 +
+// 1) 2**-24 S, under 2K 2**-24 S = K 2**-23 S for K >= 16: within the
+// bound C 2**-23 (|h| |wb| + |bb|) that the ReLU-boundary check of
+// ffn_block_bwd (workloads.ffn_bwd_boundary_plain) allows an fp32 sum
+// over K = C terms, so that check holds this route unchanged.
 //
 // Layouts. An fp32 tile lies in shared memory as in device memory
 // (16-byte chunks of 4 floats along the contiguous dimension). The
@@ -28,9 +42,13 @@
 // 16-bit elements, so it cannot feed a TF32 B fragment from the [in, out]
 // weights. Rows are padded so that each load's 32 lanes hit 32 banks:
 // with g = lane / 4 and t = lane % 4, an A tile [m][k] is read at (row
-// g, column t), so its row stride is 4 mod 32 floats (bank 4 g + t); a B
-// tile [k][n] at (row t, column g), so 8 mod 32 (bank 8 t + g); a B tile
-// stored [n][k] at (row g, column t), 4 mod 32.
+// g, column t), so its row stride is 4 mod 32 floats (bank 4 g + t); an
+// A tile stored [k][m] (A_T, the weight gradients' A^T) at (row t, column
+// g), so 8 mod 32 (bank 8 t + g); a B tile [k][n] at (row t, column g),
+// so 8 mod 32; a B tile stored [n][k] at (row g, column t), 4 mod 32. A
+// tile read at rows 2 t and 2 t + 1 (a k index taken in pairs, both
+// operands alike: window MHA's backward) is padded 4 mod 32 (bank 8 t +
+// g).
 #pragma once
 
 #include "mma_common.cuh"
@@ -74,14 +92,23 @@ __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a, const Frag
 }
 
 // A fragment of the 16 x 8 block at (m0, k0) of an fp32 tile stored
-// [m][k] with leading dimension ld (4 mod 32).
+// [m][k] (A_T false; ld 4 mod 32) or [k][m] (A_T true; ld 8 mod 32).
+template <bool A_T = false>
 __device__ __forceinline__ void frag_a_f32(Frag<4>& a, const float* s, int ld, int m0, int k0) {
-  const int l = threadIdx.x & 31;
-  const float* p = s + (m0 + (l >> 2)) * ld + k0 + (l & 3);
-  a.set(0, p[0]);
-  a.set(1, p[8 * ld]);
-  a.set(2, p[4]);
-  a.set(3, p[8 * ld + 4]);
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  if (A_T) {
+    const float* p = s + (k0 + t) * ld + m0 + g;
+    a.set(0, p[0]);
+    a.set(1, p[8]);
+    a.set(2, p[4 * ld]);
+    a.set(3, p[4 * ld + 8]);
+  } else {
+    const float* p = s + (m0 + g) * ld + k0 + t;
+    a.set(0, p[0]);
+    a.set(1, p[8 * ld]);
+    a.set(2, p[4]);
+    a.set(3, p[8 * ld + 4]);
+  }
 }
 
 // B fragment of the 8 x 8 block at (k0, n0) of an fp32 tile stored
@@ -104,8 +131,8 @@ __device__ __forceinline__ void frag_b_f32(Frag<2>& b, const float* s, int ld, i
 // K a multiple of 8 (one k-tile): the passes go into a zeroed partial,
 // which joins acc by fp32 adds at the end. UNROLL unrolls the k-steps,
 // which pays where a warp's tile is small (window MHA's projections) and
-// costs registers where it is large (the FFN tiles).
-template <int MI, int NI, bool B_T = false, bool UNROLL = false>
+// costs registers where it is large (the FFN tiles). A_T: A stored [k][m].
+template <int MI, int NI, bool B_T = false, bool UNROLL = false, bool A_T = false>
 __device__ __forceinline__ void warp_mma_f32(float (&acc)[MI][NI][4], const float* As, int lda,
                                              const float* Bs, int ldb, int m0, int n0, int K,
                                              int mt = MI) {
@@ -115,7 +142,7 @@ __device__ __forceinline__ void warp_mma_f32(float (&acc)[MI][NI][4], const floa
     Frag<4> a[MI];
 #pragma unroll
     for (int i = 0; i < MI; ++i)
-      if (i < mt) frag_a_f32(a[i], As, lda, m0 + 16 * i, k0);
+      if (i < mt) frag_a_f32<A_T>(a[i], As, lda, m0 + 16 * i, k0);
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
       Frag<2> b;
@@ -156,42 +183,66 @@ __device__ __forceinline__ void load_tile_f32(float* s, int lds, int rows, Src s
 }
 
 // Gemm's block tile with fp32 operands: A [m][k] and B [k][n] k-tiles of
-// 64 (as the bf16 tiles', so the split-K plans are shared), rows padded
-// as above, a ring of STAGES. A stage of a 64 x 64 tile is 35 KB, twice
+// 64 (as the bf16 tiles', so the split-K plans are shared), or either
+// stored the other way round (A_T: [k][m], B_T: [n][k]), rows padded as
+// above, a ring of STAGES. A stage of a 64 x 64 tile is 35 KB, twice
 // bf16's.
 template <int BM_, int BN_, int WM_, int WN_, int STAGES_>
 struct GemmF32 : Gemm<BM_, BN_, WM_, WN_, STAGES_> {
-  static constexpr int LA = BK + 4, LB = BN_ + 8;  // row strides, floats
+  static constexpr int LA = BK + 4, LB = BN_ + 8;      // row strides, floats
+  static constexpr int LA_T = BM_ + 8, LB_T = BK + 4;  // ... of A_T, B_T tiles
   static constexpr int A_EL = BM_ * LA, STAGE_EL = A_EL + BK * LB;
   static constexpr size_t smem_bytes = 4 * (size_t)STAGES_ * STAGE_EL;
-  static_assert(LA % 32 == 4 && LB % 32 == 8, "conflict-free fragment loads");
+  static_assert(LA % 32 == 4 && LB % 32 == 8 && LB_T % 32 == 4, "conflict-free fragment loads");
+  // shared memory of a ring whose tiles are stored as A_T, B_T say
+  template <bool A_T, bool B_T>
+  __host__ __device__ static constexpr size_t smem() {
+    return 4 * (size_t)STAGES_ *
+           ((A_T ? BK * LA_T : BM_ * LA) + (B_T ? BN_ * LB_T : BK * LB));
+  }
 };
 
-// gemm_tile (A_T, B_T false) for GemmF32 tiles: acc = A[tile rows,
-// k-tiles kt0..kt1) B[.., tile columns]; srcA / srcB(r, c, k0) address
-// the 4 floats at (r, c..c+3) of the k-tile at k0 or are nullptr. B
-// streams first, A after gate() (pipeline).
-template <class G, class SrcA, class SrcB, class Gate>
+// gemm_tile for GemmF32 tiles: acc = A[tile rows, k-tiles kt0..kt1)
+// B[.., tile columns]; srcA / srcB(r, c, k0) address the 4 floats at (r,
+// c..c+3) of the k-tile at k0 as stored (A_T: [k][m], else [m][k]; B_T:
+// [n][k], else [k][n]) or are nullptr. after(Bs, ldb) runs on each landed
+// B tile. gate() runs once the first tiles of one operand (B, or A with
+// A_FIRST) are in flight and before any copy of the other (pipeline).
+template <class G, bool A_T, bool B_T, bool A_FIRST = false, class SrcA, class SrcB, class After,
+          class Gate>
 __device__ __forceinline__ void gemm_tile_f32(float (&acc)[G::MI][G::NI][4], float* ring, int kt0,
-                                              int kt1, SrcA srcA, SrcB srcB, Gate gate) {
+                                              int kt1, SrcA srcA, SrcB srcB, After after,
+                                              Gate gate) {
+  constexpr int LA = A_T ? G::LA_T : G::LA, LB = B_T ? G::LB_T : G::LB;
+  constexpr int AE = (A_T ? BK : G::BM) * LA, SE = AE + (B_T ? G::BN : BK) * LB;
+  static_assert(!A_T || LA % 32 == 8, "conflict-free fragment loads of an A_T tile");
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp / G::WN) * (G::BM / G::WM), n0 = (warp % G::WN) * (G::BN / G::WN);
   zero<G::MI, G::NI>(acc);
   auto load_b = [&](int buf, int i) {
     const int k0 = (kt0 + i) * BK;
-    load_tile_f32<BK, G::BN, THREADS>(ring + buf * G::STAGE_EL + G::A_EL, G::LB, BK,
-                                      [&](int r, int c) { return srcB(r, c, k0); });
+    load_tile_f32<B_T ? G::BN : BK, B_T ? BK : G::BN, THREADS>(
+        ring + buf * SE + AE, LB, B_T ? G::BN : BK, [&](int r, int c) { return srcB(r, c, k0); });
   };
   auto load_a = [&](int buf, int i) {
     const int k0 = (kt0 + i) * BK;
-    load_tile_f32<G::BM, BK, THREADS>(ring + buf * G::STAGE_EL, G::LA, G::BM,
-                                      [&](int r, int c) { return srcA(r, c, k0); });
+    load_tile_f32<A_T ? BK : G::BM, A_T ? G::BM : BK, THREADS>(
+        ring + buf * SE, LA, A_T ? BK : G::BM, [&](int r, int c) { return srcA(r, c, k0); });
   };
   auto compute = [&](int buf) {
-    const float* as = ring + buf * G::STAGE_EL;
-    warp_mma_f32<G::MI, G::NI>(acc, as, G::LA, as + G::A_EL, G::LB, m0, n0, BK);
+    const float* as = ring + buf * SE;
+    warp_mma_f32<G::MI, G::NI, B_T, false, A_T>(acc, as, LA, as + AE, LB, m0, n0, BK);
+    after(as + AE, LB);
   };
-  pipeline<G::NSTAGE>(kt1 - kt0, load_b, gate, load_a, compute);
+  if (A_FIRST) pipeline<G::NSTAGE>(kt1 - kt0, load_a, gate, load_b, compute);
+  else pipeline<G::NSTAGE>(kt1 - kt0, load_b, gate, load_a, compute);
+}
+
+// The same with A [m][k] and B [k][n], nothing run on the landed tiles.
+template <class G, class SrcA, class SrcB, class Gate>
+__device__ __forceinline__ void gemm_tile_f32(float (&acc)[G::MI][G::NI][4], float* ring, int kt0,
+                                              int kt1, SrcA srcA, SrcB srcB, Gate gate) {
+  gemm_tile_f32<G, false, false>(acc, ring, kt0, kt1, srcA, srcB, [](const float*, int) {}, gate);
 }
 
 __device__ __forceinline__ void store2f(float* p, float v0, float v1) {

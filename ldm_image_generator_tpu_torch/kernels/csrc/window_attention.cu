@@ -38,11 +38,12 @@
 //   It takes d = 32 (every head of the UNet) and L <= 64 (windows up to
 //   8 x 8); other bfloat16 shapes take the FMA route below, by shape.
 //
-// float32's forward runs on the tensor cores too (namespace wtf): the
-// same two launches, every product as three TF32 passes over fp32 tiles
-// (tf32_common.cuh), fp32 accurate, the softmax in fp32 on the CUDA cores.
-// The float32 backward, and both types at other shapes, keep the CUDA-core
-// FMA tiles of common.cuh and grad_common.cuh: three launches forward
+// float32 runs on the tensor cores too at the same shapes, forward and
+// backward (namespace wtf): the same two launches each way, every product
+// as three TF32 passes over fp32 tiles (tf32_common.cuh), fp32 accurate,
+// the softmax and its backward in fp32 on the CUDA cores. Both types at
+// other shapes keep the CUDA-core FMA tiles of common.cuh and
+// grad_common.cuh: three launches forward
 // (qkv projection, one block per (window, head) holding q, k, v and the
 // scores in fp32 shared memory, output projection; k split over blocks
 // with a summing pass at few rows) and the backward chain of
@@ -861,10 +862,12 @@ inline OutPlan out_plan(int rows, int C) {
   return p;
 }
 
-struct TailArgs {
-  const bf16 *x, *g, *o, *dqkv;  // [rows, C] (dqkv [rows, 3C])
-  const bf16* w[3];              // wq, wk, wv
-  bf16* dx;                      // [rows, C]
+// T: bf16 here, float on wtf's route
+template <typename T>
+struct TailArgsT {
+  const T *x, *g, *o, *dqkv;     // [rows, C] (dqkv [rows, 3C])
+  const T* w[3];                 // wq, wk, wv
+  T* dx;                         // [rows, C]
   float* grads;                  // 4 x [(C + 1), C]: dW rows, then the bias
   int rows, C;
   int tn;                        // 64-wide tiles along C
@@ -874,6 +877,7 @@ struct TailArgs {
   float *part, *dx_part;         // split partials: dW's, dx's
   int* counters;                 // dW tiles', then dx tiles'
 };
+using TailArgs = TailArgsT<bf16>;
 
 // n_dx blocks: dx = T(dq wq^T + dk wk^T + dv wv^T) in 64 x 64 tiles,
 // k = 3C split dx_splits ways. n_dw blocks: the weight gradients, z = q,
@@ -1003,6 +1007,29 @@ inline TailPlan tail_plan(int rows, int C) {
 // split-K counters the wrapper keeps zeroed (the kernels leave them 0)
 constexpr int kCounters = 4096;
 
+// The tail launch's arguments for plan p.
+template <typename T>
+inline TailArgsT<T> tail_args(const TailPlan& p, const void* x, const void* g, const void* o,
+                              const void* dqkv, const void* wq, const void* wk, const void* wv,
+                              void* dx, float* grads, int rows, int C, float* scratch,
+                              int* counters) {
+  TailArgsT<T> ta{};
+  ta.x = (const T*)x; ta.g = (const T*)g; ta.o = (const T*)o; ta.dqkv = (const T*)dqkv;
+  ta.w[0] = (const T*)wq; ta.w[1] = (const T*)wk; ta.w[2] = (const T*)wv;
+  ta.dx = (T*)dx; ta.grads = grads; ta.rows = rows; ta.C = C; ta.tn = p.tn;
+  ta.dx_splits = p.dx_splits; ta.dx_per = p.dx_per; ta.n_dx = p.n_dx;
+  ta.splits = p.splits; ta.per = p.per; ta.dw_tiles = p.dw_tiles;
+  ta.n_dw = p.n_dw; ta.dx_first = p.dx_per > p.per;
+  ta.part = scratch; ta.dx_part = scratch + p.dw_floats;
+  ta.counters = counters;
+  return ta;
+}
+
+// Whether plan p's split counters fit in the kCounters the wrapper keeps.
+inline bool tail_counters_fit(const TailPlan& p) {
+  return p.dw_tiles + (p.dx_splits > 1 ? p.dx_tiles : 0) <= kCounters;
+}
+
 // CTAs per cluster splitting each (window, head)'s forward projections
 // by columns: one per projection (q, k, v) when the grid would have fewer
 // (window, head) blocks than the card has SMs (batch 1 at C >= 256: one
@@ -1072,18 +1099,9 @@ inline int backward(const void* x, const uint8_t* mask, const void* g, const voi
   cudaError_t e = launch(bwd_core_kernel, dim3(heads, N), BWD_SMEM, st, cluster_of(1), h);
   if (e != cudaSuccess) return (int)e;
   const TailPlan p = tail_plan(N * L, C);
-  if (p.dw_tiles + (p.dx_splits > 1 ? p.dx_tiles : 0) > kCounters)
-    return (int)cudaErrorInvalidValue;
-  TailArgs ta{};
-  ta.x = (const bf16*)x; ta.g = (const bf16*)g; ta.o = (const bf16*)o;
-  ta.dqkv = (const bf16*)dqkv;
-  ta.w[0] = (const bf16*)wq; ta.w[1] = (const bf16*)wk; ta.w[2] = (const bf16*)wv;
-  ta.dx = (bf16*)dx; ta.grads = grads; ta.rows = N * L; ta.C = C; ta.tn = p.tn;
-  ta.dx_splits = p.dx_splits; ta.dx_per = p.dx_per; ta.n_dx = p.n_dx;
-  ta.splits = p.splits; ta.per = p.per; ta.dw_tiles = p.dw_tiles;
-  ta.n_dw = p.n_dw; ta.dx_first = p.dx_per > p.per;
-  ta.part = scratch; ta.dx_part = scratch + p.dw_floats;
-  ta.counters = counters;
+  if (!tail_counters_fit(p)) return (int)cudaErrorInvalidValue;
+  const TailArgs ta =
+      tail_args<bf16>(p, x, g, o, dqkv, wq, wk, wv, dx, grads, N * L, C, scratch, counters);
   constexpr size_t sm = Wide::smem<true, false>() > Wide::smem<false, true>()
                             ? Wide::smem<true, false>() : Wide::smem<false, true>();
   e = launch(bwd_tail_kernel, dim3(p.n_dw + p.n_dx), sm, st, after_previous(), ta);
@@ -1093,8 +1111,8 @@ inline int backward(const void* x, const uint8_t* mask, const void* g, const voi
 }  // namespace wtc
 
 // ---------------------------------------------------------------------
-// float32 forward on the tensor cores (three TF32 passes,
-// tf32_common.cuh): wtc's two launches with fp32 operands, the products
+// float32 on the tensor cores (three TF32 passes, tf32_common.cuh), the
+// forward here, the backward after it: wtc's two launches with fp32 operands, the products
 // fp32 accurate. The softmax stays fp32 on the CUDA cores, and the
 // probabilities stay in registers: the product P v takes each 8-key block
 // of P with its keys in the order 0 2 4 6 1 3 5 7 (the fragment's column
@@ -1132,19 +1150,21 @@ static_assert(LDX % 32 == 4 && LDH % 16 == 4, "conflict-free fragment loads");
 struct HeadArgs {
   const float* x;       // [N, L, C]
   const uint8_t* mask;  // [N, L] (1 = padded key) or null
-  const float* w[3];    // wq, wk, wv [C, C] ([in, out])
+  const float* w[4];    // wq, wk, wv, wo [C, C] ([in, out]; wo for the backward)
   const float* b[3];    // bq, bk, bv
+  const float* g;       // out-cotangent [N, L, C] (backward)
   int L, C;
   int cs;               // CTAs of a cluster splitting one head's projections
   float scale;
   float* o;             // [N, L, C]
+  float* dqkv;          // [N, L, 3C] (backward)
 };
 
 // wtc::project_qkv in fp32: NSEG of the head's q, k, v column segments
 // (from `first` on) of window n, x_n @ w[:, cols] + b, rows >= L zero,
 // into dst[segment] ([LMAX][LDH]). Warp w owns columns [8 NSEG w, 8 NSEG
 // (w + 1)) and every 16-row tile of the window.
-template <int NSEG>
+template <int NSEG, int NST = STAGES>
 __device__ __forceinline__ void project_qkv(const HeadArgs& a, int n, int head, int mt,
                                             float* ring, int first, float* const (&dst)[3]) {
   constexpr int COLS = NSEG * D, LD = COLS + 8, SE = stage_el<NSEG>();
@@ -1168,7 +1188,7 @@ __device__ __forceinline__ void project_qkv(const HeadArgs& a, int n, int head, 
     tc::warp_mma_f32<4, NSEG, false, true>(acc, xs, LDX, xs + X_EL, LD, 0, 8 * NSEG * warp, KB,
                                            mt);
   };
-  tc::pipeline<STAGES>((C + KB - 1) / KB, load, compute);
+  tc::pipeline<NST>((C + KB - 1) / KB, load, compute);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < NSEG; ++j) {
@@ -1209,17 +1229,16 @@ __device__ __forceinline__ bool project_head(const HeadArgs& a, int n, int head,
   return rank == 0;
 }
 
-// Query rows [16 w, 16 w + 16): o = softmax(q k^T * scale + mask) v,
-// written to a.o at this head's columns for rows < L.
-__device__ __forceinline__ void attend(const HeadArgs& a, const float* qs, const float* ks,
-                                       const float* vs, uint64_t padded, int n, int head, int mt,
-                                       int w) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float p[8][4], acc[4][4];
+// Probabilities of query rows [16 w, 16 w + 16) against the 16 mt keys:
+// softmax(q k^T * scale + mask) in fp32 in this warp's accumulator
+// layout (p[j]: keys 8 j..), the scores one partial (d deep), exactly 0 at
+// keys >= L.
+__device__ __forceinline__ void softmax_rows(float (&p)[8][4], const float* qs, const float* ks,
+                                             uint64_t padded, int L, int mt, float scale, int w) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[j][e] = acc[j % 4][e] = 0.f;
+    for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 8) {
     tc::Frag<4> qa;
@@ -1232,33 +1251,64 @@ __device__ __forceinline__ void attend(const HeadArgs& a, const float* qs, const
       tc::mma3(p[j], qa, kb);
     }
   }
-  wtc::softmax_scores(p, padded, a.L, mt, a.scale);
+  wtc::softmax_scores(p, padded, L, mt, scale);
+}
+
+// acc[jd] (columns 8 jd..) = p rows [key, 0:d) over the 16 mt keys, one
+// partial: p (a warp's 16 rows by the keys, in the accumulator layout) is
+// the A fragment with each 8-key block's keys in the order 0 2 4 6 1 3 5
+// 7 (column t is key 2t, column t + 4 key 2t + 1), so rows is read at
+// rows 2t and 2t + 1 of the block (rows [LMAX][LDH]: banks 8 t + g).
+__device__ __forceinline__ void times_rows(float (&acc)[4][4], const float (&p)[8][4],
+                                           const float* rows, int mt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     if (kk >= 2 * mt) continue;
-    // columns t and t + 4 of the fragment are keys 2t and 2t + 1
     tc::Frag<4> pa;
     pa.set(0, p[kk][0]);
     pa.set(1, p[kk][2]);
     pa.set(2, p[kk][1]);
     pa.set(3, p[kk][3]);
-    const float* v0 = vs + (8 * kk + 2 * t) * LDH + g;
+    const float* r0 = rows + (8 * kk + 2 * t) * LDH + g;
 #pragma unroll
     for (int jd = 0; jd < 4; ++jd) {
-      tc::Frag<2> vb;
-      vb.set(0, v0[8 * jd]);
-      vb.set(1, v0[LDH + 8 * jd]);
-      tc::mma3(acc[jd], pa, vb);
+      tc::Frag<2> rb;
+      rb.set(0, r0[8 * jd]);
+      rb.set(1, r0[LDH + 8 * jd]);
+      tc::mma3(acc[jd], pa, rb);
     }
   }
+}
+
+// acc's rows r0 + g, r0 + g + 8 below L, to dst (row stride ld) at
+// columns 2t, 2t + 1 of each 8-column block.
+__device__ __forceinline__ void store_rows(float* dst, int ld, const float (&acc)[4][4], int r0,
+                                           int L) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = 16 * w + g + 8 * h;
-    if (row >= a.L) continue;
-    float* dst = a.o + ((size_t)n * a.L + row) * a.C + head * D + 2 * t;
+    const int row = r0 + g + 8 * h;
+    if (row >= L) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) tc::store2f(dst + 8 * j, acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int j = 0; j < 4; ++j)
+      tc::store2f(dst + (size_t)row * ld + 8 * j + 2 * t, acc[j][2 * h], acc[j][2 * h + 1]);
   }
+}
+
+// Query rows [16 w, 16 w + 16): o = softmax(q k^T * scale + mask) v,
+// written to a.o at this head's columns for rows < L.
+__device__ __forceinline__ void attend(const HeadArgs& a, const float* qs, const float* ks,
+                                       const float* vs, uint64_t padded, int n, int head, int mt,
+                                       int w) {
+  float p[8][4], acc[4][4];
+  softmax_rows(p, qs, ks, padded, a.L, mt, a.scale, w);
+  times_rows(acc, p, vs, mt);
+  store_rows(a.o + (size_t)n * a.L * a.C + head * D, a.C, acc, 16 * w, a.L);
 }
 
 // grid (heads * a.cs, N) in clusters of a.cs CTAs; FWD_SMEM bytes of
@@ -1326,18 +1376,27 @@ __global__ void __launch_bounds__(THREADS) out_proj_kernel(OutArgs a) {
   });
 }
 
+inline HeadArgs head_args(const void* x, const uint8_t* mask, const void* wq, const void* bq,
+                          const void* wk, const void* bk, const void* wv, const void* bv,
+                          const void* wo, const void* g, int L, int C, int heads) {
+  HeadArgs h{};
+  h.x = (const float*)x;
+  h.mask = mask;
+  h.w[0] = (const float*)wq; h.w[1] = (const float*)wk; h.w[2] = (const float*)wv;
+  h.w[3] = (const float*)wo;
+  h.b[0] = (const float*)bq; h.b[1] = (const float*)bk; h.b[2] = (const float*)bv;
+  h.g = (const float*)g;
+  h.L = L; h.C = C;
+  h.scale = 1.0f / sqrtf((float)(C / heads));
+  return h;
+}
+
 inline int forward(const void* x, const uint8_t* mask, const void* wq, const void* bq,
                    const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
                    const void* bo, int N, int L, int C, int heads, void* o, void* out,
                    float* scratch, int* counters, cudaStream_t st) {
   if (!wtc::takes(L, C / heads) || C % heads) return (int)cudaErrorInvalidValue;
-  HeadArgs h{};
-  h.x = (const float*)x;
-  h.mask = mask;
-  h.w[0] = (const float*)wq; h.w[1] = (const float*)wk; h.w[2] = (const float*)wv;
-  h.b[0] = (const float*)bq; h.b[1] = (const float*)bk; h.b[2] = (const float*)bv;
-  h.L = L; h.C = C;
-  h.scale = 1.0f / sqrtf((float)(C / heads));
+  HeadArgs h = head_args(x, mask, wq, bq, wk, bk, wv, bv, nullptr, nullptr, L, C, heads);
   h.o = (float*)o;
   h.cs = wtc::cluster_size(heads * N);
   cudaError_t e = tc::launch(fwd_core_kernel, dim3(heads * h.cs, N),
@@ -1354,22 +1413,313 @@ inline int forward(const void* x, const uint8_t* mask, const void* wq, const voi
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// The float32 backward: wtc's two launches with every product as three
+// TF32 passes.
+//   bwd_core_kernel, one CTA per (window, head): q, k, v (project_qkv, as
+//   the forward), dO = g wo[head rows]^T through the same ring, then per
+//   warp of 16 query rows P (fp32 softmax), o = P v, dP = dO v^T, dS = P
+//   (dP - rowsum(dP P)) scale and dq = dS k, with P and dS in registers
+//   as A fragments (their keys in the order 0 2 4 6 1 3 5 7, as the
+//   forward's P v). dv = P^T dO and dk = dS^T q need P and dS as
+//   transposed operands: they are stored [query][key] in fp32 (rows
+//   padded 4 mod 32, in the drained ring) and read as A tiles stored
+//   [k][m] with the k (query) index in pairs 2t, 2t + 1, dO and q read at
+//   the same rows, every load conflict-free. 71 KB a CTA, three per SM
+//   (164 registers): the projections stream through a ring of 2 (45 KB),
+//   which then holds dO, P and dS, and q, k, v lie past it.
+//   bwd_tail_kernel: wtc's tail with fp32 tiles (GemmF32), the same plan,
+//   scratch and counters: dx = dqkv [wq|wk|wv]^T (the weights read in
+//   place as B tiles stored [n][k]) and x^T [dq|dk|dv], o^T g (A_T tiles)
+//   with the bias gradients as fp32 column sums, split and summed with
+//   split_fixup in a fixed order.
+// ---------------------------------------------------------------------
+constexpr int LDP = LMAX + 4;  // P, dS [LMAX][LMAX + 4], read at rows 2t, 2t + 1
+constexpr int BWD_STAGES = 2;
+constexpr int BWD_RING_EL = BWD_STAGES * stage_el<3>();
+constexpr size_t BWD_SMEM = 4 * ((size_t)BWD_RING_EL + 3 * HEAD_EL);
+static_assert(2 * LMAX * LDP + HEAD_EL <= BWD_RING_EL, "P, dS and dO fit in the drained ring");
+static_assert(X_EL + D * LDX <= stage_el<3>(), "the dO projection's stage fits in a stage");
+static_assert(LDP % 32 == 4 && LDX % 32 == 4, "conflict-free fragment loads");
+
+// dO of window n, head `head`: g_n @ wo[head rows, :]^T, rows >= L zero,
+// into dos [LMAX][LDH] (which may lie in the ring: it is written once the
+// ring has drained): 32-deep k-tiles of g and of wo's rows (a B tile
+// stored [n][k]) through the ring of BWD_STAGES. Warp w owns the head's
+// columns [8 w, 8 w + 8).
+__device__ __forceinline__ void project_dout(const HeadArgs& a, int n, int head, int mt,
+                                             float* ring, float* dos) {
+  constexpr int SE = stage_el<3>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int L = a.L, C = a.C;
+  const float* gw = a.g + (size_t)n * L * C;
+  const float* wrows = a.w[3] + (size_t)head * D * C;
+  float acc[4][1][4];
+  tc::zero<4, 1>(acc);
+  auto load = [&](int buf, int kt) {
+    float* gs = ring + buf * SE;
+    const int k0 = kt * KB;
+    tc::load_tile_f32<LMAX, KB, THREADS>(gs, LDX, 16 * mt, [&](int r, int c) -> const float* {
+      return r < L && k0 + c < C ? gw + (size_t)r * C + k0 + c : nullptr;
+    });
+    tc::load_tile_f32<D, KB, THREADS>(gs + X_EL, LDX, D, [&](int r, int c) -> const float* {
+      return k0 + c < C ? wrows + (size_t)r * C + k0 + c : nullptr;
+    });
+  };
+  auto compute = [&](int buf) {
+    const float* gs = ring + buf * SE;
+    tc::warp_mma_f32<4, 1, true, true>(acc, gs, LDX, gs + X_EL, LDX, 0, 8 * warp, KB, mt);
+  };
+  tc::pipeline<BWD_STAGES>((C + KB - 1) / KB, load, compute);
+  const int g = lane >> 2, t = lane & 3, col = 8 * warp + 2 * t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= mt) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * i + g + 8 * h;
+      const bool live = row < L;
+      tc::store2f(dos + row * LDH + col, live ? acc[i][0][2 * h] : 0.f,
+                  live ? acc[i][0][2 * h + 1] : 0.f);
+    }
+  }
+}
+
+// grid (heads, N), BWD_SMEM bytes. With P the fp32 probabilities:
+//   o = P v, dP = dO v^T, dS = P (dP - rowsum(dP P)) scale,
+//   dq = dS k, dv = P^T dO, dk = dS^T q
+// o to a.o, dq | dk | dv to a.dqkv at this head's columns.
+__global__ void __launch_bounds__(THREADS) bwd_core_kernel(HeadArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float *qs = ring + BWD_RING_EL, *ks = qs + HEAD_EL, *vs = ks + HEAD_EL;
+  // in the ring once both projections have drained it
+  float *ps = ring, *dss = ps + LMAX * LDP, *dos = dss + LMAX * LDP;
+  const int head = blockIdx.x, n = blockIdx.y, mt = (a.L + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int L = a.L, C = a.C;
+  const size_t row0 = (size_t)n * L;
+  tc::griddep_launch();  // the tail may start streaming the weights
+  const wtc::KeyPad pad(a, n);
+  float* const qkv[3] = {qs, ks, vs};
+  project_qkv<3, BWD_STAGES>(a, n, head, mt, ring, 0, qkv);
+  project_dout(a, n, head, mt, ring, dos);  // reuses the drained ring
+  __syncthreads();
+  const uint64_t padded = pad.bits();
+  if (warp < mt) {
+    float p[8][4], acc[4][4];
+    softmax_rows(p, qs, ks, padded, L, mt, a.scale, warp);
+    times_rows(acc, p, vs, mt);
+    store_rows(a.o + row0 * C + head * D, C, acc, 16 * warp, L);
+    // dP = dO v^T, one partial (d deep), then dS in its place
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      tc::Frag<4> da;
+      tc::frag_a_f32(da, dos, LDH, 16 * warp, k0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= 2 * mt) continue;
+        tc::Frag<2> vb;
+        tc::frag_b_f32<true>(vb, vs, LDH, k0, 8 * j);
+        tc::mma3(ds[j], da, vb);
+      }
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rs[e >> 1] += ds[j][e] * p[j][e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], o);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - rs[e >> 1]) * a.scale;
+    // P and dS to shared memory for the transposed products (rows >= L zero)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+      const bool live = row < L;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= 2 * mt) continue;
+        tc::store2f(ps + row * LDP + 8 * j + 2 * t, live ? p[j][2 * h] : 0.f,
+                    live ? p[j][2 * h + 1] : 0.f);
+        tc::store2f(dss + row * LDP + 8 * j + 2 * t, live ? ds[j][2 * h] : 0.f,
+                    live ? ds[j][2 * h + 1] : 0.f);
+      }
+    }
+    times_rows(acc, ds, ks, mt);
+    store_rows(a.dqkv + row0 * 3 * C + head * D, 3 * C, acc, 16 * warp, L);
+  }
+  __syncthreads();
+  // dv = P^T dO, dk = dS^T q: (product, 16-key tile) units over the
+  // warps, each one partial over the 16 mt queries, taken in pairs (A at
+  // rows 2t, 2t + 1 of P or dS; B at the same rows of dO or q)
+  for (int u = warp; u < 2 * mt; u += THREADS / 32) {
+    const int prod = u / mt, m0 = 16 * (u % mt);
+    const float* As = prod == 0 ? ps : dss;
+    const float* Bs = prod == 0 ? dos : qs;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int k0 = 0; k0 < 16 * mt; k0 += 8) {
+      const float* ap = As + (k0 + 2 * t) * LDP + m0 + g;
+      tc::Frag<4> af;
+      af.set(0, ap[0]);
+      af.set(1, ap[8]);
+      af.set(2, ap[LDP]);
+      af.set(3, ap[LDP + 8]);
+      const float* bp = Bs + (k0 + 2 * t) * LDH + g;
+#pragma unroll
+      for (int jd = 0; jd < 4; ++jd) {
+        tc::Frag<2> bf;
+        bf.set(0, bp[8 * jd]);
+        bf.set(1, bp[LDH + 8 * jd]);
+        tc::mma3(acc[jd], af, bf);
+      }
+    }
+    store_rows(a.dqkv + row0 * 3 * C + (prod == 0 ? 2 * C : C) + head * D, 3 * C, acc, m0, L);
+  }
+}
+
+// wtc::bwd_tail_kernel with fp32 tiles: n_dx blocks of dx = dq wq^T + dk
+// wk^T + dv wv^T in 64 x 64 tiles, k = 3C split dx_splits ways; n_dw
+// blocks of the weight gradients z = q, k, v, o: grads_z[:C] = A_z^T B_z,
+// grads_z[C] = column sums of B_z, (A, B) = (x, dq | dk | dv) or (o, g),
+// over the rows split `splits` ways. Splits meet in split_fixup.
+using TailF = tc::GemmF32<64, 64, 2, 2, 2>;
+__global__ void __launch_bounds__(THREADS) bwd_tail_kernel(wtc::TailArgsT<float> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  using G = TailF;
+  constexpr int TILE = G::BM * G::BN;
+  constexpr int BK = tc::BK;
+  const int C = a.C, rows = a.rows;
+  float acc[G::MI][G::NI][4];
+  const int id = blockIdx.x;
+  const bool dx = a.dx_first ? id < a.n_dx : id >= a.n_dw;
+  if (dx) {
+    const int b = a.dx_first ? id : id - a.n_dw;
+    const int s = b % a.dx_splits, tile = b / a.dx_splits;
+    const int mb = (tile / a.tn) * G::BM, nb = (tile % a.tn) * G::BN;
+    const int K = 3 * C, kt = (K + BK - 1) / BK;
+    const int kt0 = min(kt, s * a.dx_per), kt1 = min(kt, kt0 + a.dx_per);
+    tc::gemm_tile_f32<G, false, true>(
+        acc, ring, kt0, kt1,
+        [&](int r, int c, int k0) -> const float* {
+          return mb + r < rows && k0 + c < K ? a.dqkv + (size_t)(mb + r) * K + k0 + c : nullptr;
+        },
+        [&](int r, int c, int k0) -> const float* {
+          const int k = k0 + c, z = k / C;
+          // selects, not a.w[z]: a run-time index would put w in local memory
+          const float* w = z == 0 ? a.w[0] : z == 1 ? a.w[1] : a.w[2];
+          return nb + r < C && k < K ? w + (size_t)(nb + r) * C + k - z * C : nullptr;
+        },
+        [](const float*, int) {}, [] { tc::griddep_wait(); });
+    if (a.dx_splits > 1) {
+      float none[1];
+      if (!tc::split_fixup<THREADS, G::MI, G::NI, 0>(acc, none,
+                                                     a.dx_part + (size_t)tile * a.dx_splits * TILE,
+                                                     a.dx_splits, s, a.counters + a.dw_tiles + tile))
+        return;
+    }
+    tc::for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+      if (row < rows && col < C) tc::store2f(a.dx + (size_t)row * C + col, v0, v1);
+    });
+    return;
+  }
+  const int b = a.dx_first ? id - a.n_dx : id, s = b % a.splits, tile = b / a.splits;
+  const int per_z = a.tn * a.tn, z = tile / per_z;
+  const int mb = ((tile % per_z) / a.tn) * G::BM, nb = (tile % a.tn) * G::BN;
+  const float* A = z < 3 ? a.x : a.o;
+  const float* B = z == 0 ? a.dqkv : z == 1 ? a.dqkv + C : z == 2 ? a.dqkv + 2 * C : a.g;
+  const int ldb = z < 3 ? 3 * C : C;
+  const int kt = (rows + BK - 1) / BK, kt0 = min(kt, s * a.per), kt1 = min(kt, kt0 + a.per);
+  // bias gradient: the tiles of the first row block also sum B's columns
+  // in fp32; thread t takes column t % 64 over half the k-tile's rows
+  const bool bias = mb == 0;
+  float cs[2] = {0.f, 0.f};
+  // B (dq | dk | dv, or g) and o come from the core kernel: x streams in
+  // before the wait, o after it
+  if (z == 3) tc::griddep_wait();
+  tc::gemm_tile_f32<G, true, false, true>(
+      acc, ring, kt0, kt1,
+      [&](int r, int c, int k0) -> const float* {
+        return k0 + r < rows && mb + c < C ? A + (size_t)(k0 + r) * C + mb + c : nullptr;
+      },
+      [&](int r, int c, int k0) -> const float* {
+        return k0 + r < rows && nb + c < C ? B + (size_t)(k0 + r) * ldb + nb + c : nullptr;
+      },
+      [&](const float* bs, int ld) {
+        if (!bias) return;
+        const int col = threadIdx.x % G::BN, r0 = (threadIdx.x / G::BN) * (BK / 2);
+#pragma unroll 8
+        for (int r = 0; r < BK / 2; ++r) cs[0] += bs[(r0 + r) * ld + col];
+      },
+      [] { tc::griddep_wait(); });
+  if (a.splits > 1 &&
+      !tc::split_fixup<THREADS, G::MI, G::NI, 1>(
+          acc, cs, a.part + (size_t)tile * a.splits * (TILE + THREADS), a.splits, s,
+          a.counters + tile))
+    return;
+  float* out = a.grads + (size_t)z * (C + 1) * C;
+  tc::for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+    if (row < C && col < C) tc::store2f(out + (size_t)row * C + col, v0, v1);
+  });
+  if (bias) {
+    __shared__ float half[G::BN];
+    if (threadIdx.x >= G::BN) half[threadIdx.x - G::BN] = cs[0];
+    __syncthreads();
+    if (threadIdx.x < G::BN && nb + threadIdx.x < C)
+      out[(size_t)C * C + nb + threadIdx.x] = cs[0] + half[threadIdx.x];
+  }
+}
+
+constexpr size_t kTailSmem = TailF::smem<true, false>() > TailF::smem<false, true>()
+                                 ? TailF::smem<true, false>() : TailF::smem<false, true>();
+
+inline int backward(const void* x, const uint8_t* mask, const void* g, const void* wq,
+                    const void* bq, const void* wk, const void* bk, const void* wv,
+                    const void* bv, const void* wo, int N, int L, int C, int heads, void* dx,
+                    void* o, void* dqkv, float* grads, float* scratch, int* counters,
+                    cudaStream_t st) {
+  if (!wtc::takes(L, C / heads) || C % heads) return (int)cudaErrorInvalidValue;
+  HeadArgs h = head_args(x, mask, wq, bq, wk, bk, wv, bv, wo, g, L, C, heads);
+  h.o = (float*)o;
+  h.dqkv = (float*)dqkv;
+  h.cs = 1;
+  cudaError_t e =
+      tc::launch(bwd_core_kernel, dim3(heads, N), BWD_SMEM, st, wtc::cluster_of(1), h);
+  if (e != cudaSuccess) return (int)e;
+  const wtc::TailPlan p = wtc::tail_plan(N * L, C);
+  if (!wtc::tail_counters_fit(p)) return (int)cudaErrorInvalidValue;
+  const auto ta = wtc::tail_args<float>(p, x, g, o, dqkv, wq, wk, wv, dx, grads, N * L, C,
+                                        scratch, counters);
+  e = tc::launch(bwd_tail_kernel, dim3(p.n_dw + p.n_dx), kTailSmem, st, tc::after_previous(), ta);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace wtf
 
 }  // namespace ldm
 
 // The routes of a call, by dtype and shape alone. At head dim 32 and L
-// <= 64 (every shape of the UNet) the forward runs on the tensor cores in
-// bfloat16 and in float32 (three TF32 passes); the backward in bfloat16
-// only. Other shapes, and the float32 backward, take the FMA tiles.
-static bool tc_shape(int L, int C, int heads) {
-  return heads > 0 && C % heads == 0 && ldm::wtc::takes(L, C / heads);
-}
+// <= 64 (every shape of the UNet) both directions run on the tensor cores
+// in bfloat16 and in float32 (three TF32 passes). Other shapes take the
+// FMA tiles.
 static bool on_tensor_cores(int dtype, int L, int C, int heads) {
-  return (dtype == 0 || dtype == 1) && tc_shape(L, C, heads);
-}
-static bool bwd_on_tensor_cores(int dtype, int L, int C, int heads) {
-  return dtype == 1 && tc_shape(L, C, heads);
+  return (dtype == 0 || dtype == 1) && heads > 0 && C % heads == 0 &&
+         ldm::wtc::takes(L, C / heads);
 }
 
 extern "C" int window_mha_tensor_cores(int dtype, int L, int C, int heads) {
@@ -1377,7 +1727,7 @@ extern "C" int window_mha_tensor_cores(int dtype, int L, int C, int heads) {
 }
 
 extern "C" int window_mha_bwd_tensor_cores(int dtype, int L, int C, int heads) {
-  return bwd_on_tensor_cores(dtype, L, C, heads);
+  return on_tensor_cores(dtype, L, C, heads);
 }
 
 extern "C" int window_mha_forward(int dtype, const void* x, const void* mask, const void* wq,
@@ -1429,9 +1779,13 @@ extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, c
                                    void* scratch, void* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (bwd_on_tensor_cores(dtype, L, C, heads))
-    return ldm::wtc::backward(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx, o, dqkv,
-                              (float*)grads, (float*)scratch, (int*)counters, st);
+  if (on_tensor_cores(dtype, L, C, heads))
+    return dtype == 0 ? ldm::wtf::backward(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads,
+                                           dx, o, dqkv, (float*)grads, (float*)scratch,
+                                           (int*)counters, st)
+                      : ldm::wtc::backward(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads,
+                                           dx, o, dqkv, (float*)grads, (float*)scratch,
+                                           (int*)counters, st);
   if (dtype == 0)
     return ldm::window_mha_bwd<float>(x, m, g, wq, bq, wk, bk, wv, bv, wo, N, L, C, heads, dx,
                                       qkv, o, dout, dqkv, (float*)grads, (float*)scratch, st);
@@ -1444,13 +1798,13 @@ extern "C" int window_mha_backward(int dtype, const void* x, const void* mask, c
 
 // Shared memory one backward attention block needs, for the wrapper's check.
 extern "C" long long window_mha_bwd_smem_bytes(int dtype, int L, int C, int heads) {
-  if (bwd_on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::BWD_SMEM;
+  if (on_tensor_cores(dtype, L, C, heads))
+    return (long long)(dtype == 0 ? ldm::wtf::BWD_SMEM : ldm::wtc::BWD_SMEM);
   return (long long)ldm::attn_bwd_smem_bytes(L, C / heads);
 }
 
 // fp32 scratch (split partial sums) one backward call needs.
 extern "C" long long window_mha_bwd_scratch_floats(int dtype, int N, int L, int C, int heads) {
-  if (bwd_on_tensor_cores(dtype, L, C, heads))
-    return (long long)ldm::wtc::tail_plan(N * L, C).floats;
+  if (on_tensor_cores(dtype, L, C, heads)) return (long long)ldm::wtc::tail_plan(N * L, C).floats;
   return (long long)ldm::attn_bwd_scratch_floats(N, L, C);
 }

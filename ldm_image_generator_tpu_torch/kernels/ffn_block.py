@@ -27,10 +27,10 @@ epilogue;
 k is split over blocks where the grid has fewer than two blocks per SM,
 the splits summed in a fixed order by the last block of each tile.
 float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
-csrc/ffn_common.cuh (a float32 tensor-core route, three TF32 passes as
-block_core's, is queued: ROADMAP A0): it splits k until the card has
-about four blocks per SM and sums the fp32 partials in an elementwise
-pass. h, the gate g and the partials live
+csrc/ffn_common.cuh in the forward (a float32 tensor-core route, three
+TF32 passes as block_core's, is queued: ROADMAP A0): it splits k until
+the card has about four blocks per SM and sums the fp32 partials in an
+elementwise pass. h, the gate g and the partials live
 in scratch this wrapper allocates. Film rows repeat with period
 film_mul.shape[0], so the batch-1 FiLM schedule needs no broadcast copy.
 
@@ -38,11 +38,13 @@ Backward (``ffn_block_bwd``, csrc/ffn_block_bwd.cu): from the saved h
 and the out-cotangent g, the towers' weight and bias gradients (fp32)
 and dh. At the training shapes it is bound by operations (24 products
 of N x C x M, half of them recomputing the forward's a, b and the
-gate's cotangent). The tensor-core route (the same shape rule) runs
-two launches: the gate's recompute and cotangents, then one launch
-holding the nine weight gradients (rows split over blocks, bias
-gradients as column sums) and dh; the FMA route splits the rows over
-blocks and sums the fp32 partials in a second pass. Neither uses
+gate's cotangent). The tensor-core route (the same shapes, in bfloat16
+and, since its own rule ``ffn_bwd_tensor_cores``, in float32 as three
+TF32 passes, csrc/ffn_tf32_bwd.cuh) runs two launches: the gate's
+recompute and cotangents, then one launch holding the nine weight
+gradients (rows split over blocks, bias gradients as column sums) and
+dh; the FMA route (other widths) splits the rows over blocks and sums
+the fp32 partials in a second pass. Neither uses
 atomics on data: reruns are bitwise equal. ``ffn_tower_bwd`` composes
 it with the expert scatter and the norm/FiLM backward, as the JAX
 package's ``_ffn_tower_bwd`` (:681) does, and ``ffn_block`` is an
@@ -355,8 +357,8 @@ def ffn_block_bwd(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
     dgate = torch.empty((9, n, m), dtype=h.dtype, device=h.device)
     grads = torch.empty(lib.ffn_bwd_grad_floats(c, m), **f32)
     scratch = torch.empty(lib.ffn_bwd_scratch_floats(code, n, c, m), **f32)
-    _check_chunk_aligned(lib.ffn_tensor_cores(code, n, c, m), h, g, gwa, gwb,
-                         gwc, wa, wb, wc)
+    _check_chunk_aligned(lib.ffn_bwd_tensor_cores(code, n, c, m), h, g, gwa,
+                         gwb, gwc, wa, wb, wc)
     p = _build.cuda_ptrs(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc,
                          expert_ids, dh, dgate, grads, scratch,
                          _split_counters(lib, h.device))

@@ -32,16 +32,17 @@ fp32 accumulators, csrc/mma_common.cuh) in two launches each way:
     the rows and summed in a fixed order, so reruns are bitwise equal.
   It takes head dim 32 and L <= 64 (every shape of the UNet); other
   bfloat16 shapes take the FMA path below, chosen by shape alone.
-float32's forward runs the same two launches on the tensor cores at the
+float32 runs the same two launches each way on the tensor cores at the
 same shapes, each product as three TF32 passes (csrc/tf32_common.cuh),
 fp32 accurate: it holds the fp32 gates (kernel vs plain at 1e-4, card vs
-CPU); the softmax stays fp32 on the CUDA cores. The float32 backward, and
-both types at other shapes, keep the CUDA-core FMA path: a qkv
+CPU); the softmax and its backward stay fp32 on the CUDA cores, and the
+backward keeps P and dS in fp32 shared memory for its transposed
+products. Both types at other shapes keep the CUDA-core FMA path: a qkv
 projection, one block per (window, head) holding q, k, v and the scores
 in fp32 shared memory, and the output projection (k split over blocks at
 few rows, with a summing pass); the backward recomputes qkv, dO, the
 per-head gradients, dx and the weight gradients in a chain of such
-passes (``window_mha_bwd_tensor_cores`` is bf16 only). The TPU kernel's head folding is a Mosaic workaround and is
+passes. The TPU kernel's head folding is a Mosaic workaround and is
 not carried over. ``window_mha`` is an autograd Function around both
 directions; the JAX package kept C=1024 on its XLA VJP (a Mosaic
 limit), the port has no such cap.

@@ -31,9 +31,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 TF32_PASSES = {torch.float32: 3, torch.bfloat16: 2}
 # kernels whose float32 calls run their products on the tensor cores, as
 # TF32_PASSES[torch.float32] TF32 passes (block_core with full-precision
-# FFN weights, window MHA forward); every other float32 route runs on the
-# CUDA cores' FMA units at PEAK_FLOPS[torch.float32]
-TF32_KERNELS = ("block_core", "window_mha")
+# FFN weights, window MHA both ways, ffn_block's backward); every other
+# float32 route (ffn_block's forward, int8 weights at fp32 activations)
+# runs on the CUDA cores' FMA units at PEAK_FLOPS[torch.float32]
+TF32_KERNELS = ("block_core", "window_mha", "window_mha_bwd", "ffn_block_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -438,8 +439,9 @@ def ffn_bwd_boundary_plain(kernel, plain, args) -> tuple:
     differ, those of them not within C 2^-23 (|h| @ |wb| + |bb|) of 0,
     the kernel's outputs of a rerun). The bound is the most two fp32 sums
     over C terms in other orders can differ (both sides sum b in fp32 for
-    bf16 operands too); a flip there moves a whole row of dh and a column
-    of dwb. The kernel's decisions are read back from its db (nonzero
+    bf16 operands too); the float32 tensor-core route's three TF32 passes
+    stay within it too (the derivation heads csrc/tf32_common.cuh). A
+    flip there moves a whole row of dh and a column of dwb. The kernel's decisions are read back from its db (nonzero
     where it took b > 0) through a rerun that keeps its buffers; only a
     decision near the boundary (away == 0) explains a difference."""
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn

@@ -196,10 +196,10 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 
 def test_trace_kernels_lists_every_path_shape_of_every_kernel():
     """The trace CLI covers every kernel at every call shape of its paths:
-    batch-1 and batch-4 sampling, the B=8 train step (forward and
-    backward) and the VAE step, the window MHA ones at head dim 32 and
-    L <= 64 (the bf16 tensor-core shapes); it refuses to run without a
-    card."""
+    batch-1 and batch-4 sampling, the backward kernels of the B=1 train
+    step, the B=8 train step (forward and backward) and the VAE step, the
+    window MHA ones at head dim 32 and L <= 64 (the tensor-core shapes);
+    it refuses to run without a card."""
     from ldm_image_generator_tpu_torch.cli import trace_kernels
 
     calls = trace_kernels.calls_of(sorted(trace_kernels.KERNELS))
@@ -207,10 +207,11 @@ def test_trace_kernels_lists_every_path_shape_of_every_kernel():
         ("b1", "block_core"), ("b1", "window_mha"), ("b4", "ffn_block"),
         ("b4", "window_mha"), ("train", "ffn_block"),
         ("train", "ffn_block_bwd"), ("train", "window_mha"),
-        ("train", "window_mha_bwd"), ("vae_train", "vq")]
-    assert len(calls) == 4 * 8 + 1
+        ("train", "window_mha_bwd"), ("train_b1", "ffn_block_bwd"),
+        ("train_b1", "window_mha_bwd"), ("vae_train", "vq")]
+    assert len(calls) == 5 * 8 + 1
     mha = [c for _, c in calls if c.kernel.startswith("window_mha")]
-    assert len(mha) == 16
+    assert len(mha) == 20
     assert all(c.c == 32 * c.heads and c.l <= 64 for c in mha)
     if not torch.cuda.is_available():
         assert trace_kernels.main([]) == 1

@@ -1,6 +1,6 @@
-"""The arithmetic of the port's float32 tensor-core routes (block_core and
-window MHA forward, csrc/tf32_common.cuh) against the JAX package on the
-CPU.
+"""The arithmetic of the port's float32 tensor-core routes (block_core,
+window MHA forward and backward, ffn_block's backward;
+csrc/tf32_common.cuh) against the JAX package on the CPU.
 
 The routes compute every fp32 product on the H100's tensor cores as three
 TF32 passes: each operand is split into a TF32 head hi = rna(v) and tail lo
@@ -9,19 +9,27 @@ the passes of one k-tile go into a zeroed fp32 partial (the tensor cores
 add with truncation) that joins the running sum by a rounded fp32 add.
 This file emulates that in plain PyTorch, on each kernel's own tiling
 (64-deep k-tiles of the FFN towers, the grouped conv's 32-deep taps, the
-window projections' 32-deep tiles, one partial per score and P v product),
-and holds the emulated block_core body and window MHA against the JAX
-package's functions (fp32 XLA compositions and the Pallas kernels in
-interpret mode, as its own tests run them) at 1e-4, the card's fp32 gate.
-The deep cases run block_core's output product at the depth of the UNet's
-C=1024 stage, 3 x 1024 + 288. The emulation lives here, not in the port.
+window projections' 32-deep tiles, one partial per score and P v product;
+in the backward kernels the weight gradients' 64-row k-tiles split over
+blocks as the H100's 132 SMs make the plans split them, the fp32 column
+sums of the bias gradients in the kernels' order, dh and dx over their
+64-deep k-tiles), and holds the emulated kernels against the JAX
+package's functions (fp32 XLA compositions and their VJPs, and the Pallas
+kernels in interpret mode, as its own tests run them) at 1e-4, the card's
+fp32 gate. The deep cases run block_core's output product at the depth of
+the UNet's C=1024 stage, 3 x 1024 + 288, ffn_block's dh at 6M = 6144 deep
+at C = M = 1024, and the backward kernels' weight gradients over 4096 and
+more rows. The emulation lives here, not in the port.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ldm_image_generator_tpu.kernels import block_core as jbc
+from ldm_image_generator_tpu.kernels import ffn_block as jffn
 from ldm_image_generator_tpu.kernels import window_attention as jattn
 from ldm_image_generator_tpu_torch.kernels.ffn_block import norm_film
 
@@ -42,12 +50,16 @@ def _split(v: torch.Tensor):
     return hi, _tf32(v - hi)
 
 
+# the 29 low mantissa bits a float64 has beyond a float32's 23
+_BELOW_FP32 = ~((1 << 29) - 1)
+
+
 def _truncated(d: torch.Tensor) -> torch.Tensor:
     """float64 -> the float32 value truncated toward zero (the tensor
-    cores' accumulator does not round to nearest), kept in float64."""
-    f = d.float()
-    over = f.double().abs() > d.abs()
-    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f).double()
+    cores' accumulator does not round to nearest), kept in float64: the
+    mantissa bits below float32's cleared (exact for values in float32's
+    normal range, as every partial here is)."""
+    return (d.view(torch.int64) & _BELOW_FP32).view(torch.float64)
 
 
 def _ktile(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -197,3 +209,197 @@ def test_tf32_route_arithmetic_matches_jax(kernel, shape, pallas):
                                                 interpret=True))
         for ref in refs:
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The backward routes (ffn_tf32_bwd.cuh, window_attention.cu namespace wtf)
+
+SMS = 132  # the H100's streaming multiprocessors, by which the tail plans split
+
+
+def _split_per(tiles: int, kt: int) -> int:
+    """k-tiles per split of a tail launch's product (ffn_tc.cuh split_k and
+    wtc::tail_plan alike): the k-tiles split over blocks until the grid has
+    two blocks per SM, at least 4 k-tiles each."""
+    s = 1
+    if tiles < 2 * SMS:
+        s = max(1, min(-(-2 * SMS // tiles), kt // 4))
+    return -(-kt // s)
+
+
+def _product_split(a: torch.Tensor, b: torch.Tensor, per: int) -> torch.Tensor:
+    """a @ b over 64-deep k-tiles, `per` k-tiles a split: each split sums
+    from zero, and the splits meet in order (split_fixup) by fp32 adds."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 64 * per):
+        acc = acc + _product(a[..., k0:k0 + 64 * per], b[k0:k0 + 64 * per], 64)
+    return acc
+
+
+def _col_sums(b: torch.Tensor, per: int) -> torch.Tensor:
+    """The bias gradient of a tail block: b's columns summed in fp32 as the
+    kernel sums them. Per split, thread t < 64 adds rows 0-31 of each landed
+    64-row k-tile, thread t + 64 rows 32-63, one row at a time; the splits'
+    sums meet in order; then the two halves."""
+    rows, ncol = b.shape
+    kt = -(-rows // 64)
+    tiles = F.pad(b, (0, 0, 0, kt * 64 - rows)).reshape(kt, 64, ncol)
+    halves = []
+    for half in (0, 1):
+        total = torch.zeros(ncol)
+        for s0 in range(0, kt, per):
+            cs = torch.zeros(ncol)
+            for t in range(s0, min(kt, s0 + per)):
+                for r in range(32):
+                    cs = cs + tiles[t, 32 * half + r]
+            total = total + cs
+        halves.append(total)
+    return halves[0] + halves[1]
+
+
+def _ffn_bwd_tc(h, g, gwa, gba, gwb, gbb, gwc, wa, ba, wb, bb, wc, ids):
+    """ffn_block's fp32 backward route: per tower a, b over 64-deep k-tiles
+    of C and dg = g wc^T likewise (split over blocks as the gate's plan
+    splits them where its grid is small), then da, db and the gate in fp32; the
+    nine weight gradients over 64-row k-tiles split as the tail plan splits
+    them, bias gradients as the kernel's column sums; dh one product over
+    the six segments [da_0 | db_0 | da_1 | ...] @ [wa_0^T; wb_0^T; ...],
+    split likewise. Returns (dh, then per tower dwa, dba, dwb, dbb, dwc)."""
+    n, c = h.shape
+    m = gwa.shape[1]
+    gate_per = _split_per((m // 64) * -(-n // 64) * 3, c // 64)
+    dw_per = _split_per(9 * (c // 64) * (m // 64), -(-n // 64))
+    dh_per = _split_per(-(-n // 64) * (c // 64), 6 * m // 64)
+    towers = [(gwa, gba, gwb, gbb, gwc)] + [
+        (wa[e], ba[e], wb[e], bb[e], wc[e]) for e in ids]
+    grads, seg_a, seg_b = [], [], []
+    for t_wa, t_ba, t_wb, t_bb, t_wc in towers:
+        a = _product_split(h, t_wa, gate_per) + t_ba
+        b = _product_split(h, t_wb, gate_per) + t_bb
+        dg = _product_split(g, t_wc.t(), gate_per)
+        relu_b = torch.clamp_min(b, 0.0)
+        da, db, gate = dg * relu_b, dg * a * (b > 0), a * relu_b
+        grads += [_product_split(h.t(), da, dw_per), _col_sums(da, dw_per),
+                  _product_split(h.t(), db, dw_per), _col_sums(db, dw_per),
+                  _product_split(gate.t(), g, dw_per)]
+        seg_a += [da, db]
+        seg_b += [t_wa.t(), t_wb.t()]
+    dh = _product_split(torch.cat(seg_a, 1), torch.cat(seg_b, 0), dh_per)
+    return (dh, *grads)
+
+
+def _window_mha_bwd_tc(x, mask, g, wq, bq, wk, bk, wv, bv, wo, bo, heads):
+    """window MHA's fp32 backward route (wtf::bwd_core_kernel, bwd_tail_kernel):
+    q, k, v and dO = g wo^T over 32-deep k-tiles; per (window, head) the
+    scores and dP = dO v^T in one partial each (d deep), the fp32 softmax
+    and dS = P (dP - rowsum(dP P)) scale, o = P v, dq = dS k, dv = P^T dO,
+    dk = dS^T q in one partial each (the keys or queries zero-padded to a
+    multiple of 16, as the kernel's m-tiles are); then dx = dqkv [wq | wk |
+    wv]^T over 64-deep k-tiles of 3C, at most 8 a split, and the weight
+    gradients x^T [dq | dk | dv], o^T g over 64-row k-tiles split as the
+    tail plan splits them, bias gradients as the kernel's column sums.
+    Returns (dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)."""
+    n, l, c = x.shape
+    d = c // heads
+    rows, keys = n * l, -(-l // 16) * 16
+    scale = 1.0 / float(d) ** 0.5
+    x2, g2 = x.reshape(rows, c), g.reshape(rows, c)
+    split_heads = lambda t: t.reshape(n, l, heads, d).transpose(1, 2)
+    merge = lambda t: t.transpose(1, 2).reshape(rows, c)
+    pad_keys = lambda t: F.pad(t, (0, keys - l))         # [..., l, keys]
+    pad_rows = lambda t: F.pad(t, (0, 0, 0, keys - l))   # [..., keys, d]
+    q, k, v = (split_heads(_product(x2, w_, 32) + b_)
+               for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
+    do = split_heads(_product(g2, wo.t(), 32))
+    zeros = lambda *s: torch.zeros((n, heads) + s)
+    scores = _ktile(zeros(l, l), q, k.transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = scores + torch.where(mask[:, None, None, :], -1e9, 0.0)
+    p = torch.softmax(scores, dim=-1)
+    o = _ktile(zeros(l, d), pad_keys(p), pad_rows(v))
+    dp = _ktile(zeros(l, l), do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = _ktile(zeros(l, d), pad_keys(ds), pad_rows(k))
+    dv = _ktile(zeros(l, d), pad_keys(p.transpose(-1, -2)), pad_rows(do))
+    dk = _ktile(zeros(l, d), pad_keys(ds.transpose(-1, -2)), pad_rows(q))
+    dqkv = torch.cat([merge(t) for t in (dq, dk, dv)], 1)
+    tn = -(-c // 64)
+    dw_per = _split_per(4 * tn * tn, -(-rows // 64))
+    dx = _product_split(dqkv, torch.cat([wq, wk, wv], 1).t(), min(-(-3 * c // 64), 8))
+    out = [dx.reshape(n, l, c)]
+    for a_, b_ in [(x2, dqkv[:, z * c:(z + 1) * c]) for z in range(3)] + [(merge(o), g2)]:
+        out += [_product_split(a_.t(), b_, dw_per), _col_sums(b_, dw_per)]
+    return tuple(out)
+
+
+# (kernel, shape, whether the Pallas kernel runs too): ffn_block_bwd (rows,
+# C, M), window MHA backward (windows, tokens, C, heads, masked). The deep
+# cases: the weight gradients over 4096 rows (ffn, the first stage's
+# widths) and 4356 (window MHA at a 512px B=1 step's first stage: 121
+# masked windows of 36 tokens); ffn's dh at 6M = 6144 deep at C = M = 1024;
+# window MHA's dx at 3C = 3072 deep on the C=1024 map of 16 tokens
+BWD_CASES = [
+    ("ffn_block_bwd", (40, 128, 128), True),
+    ("ffn_block_bwd", (4096, 128, 128), False),
+    ("ffn_block_bwd", (64, 1024, 1024), False),
+    ("window_mha_bwd", (3, 36, 128, 4, True), True),
+    ("window_mha_bwd", (121, 36, 128, 4, True), False),
+    ("window_mha_bwd", (2, 16, 1024, 32, False), False),
+]
+
+
+@pytest.mark.parametrize("kernel,shape,pallas", BWD_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s, _ in BWD_CASES])
+def test_tf32_backward_route_arithmetic_matches_jax(kernel, shape, pallas):
+    """The emulated backward route against jax.vjp of the JAX package's
+    fp32 XLA function at 1e-4 (and against its Pallas backward kernel in
+    interpret mode where `pallas`). ffn_block's towers are compared
+    through ffn_block_xla's VJP with a FiLM row per row, whose film_bias
+    cotangent is dh."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    if kernel == "ffn_block_bwd":
+        rows, c, m = shape
+        rng = np.random.default_rng(rows + c)
+        r = lambda *s, scale=0.05: (rng.normal(size=s) * scale).astype(np.float32)
+        x, g = r(rows, c, scale=1.0), r(rows, c, scale=1.0)
+        mul, bias = r(rows, c, scale=0.2) + 1.0, r(rows, c, scale=0.2)
+        w = [r(c, m), r(m), r(c, m), r(m), r(m, c), r(c),
+             r(4, c, m), r(4, m), r(4, c, m), r(4, m), r(4, m, c), r(4, c)]
+        ids = (1, 3)
+        (_, h), vjp = jax.vjp(lambda *a: jffn.ffn_block_xla(*a, *ids),
+                              *[jnp.asarray(a) for a in (x, mul, bias, *w)])
+        ref = vjp((jnp.asarray(g), jnp.zeros_like(h)))
+        # dh, then per tower dwa, dba, dwb, dbb, dwc: the general's, then
+        # the stacked experts' rows at the ids
+        want = [ref[2]] + list(ref[3:8]) + [
+            np.asarray(ref[9 + j])[e] for e in ids for j in (0, 1, 2, 3, 4)]
+        tw = [t(a) for k, a in enumerate(w) if k not in (5, 11)]  # no output biases
+        got = _ffn_bwd_tc(t(np.asarray(h)), t(g), *tw, ids)
+        refs = [want]
+        if pallas:
+            jw = [jnp.asarray(a) for k, a in enumerate(w) if k not in (5, 11)]
+            out = jffn.ffn_block_bwd_pallas(h, jnp.asarray(g), *jw,
+                                            jnp.asarray(ids, jnp.int32), interpret=True)
+            refs.append([np.asarray(o).reshape(tuple(gt.shape)) for o, gt in zip(out, got)])
+    else:
+        n, l, c, heads, masked = shape
+        x, mask, ws = _attn_case(n, l, c, seed=n + l + c, masked=masked)
+        g = np.random.default_rng(n * l).normal(size=(n, l, c)).astype(np.float32)
+        got = _window_mha_bwd_tc(t(x), None if mask is None else t(mask), t(g),
+                                 *map(t, ws), heads)
+        m = None if mask is None else jnp.asarray(mask)
+        _, vjp = jax.vjp(lambda x_, *w_: jattn.window_mha_xla(x_, m, *w_, heads),
+                         jnp.asarray(x), *[jnp.asarray(a) for a in ws])
+        refs = [vjp(jnp.asarray(g))]
+        if pallas:
+            dx, dwqkv, dbqkv, dwo, dbo = jattn.window_mha_bwd_pallas(
+                jnp.asarray(x), m, jnp.asarray(g), *[jnp.asarray(a) for a in ws],
+                num_heads=heads, interpret=True)
+            dwqkv, dbqkv = np.asarray(dwqkv), np.asarray(dbqkv)
+            refs.append([dx] + [a for z in range(3) for a in
+                                (dwqkv[:, z * c:(z + 1) * c], dbqkv[z * c:(z + 1) * c])]
+                        + [dwo, dbo])
+    for ref in refs:
+        assert len(ref) == len(got)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=str(i), **TOL)
