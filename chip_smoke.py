@@ -25,8 +25,9 @@ share there is derived from that config.
      shapes, fp32 and bf16); block_core (full-precision and int8 FFN
      weights, batch 1, latent 32 and 64) and the int8 ffn_block (batch 4)
      in both types, each call rerun bitwise and once more with every
-     buffer its wrapper allocates between sentinel guards; the int8
-     routes per step beside the same kernel with bf16 weights;
+     buffer its wrapper allocates between sentinel guards (ffn_block at
+     every shape too); the int8 routes per step beside the same kernel
+     with bf16 weights;
   3. sample one 256px image with the default UNet and VAE decoder (seeded
      random weights, 20 DDIM steps, bf16): launch counts must be exactly
      720 block_core and 160 window MHA; then images/s and a profile of
@@ -42,7 +43,8 @@ share there is derived from that config.
   5. one full-width denoise step in fp32 on the card against the same
      weights on the CPU (plain versions), for the UNet with full-precision
      and with int8 FFN weights (whose int8 weights and scale-bias rows,
-     made on each side, must be equal);
+     made on each side, must be equal), at B=1 (block_core) and B=4
+     (ffn_block);
   6. train: the default UNet (fp32 parameters, bf16 compute) on B=8
      seeded 32x32x8 latents, AdamW lr 1e-4, EMA 0.999, eps-prediction L1,
      stochastic depth 0.25: one warm-up step, then 5 timed steps that must
@@ -249,9 +251,11 @@ share there is derived from that config.
      192) from the image cache, which must exit 0 and decode nothing.
   20. the CLIs' default size, 512px (latent 64x64x8), the default UNet and
      decoder at full width, seeded: (a) cli/sample_ldm at its defaults
-     (-n 1, fp32) in a working directory under build/, exactly 20 B=1
-     UNet calls' launches and one 512x512 PNG, then one more call under
-     the profiler for the card's busy time in it; (b) LDMPipeline.sample at
+     (fp32) in working directories under build/, -n 1, -n 4, --quant int8
+     and -n 4 --quant int8: exactly 20 UNet calls' launches at that batch
+     each (720 block_core, 720 ffn_block, 720 int8 block_core, 720 int8
+     ffn_block, and 160 window MHA) and its 512x512 PNGs, then one more
+     call of each under the profiler for the card's busy time in it; (b) LDMPipeline.sample at
      512px, bf16, DDIM-20, B=1 (720 block_core, 160 window MHA) and B=4
      (720 ffn_block), (c) B=1 with int8 FFN weights (720 int8
      block_core): images/s, a profiled call's device busy, peak memory;
@@ -281,24 +285,27 @@ window MHA and ffn_block_bwd at the int8 B=2 step's; an SP rank's FFN
 calls have a DP rank's row counts.)
 Phase 2 also holds every kernel call of the 512px paths in both types
 (tags b1-64: block_core and window MHA of a B=1 sample; b4-64: a B=4
-sample; train64: the B=8 train step; train64_b1: the B=1 train step's
-block_core without residual and its backward kernels), rerun bitwise
-between guards, with per-step times and bounds.
-Phase 2 first profiles one fp32 call of block_core and of window MHA at
-each shape of a 512px B=1 sample, and of ffn_block_bwd and window MHA's
-backward at each shape of a 512px B=1 train step: each launches its
-tensor-core chain (three TF32 kernels for block_core, two for each of
-the others) and nothing else. Phase 2 also times the fp32 calls of the
-paths that sample_ldm and train_ldm run at their default precision
-(FP32_TIMED_TAGS: b1, b1-64, train64_b1, and the B=1 body shapes through
-ffn_block, split and split-64), and the backward kernels' of the B=8
-512px train step (FP32_TIMED_BWD_TAGS: train64): kernel, plain, library
-(window MHA: F.multi_head_attention_forward with TF32 off, and its
-backward) and bound per row and per step, the bound of block_core, window
-MHA both ways and ffn_block_bwd from three TF32 passes at the tensor
-cores' rate (workloads.TF32_KERNELS), every other fp32 route's from the
-CUDA cores' 67 TFLOP/s. The kernels line names each kernel's route by
-dtype (ROUTES).
+sample, and its int8 ffn_block; train64: the B=8 train step; train64_b1:
+the B=1 train step's block_core without residual and its backward
+kernels), rerun bitwise between guards, with per-step times and bounds.
+Phase 2 times the fp32 calls of the paths that sample_ldm and train_ldm
+run at their default precision (FP32_TIMED_TAGS: b1, b1-64, b4-64,
+train64_b1, and the B=1 body shapes through ffn_block, split and
+split-64; the int8 routes at b1, b1-64, b4-64 and split-64), and the
+backward kernels' of the B=8 512px train step (FP32_TIMED_BWD_TAGS:
+train64): kernel, plain, library (window MHA:
+F.multi_head_attention_forward with TF32 off, and its backward) and
+bound per row and per step, every fp32 bound from the least-cost
+fp32-accurate product on the tensor cores (workloads.FP32_PRODUCT:
+three TF32 passes per product, three bf16 passes on int8 weights).
+Then it profiles one fp32 call of
+block_core (fp32 and int8 FFN weights) and window MHA at each shape of
+a 512px B=1 sample, of ffn_block (both weight types) at each of a 512px
+B=4 sample, of ffn_block at the B=1 body shapes (latent 32 and 64), and
+of ffn_block_bwd and window MHA's backward at each shape of a 512px B=1
+train step: each launches its tensor-core chain (three kernels for
+block_core and ffn_block, two for each of the others) and nothing else. The kernels line names each
+kernel's route by dtype (ROUTES).
 Phase 2 also holds block_core with add_residual=False (every decoder
 block of a conditioned UNet) against its plain version at the B=1
 decoder shapes, bf16 and int8, rerun bitwise between sentinel guards.
@@ -597,11 +604,15 @@ def phase_kernels(dev, reps: int) -> dict:
     train = [c for c in train_calls(TRAIN_BATCH)
              if c.kernel.endswith("_bwd") or c.kernel in ("window_mha", "ffn_block")]
     # the int8 routes at their paths' shapes: block_core at B=1 (latent 32
-    # and 64), ffn_block at B=4
+    # and 64), ffn_block at B=4 (latent 32 and 64) and at the latent-64
+    # B=1 body shapes (beside fp32 weights' split-64 rows)
+    int8_64 = [c for c in path_calls(4, latent=64, int8=True) if c.kernel == "ffn_block_int8"]
     int8 = [(c, "b1") for c in path_calls(1, int8=True) if c.kernel == "block_core_int8"] + [
         (c, "b1-64") for c in path_calls(1, latent=64, int8=True)
         if c.kernel == "block_core_int8"] + [
-        (c, "b4") for c in path_calls(4, int8=True) if c.kernel == "ffn_block_int8"]
+        (c, "b4") for c in path_calls(4, int8=True) if c.kernel == "ffn_block_int8"] + [
+        (c, "b4-64") for c in int8_64] + [
+        (swap(c, "ffn_block_int8"), "split-64") for c in latent64]
     # the int8 train step at B=2 (every block carries a stochastic-depth
     # gate, so none folds its residual into block_core; a film per
     # sample) and its backward kernels
@@ -647,8 +658,6 @@ def phase_kernels(dev, reps: int) -> dict:
         (c, "b4-64") for c in path_calls(4, latent=64)] + [
         (c, "train64") for c in per_sample_film(train_calls(TRAIN_BATCH, latent=64))] + [
         (c, "train64_b1") for c in train64_b1]
-    check_fp32_chains(dev, latent64 + b1_64 + [c for c in train64_b1
-                                               if c.kernel.endswith("_bwd")])
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, rows32 = [], []  # the timed bf16 and fp32 calls
@@ -683,10 +692,11 @@ def phase_kernels(dev, reps: int) -> dict:
                 else:
                     torch.testing.assert_close(g.float(), w.float(), **tol)
                     err = max(err, (g.float() - w.float()).abs().max().item())
-            # split: also the B=1 ffn_block calls of a UNet without its conv
-            # branch (the ablation of phase 16)
-            if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "vq")
-                    or tag in ("ddpm_train", "int8_train", "int8_train_b2", "split")
+            # (ffn_block at every shape: the B=1 split rows are also the
+            # calls of a UNet without its conv branch, the ablation of
+            # phase 16)
+            if (call.kernel.endswith("_int8") or call.kernel in ("block_core", "ffn_block", "vq")
+                    or tag in ("ddpm_train", "int8_train", "int8_train_b2")
                     or tag in PARALLEL_TAGS or tag in LATENT64_TAGS):
                 check_guarded_rerun(kernel, args, got)
             if dtype == torch.float32:
@@ -775,6 +785,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # (an int8 train step's B=8 forward beside a bf16 one's; B=2 has none)
     for name in ("block_core_int8", "ffn_block_int8"):
         for tag, fp_tag in (("b1", "b1"), ("b1-64", "b1-64"), ("b4", "b4"),
+                            ("b4-64", "b4-64"), ("split-64", "split-64"),
                             ("int8_train", "train"), ("int8_train_b2", None)):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
@@ -842,30 +853,41 @@ def phase_kernels(dev, reps: int) -> dict:
                             else sum(r["library_ms"] * r["per_step"] for r in ddpm)))
         if name in fp32_steps:
             summary[name]["fp32_steps"] = fp32_steps[name]
+    # every fp32 call of the paths sample_ldm and train_ldm run at their
+    # defaults (after the timed rows and their per-step sums, so that a
+    # tree whose kernels fail it still reports their times)
+    check_fp32_chains(dev, latent64 + b1_64 + [c for c in train64_b1 if c.kernel.endswith("_bwd")]
+                      + cross + cross64 + [c for c in path_calls(4, latent=64)
+                                           if c.kernel == "ffn_block"]
+                      + [c for c in path_calls(1, latent=64, int8=True)
+                         if c.kernel == "block_core_int8"] + int8_64)
     return summary
 
 
 # the paths whose fp32 kernel calls phase 2 times (every other fp32 call
-# is checked, not timed): the B=1 samples at latent 32 and 64 (the
-# sample_ldm CLI's default precision), the B=1 body shapes through
+# is checked, not timed): the B=1 and B=4 samples at latent 64 (the
+# sample_ldm CLI's default precision, -n 1 and -n 4, and with --quant
+# int8) and the B=1 sample at latent 32, the B=1 body shapes through
 # ffn_block, and the fp32 train_ldm CLI's B=1 step at latent 64; the
 # backward kernels also at the B=8 train step at latent 64
-FP32_TIMED_TAGS = ("b1", "b1-64", "split", "split-64", "train64_b1")
+FP32_TIMED_TAGS = ("b1", "b1-64", "split", "split-64", "train64_b1", "b4-64")
 FP32_TIMED_BWD_TAGS = ("train64",)
 
 # each kernel's route at the UNet's shapes, by dtype (the kernels line
 # names them; other shapes take the CUDA-core FMA tiles)
 _TF32 = "tensor cores, three TF32 passes"
+_TF32_Q = "tensor cores, two TF32 passes on int8 weight tiles"
 ROUTES = {
     "block_core": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
-    "ffn_block": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
+    "ffn_block": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
     "window_mha": {"bf16": "tensor cores", "fp32": _TF32 + " (window_attention.cu wtf)"},
     "ffn_block_bwd": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_bwd.cuh)"},
     "window_mha_bwd": {"bf16": "tensor cores",
                        "fp32": _TF32 + " (window_attention.cu wtf)"},
     "vq": {"bf16": _TF32, "fp32": _TF32},
-    "block_core_int8": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
-    "ffn_block_int8": {"bf16": "tensor cores", "fp32": "CUDA-core FMA"},
+    "block_core_int8": {"bf16": "tensor cores",
+                        "fp32": _TF32_Q + ", the conv three (csrc/ffn_tf32_fwd.cuh)"},
+    "ffn_block_int8": {"bf16": "tensor cores", "fp32": _TF32_Q + " (csrc/ffn_tf32_fwd.cuh)"},
 }
 
 
@@ -877,14 +899,17 @@ def fp32_timed(call, tag: str) -> bool:
 
 
 def check_fp32_chains(dev, calls) -> None:
-    """The device kernels of one fp32 call of block_core, window MHA and
-    the two backward kernels at each of `calls` (a B=1 sample's and a B=1
-    train step's at latent 64; torch.profiler, the card's activity): the
-    tensor-core route's launches (block_core's norm/FiLM, gate_kernel_f32
-    and out_kernel_f32; window MHA's wtf::fwd_core_kernel and
-    wtf::out_proj_kernel; ffn_block_bwd's gate_grad_kernel_f32 and
-    tail_kernel_f32; window MHA backward's wtf::bwd_core_kernel and
-    wtf::bwd_tail_kernel), nothing else."""
+    """The device kernels of one fp32 call of block_core and ffn_block
+    (fp32 and int8 FFN weights), window MHA and the two backward kernels
+    at each of `calls` (the B=1 and B=4 samples' and a B=1 train step's
+    at latent 64, the B=1 body shapes through ffn_block; torch.profiler,
+    the card's activity): the tensor-core route's launches (block_core's
+    and ffn_block's norm/FiLM, ftc::gate_kernel<float, ...> and
+    ftc::out_kernel<float, ...>, none of the FMA chain's
+    gate_finish_kernel, out_partial_kernel or finish_kernel; window MHA's
+    wtf::fwd_core_kernel and wtf::out_proj_kernel; ffn_block_bwd's
+    gate_grad_kernel_f32 and tail_kernel_f32; window MHA backward's
+    wtf::bwd_core_kernel and wtf::bwd_tail_kernel), nothing else."""
     from torch.profiler import ProfilerActivity, profile
 
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
@@ -893,13 +918,16 @@ def check_fp32_chains(dev, calls) -> None:
     from ldm_image_generator_tpu_torch.kernels.workloads import make_inputs
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    want = {"block_core": ("norm_film_rows_kernel<float>", "gate_kernel_f32", "out_kernel_f32"),
+    ffn = ("norm_film_rows_kernel<float>", "ftc::gate_kernel<float", "ftc::out_kernel<float")
+    want = {"block_core": ffn, "ffn_block": ffn, "block_core_int8": ffn, "ffn_block_int8": ffn,
             "window_mha": ("wtf::fwd_core_kernel", "wtf::out_proj_kernel"),
             "ffn_block_bwd": ("gate_grad_kernel_f32", "tail_kernel_f32"),
             "window_mha_bwd": ("wtf::bwd_core_kernel", "wtf::bwd_tail_kernel")}
     for call in calls:
         args = make_inputs(call, torch.float32, dev, gen)
         fn = {"block_core": tbc.block_core, "ffn_block_bwd": tffn.ffn_block_bwd,
+              "ffn_block": tffn.ffn_block, "block_core_int8": tbc.block_core,
+              "ffn_block_int8": tffn.ffn_block,
               "window_mha": lambda *a: tattn.window_mha(*a, num_heads=call.heads),
               "window_mha_bwd": lambda *a: tattn.window_mha_bwd(*a, num_heads=call.heads),
               }[call.kernel]
@@ -913,8 +941,10 @@ def check_fp32_chains(dev, calls) -> None:
                  if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0}
         names = want[call.kernel]
         log(f"{call.kernel} {call.label} fp32 launch chain: {json.dumps(chain)}")
+        fma = ("gate_finish_kernel", "out_partial_kernel", "finish_kernel")
         require(sum(chain.values()) == len(names)
-                and all(any(n in k for k in chain) for n in names),
+                and all(any(n in k for k in chain) for n in names)
+                and not any(n in k for k in chain for n in fma),
                 ("fp32 tensor-core chain", call.kernel, call.label, chain))
 
 
@@ -1197,12 +1227,12 @@ def phase_int8_path(dev, ref_pipe) -> dict:
     return out
 
 
-def phase_card_vs_cpu(dev, cfg=None, latent: int = 32) -> float:
+def phase_card_vs_cpu(dev, cfg=None, latent: int = 32, batch: int = 1) -> float:
     """One full-width fp32 denoise step of the UNet of `cfg` (default: the
-    default UNet) at B=1 on a latent x latent input, card kernels vs CPU
-    plain versions. A class-conditional UNet gives one guided prediction:
-    class 1 and the null class under one routing plan, guidance 3.0,
-    rescale 0.7."""
+    default UNet) at `batch` (1: the block_core body; 4: ffn_block's) on a
+    latent x latent input, card kernels vs CPU plain versions. A
+    class-conditional UNet gives one guided prediction: class 1 and the
+    null class under one routing plan, guidance 3.0, rescale 0.7."""
     from ldm_image_generator_tpu_torch.config import UNetConfig
     from ldm_image_generator_tpu_torch.models.layers import RandomMoE
     from ldm_image_generator_tpu_torch.models.unet import UNet
@@ -1214,8 +1244,8 @@ def phase_card_vs_cpu(dev, cfg=None, latent: int = 32) -> float:
                generator=torch.Generator().manual_seed(1)).eval()
     card = copy.deepcopy(cpu).to(dev)
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn((1, latent, latent, 8), generator=gen)
-    t = torch.tensor([526], dtype=torch.int32)
+    x = torch.randn((batch, latent, latent, 8), generator=gen)
+    t = torch.tensor([526, 31, 260, 999][:batch], dtype=torch.int32)
     plan = torch.randint(0, 6, (cpu.plan_length(),), generator=gen)
     classes = cpu.cfg.num_classes
 
@@ -1223,7 +1253,7 @@ def phase_card_vs_cpu(dev, cfg=None, latent: int = 32) -> float:
         run = lambda cond: unet(x.to(d), t.to(d), cond, moe_plan=plan.to(d)).float()
         if not classes:
             return run(None)
-        ids = lambda c: torch.tensor([c], dtype=torch.int32, device=d)
+        ids = lambda c: torch.full((batch,), c, dtype=torch.int32, device=d)
         return guide(run(ids(1)), run(ids(classes)), 3.0, 0.7)
 
     with torch.no_grad():
@@ -1232,8 +1262,8 @@ def phase_card_vs_cpu(dev, cfg=None, latent: int = 32) -> float:
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     what = f"guided, {classes} classes" if classes else f"ffn_quant={cpu.cfg.ffn_quant}"
-    log(f"card vs cpu fp32 step ({what}, latent {latent}): max abs err {err:.3e}, "
-        f"output max {scale:.3e}")
+    log(f"card vs cpu fp32 step ({what}, latent {latent}, B={batch}): max abs err "
+        f"{err:.3e}, output max {scale:.3e}")
     if cpu.cfg.ffn_quant == "int8":
         # the int8 weights each side made (quantize_cols on its own device)
         made = [(a.ffn_weights(torch.float32)[1][0], b.ffn_weights(torch.float32)[1][0])
@@ -4356,27 +4386,33 @@ def counted(fn) -> tuple:
     return out, launch_counts()
 
 
-def sample_cli_512(dev) -> dict:
+def sample_cli_512(dev, batch: int = 1, int8: bool = False) -> dict:
     """(a) cli/sample_ldm at its defaults (-s 512, -fp16 false: fp32) with
-    -n 1, run in a working directory under build/ (no ./ddpm.pt there:
-    seeded weights): exactly 20 B=1 UNet calls' launches at latent 64,
-    one 512x512 PNG."""
+    -n `batch` (and --quant int8 where `int8`), run in a working directory
+    under build/ (no ./ddpm.pt there: seeded weights): exactly 20 UNet
+    calls' launches at latent 64 and that batch (block_core at B=1,
+    ffn_block at B=4; their int8 routes), `batch` 512x512 PNGs."""
     from ldm_image_generator_tpu_torch.cli import sample_ldm
 
-    work = os.path.join(P512_DIR, "sample_cli")
+    argv = ["-n", str(batch), "-o", "out"] + (["--quant", "int8"] if int8 else [])
+    what = " ".join(argv[:2] + argv[4:])
+    work = os.path.join(P512_DIR, "sample_cli" + (f"_b{batch}" if batch > 1 else "")
+                        + ("_int8" if int8 else ""))
     t0 = time.perf_counter()
-    _, counts = counted(lambda: in_dir(work, lambda: sample_ldm.main(["-n", "1", "-o", "out"])))
+    _, counts = counted(lambda: in_dir(work, lambda: sample_ldm.main(argv)))
     secs = time.perf_counter() - t0
-    log(f"sample_ldm CLI at its defaults (512px, fp32) launches {json.dumps(counts)} in "
-        f"{secs:.2f} s")
-    require(counts == step_launches(1, latent=LATENT64, calls=20), ("sample_ldm CLI", counts))
-    with open(os.path.join(work, "out", "0.png"), "rb") as f:
-        img = png_pixels(f.read())
-    require(img.shape == (CLI_SIZE, CLI_SIZE, 3), ("sample_ldm CLI image", img.shape))
+    log(f"sample_ldm CLI at its defaults (512px, fp32) {what}: launches "
+        f"{json.dumps(counts)} in {secs:.2f} s")
+    require(counts == step_launches(batch, latent=LATENT64, int8=int8, calls=20),
+            ("sample_ldm CLI", what, counts))
+    for i in range(batch):
+        with open(os.path.join(work, "out", f"{i}.png"), "rb") as f:
+            img = png_pixels(f.read())
+        require(img.shape == (CLI_SIZE, CLI_SIZE, 3), ("sample_ldm CLI image", what, img.shape))
     # one more call under the profiler: the card's busy time in it (the
     # seeded weights, 20 UNet calls, the decoder)
-    prof = profile_fn(lambda: in_dir(work, lambda: sample_ldm.main(["-n", "1", "-o", "out"])))
-    log(f"sample_ldm CLI at its defaults: device busy {prof['device_busy_ms']:.3f} ms "
+    prof = profile_fn(lambda: in_dir(work, lambda: sample_ldm.main(argv)))
+    log(f"sample_ldm CLI at its defaults {what}: device busy {prof['device_busy_ms']:.3f} ms "
         f"(profiled wall {prof['wall_ms']:.1f} ms); {card_line()}")
     return dict(launches=counts, seconds=secs, device_busy_ms=prof["device_busy_ms"],
                 profile=prof)
@@ -4628,6 +4664,9 @@ def phase_512(dev) -> dict:
     shutil.rmtree(P512_DIR, ignore_errors=True)
     out = {}
     parts = (("sample_cli", lambda: sample_cli_512(dev)),
+             ("sample_cli_b4", lambda: sample_cli_512(dev, batch=4)),
+             ("sample_cli_int8", lambda: sample_cli_512(dev, int8=True)),
+             ("sample_cli_b4_int8", lambda: sample_cli_512(dev, batch=4, int8=True)),
              ("sample", lambda: sample_512(dev)),
              ("card_vs_cpu_latent64", lambda: phase_card_vs_cpu(dev, latent=LATENT64)),
              ("train_cli", lambda: train_cli_512(dev)),
@@ -4712,6 +4751,10 @@ def main(argv) -> int:
     kernels["ffn_block_int8"]["launches"] = int8_path["b4"]["launches"]["ffn_block_int8"]
     rel = run("5 card vs cpu", phase_card_vs_cpu, dev)
     rel_int8 = run("5 int8 card vs cpu", phase_card_vs_cpu, dev, UNetConfig(ffn_quant="int8"))
+    # B=4: the ffn_block body, on the fp32 tensor-core routes of ffn_block
+    rel_b4 = run("5 card vs cpu b4", phase_card_vs_cpu, dev, batch=4)
+    rel_int8_b4 = run("5 int8 card vs cpu b4", phase_card_vs_cpu, dev,
+                      UNetConfig(ffn_quant="int8"), batch=4)
     cond, cond_pipe, cond_modules = run("10 cond sampling", phase_cond, dev)
     files = run("12 param files", phase_param_files, dev, cond_pipe, *cond_modules)
     del cond_pipe, cond_modules
@@ -4786,6 +4829,9 @@ def main(argv) -> int:
     p512 = run("20 512px", phase_512, dev)
     add_paths(kernels, {
         "sample_ldm_cli_512px_fp32": p512["sample_cli"]["launches"],
+        "sample_ldm_cli_512px_fp32_n4": p512["sample_cli_b4"]["launches"],
+        "sample_ldm_cli_512px_fp32_int8": p512["sample_cli_int8"]["launches"],
+        "sample_ldm_cli_512px_fp32_n4_int8": p512["sample_cli_b4_int8"]["launches"],
         **{f"sample_512px_{k}": v["launches"] for k, v in p512["sample"].items()},
         f"train_ldm_cli_512px_fp32_b1_{P512_CLI_IMAGES}_steps": p512["train_cli"]["launches"],
         f"train_512px_b8_{P512_TRAIN_STEPS}_steps": p512["train_b8"]["launches"],
@@ -4806,6 +4852,8 @@ def main(argv) -> int:
         "card_vs_cpu_rel_err": rel,
         "int8_path": int8_path,
         "int8_card_vs_cpu_rel_err": rel_int8,
+        "card_vs_cpu_rel_err_b4": rel_b4,
+        "int8_card_vs_cpu_rel_err_b4": rel_int8_b4,
         "paths": paths,
         "cond_card_vs_cpu_rel_err": rel_cond,
         "param_files": files,

@@ -8,7 +8,8 @@ chain with their times. A redesign of a kernel starts from this trace.
         [--latent 64] [--out FILE]
 
 The shapes are those of `kernels.workloads`: the batch-1 and batch-4
-sampling paths (tags b1, b4), the backward kernels of the B=1 train step
+sampling paths (tags b1, b4; block_core_int8 and ffn_block_int8, with
+int8 FFN weights, at theirs), the backward kernels of the B=1 train step
 (tag train_b1), the B=8 train step (tag train) and the VAE train step
 (tag vae_train), on 32x32 latents (256px) or with --latent 64 on the
 512px paths' (tags b1-64, ...); every kernel by default. Each call is warmed
@@ -37,10 +38,13 @@ from ldm_image_generator_tpu_torch.kernels.workloads import (
     vae_train_calls,
 )
 
-# wrapper of each kernel, called on make_inputs(call) (+ heads for MHA)
+# wrapper of each kernel, called on make_inputs(call) (+ heads for MHA);
+# int8 FFN weights run with grad mode off
 KERNELS = {
     "block_core": tbc.block_core,
     "ffn_block": tffn.ffn_block,
+    "block_core_int8": lambda *a: torch.no_grad()(tbc.block_core)(*a),
+    "ffn_block_int8": lambda *a: torch.no_grad()(tffn.ffn_block)(*a),
     "ffn_block_bwd": tffn.ffn_block_bwd,
     "window_mha": lambda *a: tattn.window_mha(*a[:-1], num_heads=a[-1]),
     "window_mha_bwd": lambda *a: tattn.window_mha_bwd(*a[:-1], num_heads=a[-1]),
@@ -57,6 +61,8 @@ def calls_of(names, latent: int = 32) -> list:
                                   else c.kernel + "_bwd") for c in path_calls(1, latent=latent)]
     tagged = ([("b1" + sfx, c) for c in path_calls(1, latent=latent)]
               + [("b4" + sfx, c) for c in path_calls(4, latent=latent)]
+              + [(f"b{b}" + sfx, c) for b in (1, 4) for c in
+                 path_calls(b, latent=latent, int8=True) if c.kernel.endswith("_int8")]
               + [("train_b1" + sfx, c) for c in bwd_b1]
               + [("train" + sfx, c) for c in train_calls(8, latent=latent)]
               + [("vae_train", c) for c in vae_train_calls()])

@@ -21,13 +21,15 @@ dtype and shape alone) runs ffn_block's three tensor-core launches
 k-tiles, one per conv tap, each a product of h shifted by the tap (zero
 rows outside the image) with that tap's weights, each warp's 32 output
 columns being one conv group; the conv bias and the residual join the
-output biases in its epilogue, so out is written once. float32 with
-float32 FFN weights runs the same three launches on the tensor cores as
-three TF32 passes per product, fp32 accurate (csrc/ffn_tf32_fwd.cuh,
-``block_core_tensor_cores``). bfloat16 at other widths, and int8 weights
-at float32, keep the FMA chain of ffn_block, whose last pass takes one
-image row and one 32-channel group per block with the row's 3 x (W + 2)
-x 32 window of h and the group's taps in shared memory.
+output biases in its epilogue, so out is written once. float32 runs the
+same three launches on the tensor cores, fp32 accurate
+(csrc/ffn_tf32_fwd.cuh, ``block_core_tensor_cores``): three TF32 passes
+per product with float32 FFN weights; with int8 ones the weight tiles
+stay int8 until the fragment load and each tower product takes two
+passes (an int8 value is exact in TF32), the conv three. Other widths
+keep the FMA chain of ffn_block, whose last pass takes one image row and
+one 32-channel group per block with the row's 3 x (W + 2) x 32 window of
+h and the group's taps in shared memory.
 
 int8 FFN weights (``block_core_pallas(..., quantized=True)``; see
 ffn_block.py): the same routes with the weights read as int8 and each

@@ -10,26 +10,25 @@
 // H * W, C, M) floats, counters ffn_counter_ints() zeroed ints.
 //
 // At the widths ffn_tc.cuh takes (C and M multiples of 64, C <= 1024:
-// every UNet shape) bfloat16, and float32 with float32 FFN weights, run on
-// the tensor cores in the three launches of ffn_tc_fwd.cuh (bf16
-// mma.sync) and ffn_tf32_fwd.cuh (float32 as three TF32 passes, fp32
-// accurate), the grouped conv (group width 32) as 9 more k-tiles of the
-// output product and its bias and the residual in that kernel's
-// epilogue, so out is written once. At batch 1 a call is bound by the 9
-// C x C FFN weight matrices' bytes on paper, by the three launches'
-// latency in practice (PERF.md).
-// Other widths, and int8 weights at float32 activations, keep the FMA
-// chain of ffn_common.cuh: its last pass takes one image row and one
-// 32-channel group per block, holds the row's 3 x (W + 2) x 32 window of h
-// and the group's taps in shared memory, and sums the FFN partials, the
-// conv, its bias and the residual there.
-#include "ffn_tf32_fwd.cuh"
+// every UNet shape) every call runs on the tensor cores in the three
+// launches of ffn_tc_fwd.cuh: bf16 mma.sync for bfloat16, for float32
+// fp32-accurate TF32 passes (ffn_tf32_fwd.cuh: three per product with
+// fp32 FFN weights, two with int8 ones), the grouped conv (group width
+// 32) as 9 more k-tiles of the output product and its bias and the
+// residual in that kernel's epilogue, so out is written once. At batch 1
+// a call is bound by the 9 C x C FFN weight matrices' bytes on paper, by
+// the three launches' latency in practice (PERF.md).
+// Other widths keep the FMA chain of ffn_common.cuh: its last pass takes
+// one image row and one 32-channel group per block, holds the row's 3 x
+// (W + 2) x 32 window of h and the group's taps in shared memory, and
+// sums the FFN partials, the conv, its bias and the residual there.
+#include "ffn_tc_fwd.cuh"
 
 // The route of a call: the tensor cores (1) or the FMA chain (0), by the
-// dtype, the weights' type and the shape alone. ffn_tensor_cores, which
-// ffn_block and its backward share, takes bfloat16 only.
+// dtype and the shape alone (either weight type), as ffn_block's
+// ffn_tensor_cores.
 extern "C" int block_core_tensor_cores(int dtype, int wq, int N, int C, int M) {
-  return (dtype == 1 || (dtype == 0 && !wq)) && ldm::ftc::takes(N, C, M);
+  return (dtype == 0 || dtype == 1) && ldm::ftc::takes(N, C, M);
 }
 
 // fp32 scratch (split partial sums) one call needs, for the wrapper.
@@ -43,9 +42,10 @@ extern "C" long long block_core_scratch_floats(int dtype, int wq, int N, int C, 
 // a map W pixels wide.
 extern "C" long long block_core_smem_bytes(int dtype, int wq, int N, int C, int M, int W) {
   if (block_core_tensor_cores(dtype, wq, N, C, M))
-    return (long long)(dtype == 0 ? ldm::ftc::fwd_smem_f32()
-                       : wq       ? ldm::ftc::fwd_smem<true>(true)
-                                  : ldm::ftc::fwd_smem<false>(true));
+    return (long long)(dtype == 0 ? (wq ? ldm::ftc::fwd_smem<float, true>(true)
+                                        : ldm::ftc::fwd_smem<float, false>(true))
+                       : wq       ? ldm::ftc::fwd_smem<__nv_bfloat16, true>(true)
+                                  : ldm::ftc::fwd_smem<__nv_bfloat16, false>(true));
   return (long long)ldm::conv_smem_bytes(W);
 }
 
@@ -64,9 +64,11 @@ extern "C" int block_core_forward(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (block_core_tensor_cores(dtype, wq, N, C, M)) {
-    if (dtype == 0) return ldm::ftc::forward_f32(a, conv, residual, (int*)counters, st);
-    return wq ? ldm::ftc::forward<true>(a, conv, residual, (int*)counters, st)
-              : ldm::ftc::forward<false>(a, conv, residual, (int*)counters, st);
+    if (dtype == 0)
+      return wq ? ldm::ftc::forward<float, true>(a, conv, residual, (int*)counters, st)
+                : ldm::ftc::forward<float, false>(a, conv, residual, (int*)counters, st);
+    return wq ? ldm::ftc::forward<bf16, true>(a, conv, residual, (int*)counters, st)
+              : ldm::ftc::forward<bf16, false>(a, conv, residual, (int*)counters, st);
   }
   if (dtype == 0)
     return wq ? ldm::ffn_chain<float, int8_t>(a, conv, B, residual, st)

@@ -6,26 +6,25 @@
 // 1 = bfloat16; scratch holds ffn_block_scratch_floats(dtype, N, C, M)
 // floats, counters ffn_counter_ints() zeroed ints.
 //
-// bfloat16 at the widths ffn_tc.cuh takes (every UNet shape) runs on the
-// tensor cores in the three launches of ffn_tc_fwd.cuh (norm/FiLM, the
-// gate, the output product with the biases in its epilogue).
+// At the widths ffn_tc.cuh takes (every UNet shape) a call runs on the
+// tensor cores in three launches (norm/FiLM, the gate, the output product
+// with the biases in its epilogue, ffn_tc_fwd.cuh): bf16 mma.sync for
+// bfloat16, for float32 fp32-accurate TF32 passes (ffn_tf32_fwd.cuh:
+// three per product with fp32 weights, two with int8 ones).
 // What bounds a call on the H100: at the B=4 sampling shapes with C >= 512
-// (N <= 256 rows), the 9 C x M weight matrices' bytes (4.7-18.9 MB); at
-// the larger row counts the 18 N C M FLOP. Against the bytes, split-K,
-// 4-deep cp.async rings and programmatic dependent launches; against the
-// operations, mma.sync at 64 x 64 block tiles (64 x 128 for the gate's
-// two products). In practice every block runs only 2-8 k-tiles, so the
-// three launches' latency, not bytes or FLOP, sets a call's time
-// (PERF.md).
-// float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
-// ffn_common.cuh. A float32 route on the tensor cores would hold the fp32
-// gates as three TF32 passes, as block_core's does (ffn_tf32_fwd.cuh); it
-// is queued (ROADMAP A0).
+// (N <= 256 rows), the 9 C x M weight matrices' bytes (4.7-18.9 MB in
+// bf16); at the larger row counts the 18 N C M FLOP. Against the bytes,
+// split-K, 4-deep cp.async rings (2-3 with fp32 weights) and programmatic
+// dependent launches; against the operations, mma.sync at 64 x 64 block
+// tiles (64 x 128 for the gate's two products). In practice every block
+// runs only 2-8 k-tiles, so the three launches' latency, not bytes or
+// FLOP, sets a bf16 call's time (PERF.md).
+// Other widths keep the CUDA-core FMA chain of ffn_common.cuh.
 //
 // int8 weights (wq = 1; ffn_block_pallas(quantized=True)): the same
 // launches and plans on either route (ffn_tc_fwd.cuh, ffn_common.cuh).
-// The weight bytes halve; a call stays bound by the same launch latency
-// (PERF.md).
+// The weight bytes halve against bf16 (a quarter of fp32's); a call stays
+// bound by the same launch latency (PERF.md).
 #include "ffn_tc_fwd.cuh"
 
 // fp32 scratch (split partial sums) one call needs, for the wrapper.
@@ -46,9 +45,13 @@ extern "C" int ffn_block_forward(
                  bb, wc,  bc,   E, (const int*)ids, N,   C,   M,   out, h,   g,   (float*)scratch};
   const ldm::ConvArgs none{nullptr, nullptr, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ffn_tensor_cores(dtype, N, C, M))
-    return wq ? ldm::ftc::forward<true>(a, none, nullptr, (int*)counters, st)
-              : ldm::ftc::forward<false>(a, none, nullptr, (int*)counters, st);
+  if (ffn_tensor_cores(dtype, N, C, M)) {
+    if (dtype == 0)
+      return wq ? ldm::ftc::forward<float, true>(a, none, nullptr, (int*)counters, st)
+                : ldm::ftc::forward<float, false>(a, none, nullptr, (int*)counters, st);
+    return wq ? ldm::ftc::forward<__nv_bfloat16, true>(a, none, nullptr, (int*)counters, st)
+              : ldm::ftc::forward<__nv_bfloat16, false>(a, none, nullptr, (int*)counters, st);
+  }
   if (dtype == 0)
     return wq ? ldm::ffn_chain<float, int8_t>(a, none, 1, nullptr, st)
               : ldm::ffn_chain<float, float>(a, none, 1, nullptr, st);

@@ -202,12 +202,10 @@ __device__ __forceinline__ void gemm_tile_q(float (&acc)[G::MI][G::NI][4], unsig
   tc::zero<G::MI, G::NI>(acc);
   auto a_tile = [&](int buf) { return reinterpret_cast<bf16*>(smem + buf * L::STAGE); };
   auto q_tile = [&](int buf) { return smem + buf * L::STAGE + L::A_BYTES; };
-  // an int8 row of BN bytes copies as BN / 2 bf16-sized elements
   auto load_q = [&](int buf, int i) {
     const int k0 = (kt0 + i) * BK;
-    tc::load_tile<BK, G::BN / 2, THREADS>(
-        reinterpret_cast<bf16*>(q_tile(buf)), L::LQ / 2, BK,
-        [&](int r, int c) { return reinterpret_cast<const bf16*>(srcQ(r, 2 * c, k0)); });
+    tc::load_tile_i8<BK, G::BN, THREADS>(q_tile(buf), L::LQ, BK,
+                                         [&](int r, int c) { return srcQ(r, c, k0); });
   };
   auto load_a = [&](int buf, int i) {
     const int k0 = (kt0 + i) * BK;
@@ -269,14 +267,14 @@ __device__ __forceinline__ void for_gate_pairs(int mb, int nbh, F f) {
 }  // namespace ftc
 }  // namespace ldm
 
-// The route of an ffn_block forward call: bfloat16 at widths the
-// tensor-core kernels take (every UNet shape) runs on them; float32, and
-// bfloat16 at any other width, on the FMA chain (block_core, whose float32
-// forward runs as three TF32 passes, has block_core_tensor_cores; the
-// backward, whose float32 runs so too, ffn_bwd_tensor_cores). It depends
-// on the dtype and the shape alone.
+// The route of an ffn_block forward call: float32 and bfloat16 at widths
+// the tensor-core kernels take (every UNet shape; fp32 as TF32 passes,
+// ffn_tf32_fwd.cuh) run on them, any other width on the FMA chain
+// (block_core has block_core_tensor_cores, the same rule; the backward
+// its own, ffn_bwd_tensor_cores). It depends on the dtype and the shape
+// alone.
 extern "C" int ffn_tensor_cores(int dtype, int N, int C, int M) {
-  return dtype == 1 && ldm::ftc::takes(N, C, M);
+  return (dtype == 0 || dtype == 1) && ldm::ftc::takes(N, C, M);
 }
 
 // int32 split counters the tensor-core route needs zeroed before its

@@ -1,5 +1,7 @@
-// Tensor-core forward of the SwinBlock FFN (bfloat16 activations), shared
-// by ffn_block.cu and block_core.cu: three launches,
+// Tensor-core forward of the SwinBlock FFN, shared by ffn_block.cu and
+// block_core.cu, for bfloat16 activations (bf16 mma.sync) and float32
+// ones (fp32 accurate TF32 passes: ffn_tf32_fwd.cuh), each with weights
+// of its type or int8 ones. Three launches,
 //   1. norm_film_rows_kernel (ffn_tc.cuh): h, rounded, one row per warp
 //      held in registers;
 //   2. gate_kernel: one block per (64-row tile, 64 hidden columns, tower)
@@ -15,24 +17,25 @@
 //      written once, no finishing launch.
 // k is split over blocks until the card has two blocks per SM
 // (tc::split_fixup sums the splits in a fixed order; the conv k-tiles are
-// split like the towers', so each is summed once), the rings hold 4
-// k-tiles (2 in a gate block of at most 2), and 2 and 3 are programmatic
-// dependent launches: each streams its first weight (and conv tap) tiles
-// while the kernel before it runs, and reads h or g only after
-// tc::griddep_wait.
+// split like the towers', so each is summed once), the bf16 rings hold 4
+// k-tiles (2 in a gate block of at most 2; the fp32 rings:
+// ffn_tf32_fwd.cuh), and 2 and 3 are programmatic dependent launches:
+// each streams its first weight (and conv tap) tiles while the kernel
+// before it runs, and reads h or g only after tc::griddep_wait. Fwd<T>
+// gives the kernels their tiles, tile products and stores.
 //
 // int8 weights (Q; ffn_block_pallas / block_core_pallas(quantized=True)):
 // the same launches and plans. The weight k-tiles arrive as int8 and
-// become bf16 in shared memory (gemm_tile_q); the gate epilogue gives a
-// and b their own column scale and bias before the ReLU (the scale rows
-// read in the tile's interleaved order), and the output kernel, whose
-// k-loop runs over the three towers, scales each tower's fp32 sum at the
-// tower's last k-tile and adds it to a running total, so split-k partials
-// arrive already scaled. The conv taps, its bias and the residual stay
-// bf16.
+// become bf16 in shared memory (gemm_tile_q; with fp32 activations TF32
+// at the fragment load); the gate epilogue gives a and b their own column
+// scale and bias before the ReLU (the scale rows read in the tile's
+// interleaved order), and the output kernel, whose k-loop runs over the
+// three towers, scales each tower's fp32 sum at the tower's last k-tile
+// and adds it to a running total, so split-k partials arrive already
+// scaled. The conv taps, its bias and the residual stay in T.
 #pragma once
 
-#include "ffn_tc.cuh"
+#include "ffn_tf32_fwd.cuh"
 
 namespace ldm {
 namespace ftc {
@@ -67,7 +70,7 @@ struct ConvTile {
 };
 
 // acc += the conv taps [t0, t1) of the output tile at (mb, nb); h [N, C],
-// taps [9 * 32, C] (HWIO). gate() as tc::pipeline's: the taps stream
+// taps [9 * 32, C] (HWIO); bf16 operands (fp32: ffn_tf32_fwd.cuh). gate() as tc::pipeline's: the taps stream
 // first, h after it.
 template <class Gate>
 __device__ __forceinline__ void conv_tiles(float (&acc)[OutTile::MI][OutTile::NI][4], bf16* ring,
@@ -118,47 +121,99 @@ __device__ __forceinline__ void conv_tiles(float (&acc)[OutTile::MI][OutTile::NI
   tc::pipeline<L::NSTAGE>(t1 - t0, load_b, gate, load_a, compute);
 }
 
-// grid (M / 64, ceil(N / 64), 3 towers x gate.splits); a ring of STAGES
-// k-tiles. Q: int8 weights with fp32 scale-bias rows.
-template <int STAGES, bool Q>
+template <>
+struct Fwd<bf16> {
+  template <bool Q, bool SHORT>
+  using GateT = GateTile<SHORT ? 2 : 4>;
+  template <bool Q>
+  using OutT = OutTile;
+  // a ring and, with int8 weights, the converted B tile
+  template <bool Q, class G>
+  static constexpr size_t smem() {
+    return Q ? QTile<G>::smem : G::template smem<false, false>();
+  }
+  static constexpr size_t conv_smem = ConvTile::smem;
+
+  template <class G, class SrcA, class SrcB, class Wait>
+  __device__ __forceinline__ static void tile(float (&acc)[G::MI][G::NI][4], unsigned char* smem,
+                                              int kt0, int kt1, SrcA srcA, SrcB srcB, Wait wait) {
+    tc::gemm_tile<G, false, false>(acc, reinterpret_cast<bf16*>(smem), kt0, kt1, srcA, srcB,
+                                   [](const bf16*, int) {}, wait);
+  }
+  // hidden columns c..c+15 of wa (c < 64) or wb: their bf16 tile columns
+  // in the 8-column interleave (tile column 16 q + e)
+  template <class G, class SrcA, class SrcQ, class Wait>
+  __device__ __forceinline__ static void gate_q(float (&acc)[G::MI][G::NI][4],
+                                                unsigned char* smem, int kt0, int kt1, SrcA srcA,
+                                                SrcQ srcQ, Wait wait) {
+    gemm_tile_q<G>(
+        acc, smem, kt0, kt1, srcA, srcQ,
+        [](int c) {
+          return c < HN ? make_int2(2 * c, 2 * c + 16) : make_int2(2 * c - 120, 2 * c - 104);
+        },
+        [](int) {}, wait);
+  }
+  template <class G, class SrcA, class SrcQ, class After, class Wait>
+  __device__ __forceinline__ static void out_q(float (&acc)[G::MI][G::NI][4], unsigned char* smem,
+                                               int kt0, int kt1, SrcA srcA, SrcQ srcQ,
+                                               After after, Wait wait) {
+    gemm_tile_q<G>(acc, smem, kt0, kt1, srcA, srcQ, [](int c) { return make_int2(c, c + 8); },
+                   after, wait);
+  }
+  __device__ __forceinline__ static void store2(bf16* p, float v0, float v1) {
+    tc::store2(p, tc::pack_bf16(v0, v1));
+  }
+  __device__ __forceinline__ static float2 load2(const bf16* p) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+    return make_float2(__low2float(x), __high2float(x));
+  }
+};
+
+// grid (M / 64, ceil(N / 64), 3 towers x gate.splits); G the block tile
+// (Fwd<T>::GateT). Q: int8 weights with fp32 scale-bias rows.
+template <typename T, class G, bool Q>
 __global__ void __launch_bounds__(THREADS) gate_kernel(FwdArgs a) {
-  using G = GateTile<STAGES>;
-  using W = typename std::conditional<Q, int8_t, bf16>::type;
+  using W = typename std::conditional<Q, int8_t, T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   tc::griddep_launch();  // the output kernel may start streaming wc
   const FfnArgs& f = a.f;
   const int N = f.N, C = f.C, M = f.M;
   const int r = blockIdx.z / a.gate.splits, s = blockIdx.z % a.gate.splits;
-  const int nbh = blockIdx.x * HN, mb = blockIdx.y * GateG::BM;
-  const auto w = reglu_in<bf16, W>(f, r);
+  const int nbh = blockIdx.x * HN, mb = blockIdx.y * G::BM;
+  const auto w = reglu_in<T, W>(f, r);
   const int kt = C / BK, kt0 = s * a.gate.per, kt1 = min(kt, kt0 + a.gate.per);
   // a's (threads 0-63) and b's (64-127) bias, and with int8 their scale
+  // (a [2, M] row pair [scale; bias] each)
   __shared__ float bias_s[2 * HN], scale_s[Q ? 2 * HN : 1];
   const auto* ab_bias = threadIdx.x < HN ? w.ba : w.bb;
   const int bc = nbh + threadIdx.x % HN;
-  TileBias bias{bias_s, Q ? to_f(ab_bias[M + bc]) : to_f(ab_bias[bc])};
+  TileBias bias{bias_s, to_f(ab_bias[(Q ? M : 0) + bc])};
   TileBias scale{scale_s, Q ? to_f(ab_bias[bc]) : 0.f};
+  const T* h = (const T*)f.h;
   float acc[G::MI][G::NI][4];
+  const auto src_h = [&](int rr, int c, int k0) -> const T* {
+    return mb + rr < N ? h + (size_t)(mb + rr) * C + k0 + c : nullptr;
+  };
   // h comes from norm_film_rows_kernel: the weights stream in before the
-  // wait
+  // wait. Tile column 16 q + e is wa's hidden column 8 q + e for e < 8,
+  // wb's 8 q + e - 8 otherwise; an int8 tile stores wa's 64 columns, then
+  // wb's (16-byte copies of 16 columns), and gate_q interleaves them.
+  const auto wait = [] { tc::griddep_wait(); };
   if constexpr (Q) {
-    const int8_t *wa = w.wa, *wb = w.wb;
-    gemm_tile_q<G>(
-        acc, smem_raw, kt0, kt1,
-        [&](int rr, int c, int k0) -> const bf16* {
-          return mb + rr < N ? (const bf16*)f.h + (size_t)(mb + rr) * C + k0 + c : nullptr;
-        },
+    Fwd<T>::template gate_q<G>(
+        acc, smem_raw, kt0, kt1, src_h,
         [&](int rr, int c, int k0) {
-          return (c < HN ? wa + c : wb + c - HN) + (size_t)(k0 + rr) * M + nbh;
+          return (c < HN ? w.wa + c : w.wb + c - HN) + (size_t)(k0 + rr) * M + nbh;
         },
-        // hidden columns c..c+15 of wa (c < 64) or wb: their bf16 tile
-        // columns in the 8-column interleave (tile column 16 q + e)
-        [](int c) { return c < HN ? make_int2(2 * c, 2 * c + 16) : make_int2(2 * c - 120, 2 * c - 104); },
-        [](int) {}, [] { tc::griddep_wait(); });
+        wait);
     scale.share();
   } else {
-    ab_tile<G>(acc, reinterpret_cast<bf16*>(smem_raw), (const bf16*)f.h, N, C, M, w.wa, w.wb,
-               mb, nbh, kt0, kt1, [] { tc::griddep_wait(); });
+    Fwd<T>::template tile<G>(
+        acc, smem_raw, kt0, kt1, src_h,
+        [&](int rr, int c, int k0) -> const T* {
+          return ((c & 8) ? w.wb : w.wa) + (size_t)(k0 + rr) * M + nbh + (c >> 4) * 8 + (c & 7);
+        },
+        wait);
   }
   bias.share();
   if (a.gate.splits > 1) {
@@ -169,40 +224,39 @@ __global__ void __launch_bounds__(THREADS) gate_kernel(FwdArgs a) {
             a.gate_counters + tile))
       return;
   }
-  bf16* g = (bf16*)f.g + (size_t)r * N * M;
-  for_gate_pairs(mb, nbh, [&](int i, int q, int h, int row, int col) {
+  T* g = (T*)f.g + (size_t)r * N * M;
+  for_gate_pairs(mb, nbh, [&](int i, int q, int hh, int row, int col) {
     if (row >= N) return;
     const int c = col - nbh;
     // (with int8: the fp32 product times the column scale plus the bias,
     // rounded once)
     const auto ab = [&](int which, int e) {
-      const float v = acc[i][2 * q + which][2 * h + e];
+      const float v = acc[i][2 * q + which][2 * hh + e];
       return Q ? fmaf(v, scale.at(which, c + e), bias.at(which, c + e)) : v + bias.at(which, c + e);
     };
     const float a0 = ab(0, 0), a1 = ab(0, 1), b0 = ab(1, 0), b1 = ab(1, 1);
-    tc::store2(g + (size_t)row * M + col,
-               tc::pack_bf16(a0 * fmaxf(b0, 0.f), a1 * fmaxf(b1, 0.f)));
+    Fwd<T>::store2(g + (size_t)row * M + col, a0 * fmaxf(b0, 0.f), a1 * fmaxf(b1, 0.f));
   });
 }
 
-// grid (C / 64, ceil(N / 64), out.splits); k-tiles [0, 3M / 64) are the
-// towers', then with CONV the 9 conv taps. Q: int8 weights with fp32
-// scale-bias rows.
-template <bool Q, bool CONV>
+// grid (C / 64, ceil(N / 64), out.splits); G the block tile
+// (Fwd<T>::OutT); k-tiles [0, 3M / 64) are the towers', then with CONV
+// the 9 conv taps. Q: int8 weights with fp32 scale-bias rows.
+template <typename T, class G, bool Q, bool CONV>
 __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
-  using W = typename std::conditional<Q, int8_t, bf16>::type;
-  using Bi = typename Wt<bf16, W>::Bias;
-  constexpr int BR = Wt<bf16, W>::BR;
+  using W = typename std::conditional<Q, int8_t, T>::type;
+  using Bi = typename Wt<T, W>::Bias;
+  constexpr int BR = Wt<T, W>::BR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const FfnArgs& f = a.f;
   const int N = f.N, C = f.C, M = f.M;
-  const int nb = blockIdx.x * OutTile::BN, mb = blockIdx.y * OutTile::BM, s = blockIdx.z;
+  const int nb = blockIdx.x * G::BN, mb = blockIdx.y * G::BM, s = blockIdx.z;
   const size_t mc = (size_t)M * C;
   const W* wc[3] = {(const W*)f.gwc, expert_slice((const W*)f.wc, f.ids, 0, f.E, mc),
                     expert_slice((const W*)f.wc, f.ids, 1, f.E, mc)};
   const Bi* bc[3] = {(const Bi*)f.gbc, expert_slice((const Bi*)f.bc, f.ids, 0, f.E, BR * (size_t)C),
                      expert_slice((const Bi*)f.bc, f.ids, 1, f.E, BR * (size_t)C)};
-  const bf16* g = (const bf16*)f.g;
+  const T* g = (const T*)f.g;
   // this split's k-tiles [kt0, kt1): the towers' [kt0, kf1), the conv's
   // after them
   const int ktf = 3 * M / BK, kt = ktf + (CONV ? kTaps : 0);
@@ -215,19 +269,19 @@ __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
   const int bcol = nb + threadIdx.x % HN;
   float lo = 0.f, hi = 0.f;
   if (threadIdx.x < HN) {
-    lo = Wt<bf16, W>::bias(bc[0], bcol, C) + Wt<bf16, W>::bias(bc[1], bcol, C) +
-         Wt<bf16, W>::bias(bc[2], bcol, C);
-    if constexpr (CONV) lo += to_f(((const bf16*)a.conv.bias)[bcol]);
+    lo = Wt<T, W>::bias(bc[0], bcol, C) + Wt<T, W>::bias(bc[1], bcol, C) +
+         Wt<T, W>::bias(bc[2], bcol, C);
+    if constexpr (CONV) lo += to_f(((const T*)a.conv.bias)[bcol]);
     if constexpr (Q) hi = bc[1][bcol];
   } else if constexpr (Q) {
     lo = bc[0][bcol];
     hi = bc[2][bcol];
   }
   TileBias bias{bias_s, lo}, scales{hi_s, hi};
-  float acc[OutTile::MI][OutTile::NI][4];
+  float acc[G::MI][G::NI][4];
   // k runs over [g_0 | g_1 | g_2] and [wc_0; wc_1; wc_2]; a k-tile lies in
   // one tower (M % 64 == 0). g comes from gate_kernel: wc streams first.
-  const auto src_g = [&](int r, int c, int k0) -> const bf16* {
+  const auto src_g = [&](int r, int c, int k0) -> const T* {
     const int t = k0 / M;
     return mb + r < N ? g + ((size_t)t * N + mb + r) * M + k0 - t * M + c : nullptr;
   };
@@ -246,23 +300,22 @@ __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
     tc::griddep_wait();
   };
   if (!towers) {
-    tc::zero<OutTile::MI, OutTile::NI>(acc);
+    tc::zero<G::MI, G::NI>(acc);
   } else if constexpr (Q) {
     // each tower's sum in acc, scaled into total at its last k-tile here
-    float total[OutTile::MI][OutTile::NI][4];
-    tc::zero<OutTile::MI, OutTile::NI>(total);
+    float total[G::MI][G::NI][4];
+    tc::zero<G::MI, G::NI>(total);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int cn = (warp % OutTile::WN) * (OutTile::BN / OutTile::WN) + 2 * (lane & 3);
-    gemm_tile_q<OutTile>(
+    const int cn = (warp % G::WN) * (G::BN / G::WN) + 2 * (lane & 3);
+    Fwd<T>::template out_q<G>(
         acc, smem_raw, kt0, kf1, src_g, src_wc,
-        [](int c) { return make_int2(c, c + 8); },
         [&](int k) {
           const int t = k * BK / M;
           if (k + 1 < kf1 && (k + 1) * BK / M == t) return;
 #pragma unroll
-          for (int i = 0; i < OutTile::MI; ++i)
+          for (int i = 0; i < G::MI; ++i)
 #pragma unroll
-            for (int j = 0; j < OutTile::NI; ++j)
+            for (int j = 0; j < G::NI; ++j)
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
                 const int c = cn + 8 * j + (e & 1);
@@ -272,21 +325,19 @@ __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
         },
         gate);
 #pragma unroll
-    for (int i = 0; i < OutTile::MI; ++i)
+    for (int i = 0; i < G::MI; ++i)
 #pragma unroll
-      for (int j = 0; j < OutTile::NI; ++j)
+      for (int j = 0; j < G::NI; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = total[i][j][e];
   } else {
-    tc::gemm_tile<OutTile, false, false>(acc, reinterpret_cast<bf16*>(smem_raw), kt0, kf1, src_g,
-                                         src_wc, [](const bf16*, int) {}, gate);
+    Fwd<T>::template tile<G>(acc, smem_raw, kt0, kf1, src_g, src_wc, gate);
   }
   if constexpr (CONV) {
     // a split of conv taps alone waits here (its taps stream first)
     if (kt1 > ktf)
-      conv_tiles(acc, reinterpret_cast<bf16*>(smem_raw), max(kt0, ktf) - ktf, kt1 - ktf,
-                 (const bf16*)f.h, (const bf16*)a.conv.kernel, N, C, a.conv.H, a.conv.W, mb, nb,
-                 [&] {
+      conv_tiles(acc, reinterpret_cast<T*>(smem_raw), max(kt0, ktf) - ktf, kt1 - ktf,
+                 (const T*)f.h, (const T*)a.conv.kernel, N, C, a.conv.H, a.conv.W, mb, nb, [&] {
                    if (!towers) gate();
                  });
   }
@@ -294,23 +345,23 @@ __global__ void __launch_bounds__(THREADS) out_kernel(FwdArgs a) {
   if (a.out.splits > 1) {
     float none[1];
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    if (!tc::split_fixup<THREADS, OutTile::MI, OutTile::NI, 0>(
+    if (!tc::split_fixup<THREADS, G::MI, G::NI, 0>(
             acc, none, a.out_part + (size_t)tile * a.out.splits * TILE_F, a.out.splits, s,
             a.out_counters + tile))
       return;
   }
-  bf16* out = (bf16*)f.out;
-  tc::for_pairs<OutTile>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
+  T* out = (T*)f.out;
+  const T* res = (const T*)a.residual;
+  tc::for_pairs<G>(acc, mb, nb, [&](int row, int col, float v0, float v1) {
     if (row >= N) return;
     v0 += bias.at(0, col - nb);
     v1 += bias.at(0, col - nb + 1);
-    if (CONV && a.residual != nullptr) {
-      const __nv_bfloat162 x =
-          *reinterpret_cast<const __nv_bfloat162*>((const bf16*)a.residual + (size_t)row * C + col);
-      v0 += __low2float(x);
-      v1 += __high2float(x);
+    if (CONV && res != nullptr) {
+      const float2 x = Fwd<T>::load2(res + (size_t)row * C + col);
+      v0 += x.x;
+      v1 += x.y;
     }
-    tc::store2(out + (size_t)row * C + col, tc::pack_bf16(v0, v1));
+    Fwd<T>::store2(out + (size_t)row * C + col, v0, v1);
   });
 }
 
@@ -336,37 +387,36 @@ inline FwdPlan fwd_plan(int N, int C, int M, bool conv) {
   return p;
 }
 
-// Dynamic shared memory of a block of tile G (its ring; with int8
-// weights also the converted B tile), and of an output block, whose ring
-// the conv k-tiles reuse.
-template <bool Q, class G>
-constexpr size_t tile_smem() {
-  return Q ? QTile<G>::smem : G::template smem<false, false>();
-}
-template <bool Q>
+// Dynamic shared memory of an output block (its ring also holds the conv
+// k-tiles), and of the route's largest launch.
+template <typename T, bool Q>
 constexpr size_t out_smem(bool conv) {
-  return conv && ConvTile::smem > tile_smem<Q, OutTile>() ? ConvTile::smem
-                                                          : tile_smem<Q, OutTile>();
+  using F = Fwd<T>;
+  constexpr size_t tile = F::template smem<Q, typename F::template OutT<Q>>();
+  return conv && F::conv_smem > tile ? F::conv_smem : tile;
 }
-
-// ... of the route's largest launch.
-template <bool Q>
+template <typename T, bool Q>
 constexpr size_t fwd_smem(bool conv) {
-  return tile_smem<Q, GateTile<4>>() > out_smem<Q>(conv) ? tile_smem<Q, GateTile<4>>()
-                                                         : out_smem<Q>(conv);
+  using F = Fwd<T>;
+  constexpr size_t gate = F::template smem<Q, typename F::template GateT<Q, false>>();
+  return gate > out_smem<T, Q>(conv) ? gate : out_smem<T, Q>(conv);
 }
 
 // The three launches. conv.kernel == nullptr: ffn_block (no conv,
-// residual null); else block_core.
-template <bool Q>
+// residual null); else block_core. T: the activations' type; Q: int8 FFN
+// weights.
+template <typename T, bool Q>
 inline int forward(const FfnArgs& f, const ConvArgs& conv, const void* residual, int* counters,
                    cudaStream_t st) {
+  using F = Fwd<T>;
+  using Short = typename F::template GateT<Q, true>;
+  using Long = typename F::template GateT<Q, false>;
+  using O = typename F::template OutT<Q>;
   const bool with_conv = conv.kernel != nullptr;
   const FwdPlan p = fwd_plan(f.N, f.C, f.M, with_conv);
   if (p.counters > kCounters) return (int)cudaErrorInvalidValue;
-  norm_film_rows_kernel<bf16><<<(f.N * 32 + 255) / 256, 256, 0, st>>>(
-      (const bf16*)f.x, (const bf16*)f.mul, (const bf16*)f.bias, f.N, f.C, f.film_rows, 1e-4f,
-      (bf16*)f.h);
+  norm_film_rows_kernel<T><<<(f.N * 32 + 255) / 256, 256, 0, st>>>(
+      (const T*)f.x, (const T*)f.mul, (const T*)f.bias, f.N, f.C, f.film_rows, 1e-4f, (T*)f.h);
   const FwdArgs a{f,
                   p.gate,
                   p.out,
@@ -379,15 +429,15 @@ inline int forward(const FfnArgs& f, const ConvArgs& conv, const void* residual,
   const dim3 gate_grid(f.M / HN, p.rt, 3 * p.gate.splits);
   cudaError_t e =
       p.gate.per <= 2
-          ? tc::launch(gate_kernel<2, Q>, gate_grid, tile_smem<Q, GateTile<2>>(), st,
+          ? tc::launch(gate_kernel<T, Short, Q>, gate_grid, F::template smem<Q, Short>(), st,
                        tc::after_previous(), a)
-          : tc::launch(gate_kernel<4, Q>, gate_grid, tile_smem<Q, GateTile<4>>(), st,
+          : tc::launch(gate_kernel<T, Long, Q>, gate_grid, F::template smem<Q, Long>(), st,
                        tc::after_previous(), a);
   if (e != cudaSuccess) return (int)e;
-  const dim3 out_grid(f.C / OutTile::BN, p.rt, p.out.splits);
-  e = with_conv ? tc::launch(out_kernel<Q, true>, out_grid, out_smem<Q>(true), st,
+  const dim3 out_grid(f.C / O::BN, p.rt, p.out.splits);
+  e = with_conv ? tc::launch(out_kernel<T, O, Q, true>, out_grid, out_smem<T, Q>(true), st,
                              tc::after_previous(), a)
-                : tc::launch(out_kernel<Q, false>, out_grid, out_smem<Q>(false), st,
+                : tc::launch(out_kernel<T, O, Q, false>, out_grid, out_smem<T, Q>(false), st,
                              tc::after_previous(), a);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

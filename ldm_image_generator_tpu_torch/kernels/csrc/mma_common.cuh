@@ -180,6 +180,16 @@ __device__ __forceinline__ void load_tile(bf16* s, int lds, int rows, Src src) {
   }
 }
 
+// load_tile for int8: rows (<= ROWS) x COLS bytes (COLS a multiple of
+// 16), copied as COLS / 2 bf16-sized elements; s's rows are lds bytes,
+// src(r, c) addresses bytes (r, c..c+15) or is nullptr for zeros.
+template <int ROWS, int COLS, int THREADS, typename Src>
+__device__ __forceinline__ void load_tile_i8(unsigned char* s, int lds, int rows, Src src) {
+  load_tile<ROWS, COLS / 2, THREADS>(
+      reinterpret_cast<bf16*>(s), lds / 2, rows,
+      [&](int r, int c) { return reinterpret_cast<const bf16*>(src(r, 2 * c)); });
+}
+
 // Programmatic dependent launch (Hopper): a kernel launched with
 // cudaLaunchAttributeProgrammaticStreamSerialization may start while the
 // kernel before it on the stream still runs, once every block of that one

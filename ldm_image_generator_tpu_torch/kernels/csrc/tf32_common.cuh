@@ -1,9 +1,9 @@
 // fp32-accurate products on the H100's tensor cores, for the float32
-// routes of block_core (ffn_tf32_fwd.cuh), of ffn_block's backward
-// (ffn_tf32_bwd.cuh) and of window MHA's forward and backward
-// (window_attention.cu, namespace wtf): mma.sync m16n8k8 with TF32
-// operands and fp32 accumulators, fp32 tiles streamed through the ring of
-// mma_common.cuh.
+// routes of block_core and ffn_block, with fp32 or int8 FFN weights
+// (ffn_tf32_fwd.cuh), of ffn_block's backward (ffn_tf32_bwd.cuh) and of
+// window MHA's forward and backward (window_attention.cu, namespace wtf):
+// mma.sync m16n8k8 with TF32 operands and fp32 accumulators, fp32 (or
+// int8 weight) tiles streamed through the ring of mma_common.cuh.
 //
 // Three passes. Each fp32 operand v is split into a TF32 head hi =
 // rna(v) and tail lo = rna(v - hi) (the rounding of cvt.rna.tf32.f32:
@@ -36,6 +36,16 @@
 // ffn_block_bwd (workloads.ffn_bwd_boundary_plain) allows an fp32 sum
 // over K = C terms, so that check holds this route unchanged.
 //
+// Two passes, for int8 weights (the quantized FFN routes). An int8
+// weight q is exactly a TF32 value (|q| <= 127 needs 7 bits of
+// significand), so it has no tail and a product is lo(a)*q + hi(a)*q:
+// each term misses by the activation's split alone, 2**-22 |x_i q_i|;
+// the 2K / 8 mma.sync truncate by less than 2**-23 S each; the K / 64
+// partials and the bias join rounded. In all below (4 + K / 2 + K / 64 +
+// 1) 2**-24 S, under K 2**-23 S for K >= 8: inside the same bound, with
+// fewer terms. The column scale then multiplies the fp32 sum, rounded
+// once with its bias (fmaf), as the plain version rounds them.
+//
 // Layouts. An fp32 tile lies in shared memory as in device memory
 // (16-byte chunks of 4 floats along the contiguous dimension). The
 // fragments are read with 32-bit shared loads: ldmatrix's .trans moves
@@ -49,6 +59,17 @@
 // tile read at rows 2 t and 2 t + 1 (a k index taken in pairs, both
 // operands alike: window MHA's backward) is padded 4 mod 32 (bank 8 t +
 // g).
+//
+// An int8 B tile [k][n] (frag_b_q) stays int8 in shared memory, a row of
+// BN bytes padded by 16, and becomes TF32 at the fragment load: lane (g,
+// t) reads the byte at (row k0 + t, column n + g), then (k0 + t + 4, n +
+// g), with n a multiple of 8. One load's 32 lanes touch 4 rows (t) of 8
+// bytes (g): 2 words a row (lanes sharing a word read it broadcast), 8
+// words in all, at word t W + n / 4 and t W + n / 4 + 1 for a row of W
+// words. Rows of 144 bytes (W = 36, 4 mod 32: the gate's 128 columns) put
+// them in banks b + {0, 1, 4, 5, 8, 9, 12, 13}, rows of 80 (W = 20: the
+// output's 64) in b + {0, 1, 20, 21, 8, 9, 28, 29}: 8 banks, no
+// conflict (q_rows_conflict_free).
 #pragma once
 
 #include "mma_common.cuh"
@@ -247,6 +268,126 @@ __device__ __forceinline__ void gemm_tile_f32(float (&acc)[G::MI][G::NI][4], flo
 
 __device__ __forceinline__ void store2f(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// ---- int8 weights at fp32 activations: two TF32 passes ----
+
+// An int8 weight read as its byte b (q + 256 for q < 0) -> q as an fp32
+// (= TF32) bit pattern: b ^ 0x80 (q + 128, unsigned) goes into the
+// mantissa of 2**23, and subtracting 2**23 + 128 leaves q exactly (one
+// LOP3 and one FADD; no integer-to-float conversion).
+__device__ __forceinline__ uint32_t i8_tf32(uint32_t b) {
+  return __float_as_uint(__uint_as_float(0x4B000000u | (b ^ 0x80u)) - 8388736.f);
+}
+
+// c += a q in two TF32 passes, the tail first (q exact in TF32).
+__device__ __forceinline__ void mma2(float (&c)[4], const Frag<4>& a, uint32_t b0, uint32_t b1) {
+  mma1688(c, a.lo, b0, b1);
+  mma1688(c, a.hi, b0, b1);
+}
+
+// Whether an int8 B tile with rows of `ld` bytes is read by frag_b_q
+// without bank conflicts (see the header): the 4 rows' word pairs fall
+// in 8 distinct banks.
+__host__ __device__ constexpr bool q_rows_conflict_free(int ld) {
+  const int w = ld / 4;
+  for (int t = 0; t < 4; ++t)
+    for (int u = 0; u < t; ++u)
+      for (int x = 0; x < 2; ++x)
+        for (int y = 0; y < 2; ++y)
+          if ((t * w + x) % 32 == (u * w + y) % 32) return false;
+  return ld % 16 == 0;
+}
+
+// B fragment of the 8 x 8 block at (k0, n0) of an int8 tile stored [k][n]
+// with rows of ld bytes (n0 a multiple of 8), as TF32.
+__device__ __forceinline__ void frag_b_q(uint32_t (&b)[2], const unsigned char* s, int ld, int k0,
+                                         int n0) {
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  const unsigned char* p = s + (k0 + t) * ld + n0 + g;
+  b[0] = i8_tf32(p[0]);
+  b[1] = i8_tf32(p[4 * ld]);
+}
+
+// warp_mma_f32 with an int8 B tile (A [m][k] fp32, ld 4 mod 32; B [k][n]
+// int8, rows of ldb bytes): the warp's n8 block j is stored at column
+// col(j). Two passes per k-step into a zeroed partial that joins acc by
+// fp32 adds at the end.
+template <int MI, int NI, class Col>
+__device__ __forceinline__ void warp_mma_f32q(float (&acc)[MI][NI][4], const float* As, int lda,
+                                              const unsigned char* Bs, int ldb, int m0, Col col,
+                                              int K) {
+  float part[MI][NI][4];
+  zero<MI, NI>(part);
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    Frag<4> a[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) frag_a_f32(a[i], As, lda, m0 + 16 * i, k0);
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      uint32_t b[2];
+      frag_b_q(b, Bs, ldb, k0, col(j));
+#pragma unroll
+      for (int i = 0; i < MI; ++i) mma2(part[i][j], a[i], b[0], b[1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// Shared memory of gemm_tile_f32q for block tile G (a Gemm): a ring of
+// G::NSTAGE stages, each an fp32 A k-tile [BM][BK] (rows padded to 4 mod
+// 32 floats) and an int8 B k-tile [BK][BN] (rows padded by 16 bytes).
+// The B k-tile is a quarter of fp32's bytes: a gate stage (64 x 128) is
+// 26.6 KB against GemmF32's 51 KB.
+template <class G>
+struct QF32 {
+  static constexpr int LA = BK + 4;     // A row, floats
+  static constexpr int LQ = G::BN + 16;  // B row, bytes
+  static constexpr int A_BYTES = 4 * G::BM * LA;
+  static constexpr int STAGE = A_BYTES + BK * LQ;
+  static constexpr size_t smem = (size_t)G::NSTAGE * STAGE;
+  static_assert(LA % 32 == 4 && q_rows_conflict_free(LQ), "conflict-free fragment loads");
+  static_assert(A_BYTES % 16 == 0 && STAGE % 16 == 0, "16-byte chunks");
+};
+
+// gemm_tile_f32's product with an int8 B: acc = A[tile rows, k-tiles
+// kt0..kt1) B[.., tile columns], B's elements exact in TF32. srcA(r, c,
+// k0) addresses the 4 floats at (r, c..c+3); srcQ(r, c, k0) the 16 int8
+// of B's stored row r, columns c..c+15 (c a multiple of 16); col(j) the
+// stored column of the warp's n8 block j (so a tile may interleave two
+// matrices); after(kt) runs once k-tile kt's product is in acc; gate() as
+// gemm_tile_f32's (B streams first).
+template <class G, class SrcA, class SrcQ, class Col, class After, class Gate>
+__device__ __forceinline__ void gemm_tile_f32q(float (&acc)[G::MI][G::NI][4], unsigned char* smem,
+                                               int kt0, int kt1, SrcA srcA, SrcQ srcQ, Col col,
+                                               After after, Gate gate) {
+  using L = QF32<G>;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp / G::WN) * (G::BM / G::WM);
+  zero<G::MI, G::NI>(acc);
+  auto a_tile = [&](int buf) { return reinterpret_cast<float*>(smem + buf * L::STAGE); };
+  auto q_tile = [&](int buf) { return smem + buf * L::STAGE + L::A_BYTES; };
+  auto load_q = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    load_tile_i8<BK, G::BN, THREADS>(q_tile(buf), L::LQ, BK,
+                                     [&](int r, int c) { return srcQ(r, c, k0); });
+  };
+  auto load_a = [&](int buf, int i) {
+    const int k0 = (kt0 + i) * BK;
+    load_tile_f32<G::BM, BK, THREADS>(a_tile(buf), L::LA, G::BM,
+                                      [&](int r, int c) { return srcA(r, c, k0); });
+  };
+  int kt = kt0;
+  auto compute = [&](int buf) {
+    warp_mma_f32q<G::MI, G::NI>(acc, a_tile(buf), L::LA, q_tile(buf), L::LQ, m0, col, BK);
+    after(kt++);
+  };
+  pipeline<G::NSTAGE>(kt1 - kt0, load_q, gate, load_a, compute);
 }
 
 }  // namespace tc

@@ -18,19 +18,19 @@ On the H100 (csrc/ffn_block.cu): at the B=4 sampling shapes with C >=
 general and the two selected experts, streamed once per call (the
 expert ids are read from device memory, so only those two slices are
 read and the host never waits); at the larger row counts by operations.
-bfloat16 at widths that are multiples of 64 with C <= 1024 (every
-UNet shape; the route depends on the shape alone, ``ffn_tensor_cores``)
-runs every product on the tensor cores (mma.sync, csrc/ffn_tc.cuh) in
-three launches: norm/FiLM, the gate (a and b of a tile in one block)
-and the output product over the three towers with the biases in its
-epilogue;
+At widths that are multiples of 64 with C <= 1024 (every UNet shape;
+the route depends on dtype and shape alone, ``ffn_tensor_cores``) every
+product runs on the tensor cores in three launches: norm/FiLM, the gate
+(a and b of a tile in one block) and the output product over the three
+towers with the biases in its epilogue; bfloat16 as mma.sync
+(csrc/ffn_tc.cuh), float32 as TF32 passes, fp32 accurate
+(csrc/ffn_tf32_fwd.cuh: three per product with float32 weights, two
+with int8 ones, whose tiles stay int8 until the fragment load);
 k is split over blocks where the grid has fewer than two blocks per SM,
 the splits summed in a fixed order by the last block of each tile.
-float32, and bfloat16 at other widths, keep the CUDA-core FMA chain of
-csrc/ffn_common.cuh in the forward (a float32 tensor-core route, three
-TF32 passes as block_core's, is queued: ROADMAP A0): it splits k until
-the card has about four blocks per SM and sums the fp32 partials in an
-elementwise pass. h, the gate g and the partials live
+Other widths keep the CUDA-core FMA chain of csrc/ffn_common.cuh: it
+splits k until the card has about four blocks per SM and sums the fp32
+partials in an elementwise pass. h, the gate g and the partials live
 in scratch this wrapper allocates. Film rows repeat with period
 film_mul.shape[0], so the batch-1 FiLM schedule needs no broadcast copy.
 

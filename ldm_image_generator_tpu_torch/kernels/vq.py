@@ -24,8 +24,9 @@ index) per row, strict < in code order. A thread-block cluster of up to
 loads, in shared memory, and writes its rows' minima into rank 0's
 shared memory, which merges them in rank order, ties to the lower index.
 No partials in device memory, no atomics: reruns are bitwise equal. The
-bound is the tensor cores' TF32 rate for those passes, three for an
-fp32 x and two for a bf16 x (workloads.bound_ms).
+bound is the least-cost fp32-accurate product on the tensor cores:
+three TF32 passes for an fp32 x, three bf16 passes (the codebook split
+in three bf16 pieces) for a bf16 x (workloads.FP32_PRODUCT).
 
 There is no backward: the indices are integers and the quantizer stops
 gradients through them (models/vae.py).

@@ -24,17 +24,23 @@ from ldm_image_generator_tpu_torch.kernels.ffn_block import (
 # type ("tf32": the tensor cores' TF32 rate)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
-# TF32 tensor-core passes that give an fp32-accurate product with an
-# fp32 codebook, by the type of the other operand: the least-cost such
-# product on this card. fp32: big*big, big*small, small*big; bf16 is
-# exact in TF32: x*big, x*small
-TF32_PASSES = {torch.float32: 3, torch.bfloat16: 2}
-# kernels whose float32 calls run their products on the tensor cores, as
-# TF32_PASSES[torch.float32] TF32 passes (block_core with full-precision
-# FFN weights, window MHA both ways, ffn_block's backward); every other
-# float32 route (ffn_block's forward, int8 weights at fp32 activations)
-# runs on the CUDA cores' FMA units at PEAK_FLOPS[torch.float32]
-TF32_KERNELS = ("block_core", "window_mha", "window_mha_bwd", "ffn_block_bwd")
+# The least-cost fp32-accurate product of an fp32 operand on this card's
+# tensor cores, by the type of the other operand (vq's x against its
+# codebook, an FFN tower's weights against its activation): (PEAK_FLOPS
+# key, passes), the cheaper of two splits. TF32: fp32 x fp32 takes three
+# passes (big*big, big*small, small*big); a bf16 or int8 operand is exact
+# in TF32, two (x*big, x*small). bf16: an fp32 operand splits into three
+# bf16 pieces (residual 2^-27 of it), so fp32 x fp32 takes six passes and
+# a bf16 or int8 operand (|q| <= 127 needs 7 bits), exact in bf16, three.
+# Three TF32 passes cost as much as six bf16 ones; for the others three
+# bf16 passes at 989 TFLOP/s beat two TF32 passes at 495
+_SPLITS = {torch.float32: (("tf32", 3), (torch.bfloat16, 6)),
+           torch.bfloat16: (("tf32", 2), (torch.bfloat16, 3)),
+           torch.int8: (("tf32", 2), (torch.bfloat16, 3))}
+FP32_PRODUCT = {t: min(ways, key=lambda w: w[1] / PEAK_FLOPS[w[0]])
+                for t, ways in _SPLITS.items()}
+# units whose operations share the tensor cores (their times add up)
+TENSOR_CORE_UNITS = ("tf32", torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,17 +216,26 @@ def work(call: Call, dtype: torch.dtype):
     it = torch.finfo(dtype).bits // 8
     if call.kernel != "vq":
         nbytes, flops = _block_work(call, it)
-        if dtype == torch.float32 and call.kernel in TF32_KERNELS:
-            return nbytes, {"tf32": TF32_PASSES[dtype] * flops}
-        return nbytes, {dtype: flops}
+        if dtype != torch.float32:
+            return nbytes, {dtype: flops}
+        # every float32 product accurate to fp32 on the tensor cores: with
+        # int8 FFN weights the towers' as FP32_PRODUCT[int8], the conv's
+        # (fp32 taps) as FP32_PRODUCT[float32]
+        conv = _conv_flops(call)
+        towers = torch.int8 if call.kernel.endswith("_int8") else dtype
+        ops = {}
+        for n, other in ((flops - conv, towers), (conv, dtype)):
+            unit, passes = FP32_PRODUCT[other]
+            ops[unit] = ops.get(unit, 0) + passes * n
+        return nbytes, {u: n for u, n in ops.items() if n}
     # x in, fp32 codebook in, int32 indices out; per (vector, code) a
-    # D-term dot accurate to fp32, as TF32_PASSES[dtype] TF32 tensor-core
-    # products (the tensor cores' TF32 rate bounds it), and the score and
-    # the compare on the CUDA cores (2 fp32 operations)
+    # D-term dot accurate to fp32 (FP32_PRODUCT[dtype] on the tensor
+    # cores), and the score and the compare on the CUDA cores (2 fp32
+    # operations)
     pairs = call.n * call.l
     nbytes = it * call.n * call.c + 4 * call.l * call.c + 4 * call.n
-    return nbytes, {"tf32": TF32_PASSES[dtype] * 2 * call.c * pairs,
-                    torch.float32: 2 * pairs}
+    unit, passes = FP32_PRODUCT[dtype]
+    return nbytes, {unit: passes * 2 * call.c * pairs, torch.float32: 2 * pairs}
 
 
 def _block_work(call: Call, it: int):
@@ -259,11 +274,17 @@ def _block_work(call: Call, it: int):
     else:
         weights = it * 3 * (3 * c * m + 2 * m + c)
     nbytes = it * (rows * c + film + 2 * rows * c) + weights + 8
-    flops = 18 * rows * c * m
+    flops = 18 * rows * c * m + _conv_flops(call)
     if call.kernel.startswith("block_core"):
         nbytes += it * (9 * 32 * c + c)
-        flops += 2 * rows * c * 9 * 32
     return nbytes, flops
+
+
+def _conv_flops(call: Call) -> int:
+    """The grouped 3x3 conv's FLOP in a block_core call (0 elsewhere)."""
+    if not call.kernel.startswith("block_core"):
+        return 0
+    return 2 * call.batch * call.hw * call.hw * call.c * 9 * 32
 
 
 # backward kernel vs its plain version: each output's max abs error over
@@ -286,10 +307,16 @@ def bwd_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def bound_ms(call: Call, dtype: torch.dtype):
     """(least ms on an H100 at its published peaks, 'bytes'|'operations'):
-    the larger of the bytes' time and the slowest unit's operations."""
+    the larger of the bytes' time and the busiest unit's operations (the
+    tensor cores' TF32 and bf16 passes one after another, the CUDA cores
+    beside them)."""
     nbytes, ops = work(call, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(n / PEAK_FLOPS[unit] for unit, n in ops.items()) * 1e3
+    busy = {}
+    for unit, n in ops.items():
+        core = "tensor" if unit in TENSOR_CORE_UNITS else unit
+        busy[core] = busy.get(core, 0.0) + n / PEAK_FLOPS[unit]
+    t_ops = max(busy.values()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

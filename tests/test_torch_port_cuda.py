@@ -389,22 +389,31 @@ def test_ffn_writes_only_inside_its_buffers(card, monkeypatch, call, direction, 
 
 @pytest.mark.cuda
 def test_ffn_route_depends_on_shape_alone(card):
-    """bf16 runs the tensor-core route at every FFN shape of the UNet (C
-    and M multiples of 64, C <= 1024) and the FMA route elsewhere, both
-    directions; fp32 runs the forward on the FMA route and the backward on
-    the tensor cores (three TF32 passes) at the same shapes, its launch
-    chain the two TF32 kernels."""
+    """bf16 and fp32 run the tensor-core route at every FFN shape of the
+    UNet (C and M multiples of 64, C <= 1024) and the FMA route elsewhere,
+    both directions (fp32 as TF32 passes); an fp32 forward's launch chain
+    is norm/FiLM and the two TF32 kernels, with fp32 and with int8 weights
+    (none of the FMA chain's), a backward's the two TF32 kernels."""
     fwd, bwd = _build.load("ffn_block"), _build.load("ffn_block_bwd")
     for c in FFN_SHAPES + [Call("ffn_block", 1, 64, 128, 1), Call("ffn_block", 8, 64, 128, 1)]:
         n, tc = c.batch * c.hw * c.hw, c not in FFN_FMA_ONLY
-        assert fwd.ffn_tensor_cores(1, n, c.c, c.c) == tc, c.label
-        assert fwd.ffn_tensor_cores(0, n, c.c, c.c) == 0, c.label
         for code in (0, 1):
+            assert fwd.ffn_tensor_cores(code, n, c.c, c.c) == tc, c.label
             assert bwd.ffn_bwd_tensor_cores(code, n, c.c, c.c) == tc, c.label
     for route in (fwd.ffn_tensor_cores, bwd.ffn_bwd_tensor_cores):
-        assert route(1, 64, 128, 96) == 0  # M not a multiple of 64
-        assert route(1, 64, 1088, 1088) == 0  # C above 1024
+        for code in (0, 1):
+            assert route(code, 64, 128, 96) == 0  # M not a multiple of 64
+            assert route(code, 64, 1088, 1088) == 0  # C above 1024
     gen = torch.Generator(device=card).manual_seed(26)
+    for kernel in ("ffn_block", "ffn_block_int8"):
+        args = make_inputs(Call(kernel, 4, 16, 256, 1), torch.float32, card, gen)
+        with torch.no_grad():
+            chain = _device_kernels(lambda: tffn.ffn_block(*args))
+        assert sum(chain.values()) == 3, (kernel, chain)
+        assert all(any(name in k for k in chain) for name in (
+            "norm_film_rows_kernel<float>", "ftc::gate_kernel<float",
+            "ftc::out_kernel<float")), (kernel, chain)
+        assert not any("finish_kernel" in k or "partial" in k for k in chain), (kernel, chain)
     args = make_inputs(Call("ffn_block_bwd", 1, 16, 256, 1), torch.float32, card, gen)
     chain = _device_kernels(lambda: tffn.ffn_block_bwd(*args))
     assert sum(chain.values()) == 2, chain
@@ -674,19 +683,20 @@ def _device_kernels(fn) -> dict:
 @pytest.mark.cuda
 @pytest.mark.parametrize("weights", ["bf16", "int8"])
 def test_block_core_route_depends_on_shape_alone(card, weights):
-    """bf16 at a tensor-core width, and fp32 with fp32 FFN weights, run
+    """bf16 and fp32 at a tensor-core width, with either weight type, run
     three launches (norm/FiLM, the gate, the output product with the
-    conv) and no finish_kernel; fp32 with int8 weights, and bf16 at C=96,
-    run the FMA chain with its finish_kernel; each matches the plain
-    version."""
+    conv; in fp32 the TF32 kernels) and no finish_kernel; bf16 and fp32
+    at C=96 run the FMA chain with its finish_kernel; each matches the
+    plain version."""
     lib = _build.load("block_core")
     gen = torch.Generator(device=card).manual_seed(19)
     suffix = "_int8" if weights == "int8" else ""
     tc_call = Call("block_core" + suffix, 1, 8, 128, 1)
     fma_call = dataclasses.replace(BLOCK_CORE_FMA_ONLY, kernel="block_core" + suffix)
     for call, dtype, tc in ((tc_call, torch.bfloat16, True),
-                            (tc_call, torch.float32, weights == "bf16"),
-                            (fma_call, torch.bfloat16, False)):
+                            (tc_call, torch.float32, True),
+                            (fma_call, torch.bfloat16, False),
+                            (fma_call, torch.float32, False)):
         n = call.batch * call.hw * call.hw
         assert lib.block_core_tensor_cores(_build.DTYPE_CODES[dtype], int(weights == "int8"),
                                            n, call.c, call.c) == tc
@@ -697,25 +707,31 @@ def test_block_core_route_depends_on_shape_alone(card, weights):
         finish = [k for k in chain if "finish_kernel" in k]
         if tc:
             assert sum(chain.values()) == 3 and not finish, chain
-            assert any("out_kernel" in k for k in chain), chain
+            out = "ftc::out_kernel<" + ("float" if dtype == torch.float32 else "")
+            assert any(out in k for k in chain), chain
         else:
             assert finish, chain
         for g, w in zip(got, tbc.block_core_plain(*args)):
             torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
 
 
-# fp32 block_core and window MHA forward on the tensor cores (three TF32
-# passes): every call of a B=1 sample at latent 32 and 64, block_core at
-# the fp32 train steps' B=2 shapes (a film per image, no residual fold:
-# the stochastic-depth gate) and an odd map (2 images of 5 x 5, C=64);
-# then both backward kernels (ffn_block_bwd, window MHA's) at every call
-# of the fp32 train steps, 256px and 512px (latent 32 and 64), B=1 (the
-# block_core route's body backward runs on ffn_block_bwd) and B=8
+# fp32 block_core, ffn_block and window MHA forward on the tensor cores
+# (TF32 passes): every call of a B=1 sample at latent 32 and 64,
+# block_core at the fp32 train steps' B=2 shapes (a film per image, no
+# residual fold: the stochastic-depth gate) and an odd map (2 images of 5
+# x 5, C=64); ffn_block at a B=4 sample's calls, latent 32 and 64; with
+# int8 FFN weights block_core at B=1 and ffn_block at B=4, latent 32 and
+# 64; then both backward kernels (ffn_block_bwd, window MHA's) at every
+# call of the fp32 train steps, 256px and 512px (latent 32 and 64), B=1
+# (the block_core route's body backward runs on ffn_block_bwd) and B=8
 _BWD_OF = lambda c: dataclasses.replace(
     c, kernel="ffn_block_bwd" if c.kernel == "block_core" else c.kernel + "_bwd")
 FP32_TC_CALLS = path_calls(1) + path_calls(1, latent=64) + [
     dataclasses.replace(c, residual=False, film_batch=2)
     for c in path_calls(2) if c.kernel == "block_core"] + [Call("block_core", 2, 5, 64, 1)] + [
+    c for latent in (32, 64) for c in path_calls(4, latent=latent) if c.kernel == "ffn_block"] + [
+    c for latent in (32, 64) for batch in (1, 4)
+    for c in path_calls(batch, latent=latent, int8=True) if c.kernel.endswith("_int8")] + [
     _BWD_OF(c) for latent in (32, 64) for c in path_calls(1, latent=latent)] + [
     c for latent in (32, 64) for c in train_calls(8, latent=latent) if c.kernel.endswith("_bwd")]
 
@@ -724,8 +740,9 @@ FP32_TC_CALLS = path_calls(1) + path_calls(1, latent=64) + [
 @pytest.mark.parametrize("call", FP32_TC_CALLS, ids=lambda c: f"{c.kernel}{c.label}")
 def test_fp32_tensor_core_routes_match_plain_rerun_bitwise_inside_their_buffers(
         card, monkeypatch, call):
-    """fp32 block_core, window MHA forward and both backward kernels at
-    the sampling and train shapes: the tensor-core route taken (its
+    """fp32 block_core and ffn_block (fp32 and int8 FFN weights), window
+    MHA forward and both backward kernels at the sampling and train
+    shapes: the tensor-core route taken (its
     predicate; the launch chains themselves:
     test_block_core_route_depends_on_shape_alone,
     test_window_mha_route_depends_on_shape_alone,
@@ -747,9 +764,13 @@ def test_fp32_tensor_core_routes_match_plain_rerun_bitwise_inside_their_buffers(
         assert route(0, call.l, call.c, call.heads) == 1
     elif bwd:
         assert _build.load("ffn_block_bwd").ffn_bwd_tensor_cores(0, n, call.c, call.c) == 1
+    elif call.kernel.startswith("ffn_block"):
+        assert _build.load("ffn_block").ffn_tensor_cores(0, n, call.c, call.c) == 1
     else:
-        assert _build.load("block_core").block_core_tensor_cores(0, 0, n, call.c, call.c) == 1
-    count = "bwd_launches" if bwd else "launches"
+        q = int(call.kernel.endswith("_int8"))
+        assert _build.load("block_core").block_core_tensor_cores(0, q, n, call.c, call.c) == 1
+    count = ("bwd_launches" if bwd else
+             "int8_launches" if call.kernel.endswith("_int8") else "launches")
     with torch.no_grad():
         before = getattr(mod, count)
         # split counters: block_core keeps ffn_block's

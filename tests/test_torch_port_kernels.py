@@ -196,20 +196,21 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
 
 def test_trace_kernels_lists_every_path_shape_of_every_kernel():
     """The trace CLI covers every kernel at every call shape of its paths:
-    batch-1 and batch-4 sampling, the backward kernels of the B=1 train
-    step, the B=8 train step (forward and backward) and the VAE step, the
-    window MHA ones at head dim 32 and L <= 64 (the tensor-core shapes);
-    it refuses to run without a card."""
+    batch-1 and batch-4 sampling (with int8 FFN weights too), the backward
+    kernels of the B=1 train step, the B=8 train step (forward and
+    backward) and the VAE step, the window MHA ones at head dim 32 and L
+    <= 64 (the tensor-core shapes); it refuses to run without a card."""
     from ldm_image_generator_tpu_torch.cli import trace_kernels
 
     calls = trace_kernels.calls_of(sorted(trace_kernels.KERNELS))
     assert sorted({(tag, c.kernel) for tag, c in calls}) == [
-        ("b1", "block_core"), ("b1", "window_mha"), ("b4", "ffn_block"),
+        ("b1", "block_core"), ("b1", "block_core_int8"), ("b1", "window_mha"),
+        ("b4", "ffn_block"), ("b4", "ffn_block_int8"),
         ("b4", "window_mha"), ("train", "ffn_block"),
         ("train", "ffn_block_bwd"), ("train", "window_mha"),
         ("train", "window_mha_bwd"), ("train_b1", "ffn_block_bwd"),
         ("train_b1", "window_mha_bwd"), ("vae_train", "vq")]
-    assert len(calls) == 5 * 8 + 1
+    assert len(calls) == 6 * 8 + 1
     mha = [c for _, c in calls if c.kernel.startswith("window_mha")]
     assert len(mha) == 20
     assert all(c.c == 32 * c.heads and c.l <= 64 for c in mha)

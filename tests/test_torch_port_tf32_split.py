@@ -1,6 +1,7 @@
-"""The arithmetic of the port's float32 tensor-core routes (block_core,
-window MHA forward and backward, ffn_block's backward;
-csrc/tf32_common.cuh) against the JAX package on the CPU.
+"""The arithmetic of the port's float32 tensor-core routes (block_core and
+ffn_block with fp32 and with int8 FFN weights, window MHA forward and
+backward, ffn_block's backward; csrc/tf32_common.cuh) against the JAX
+package on the CPU.
 
 The routes compute every fp32 product on the H100's tensor cores as three
 TF32 passes: each operand is split into a TF32 head hi = rna(v) and tail lo
@@ -19,7 +20,12 @@ kernels in interpret mode, as its own tests run them) at 1e-4, the card's
 fp32 gate. The deep cases run block_core's output product at the depth of
 the UNet's C=1024 stage, 3 x 1024 + 288, ffn_block's dh at 6M = 6144 deep
 at C = M = 1024, and the backward kernels' weight gradients over 4096 and
-more rows. The emulation lives here, not in the port.
+more rows. With int8 FFN weights (ffn_tf32_fwd.cuh, Q) an int8 value is
+exact in TF32, so a tower product is two passes, lo(a) q + hi(a) q; the
+gate gives a and b their column scale and bias (one rounding), and the
+output product scales each tower's sum at its last k-tile of a split,
+the splits (as the H100's plans split k) meeting already scaled. The
+emulation lives here, not in the port.
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 from ldm_image_generator_tpu.kernels import block_core as jbc
 from ldm_image_generator_tpu.kernels import ffn_block as jffn
 from ldm_image_generator_tpu.kernels import window_attention as jattn
+from ldm_image_generator_tpu_torch.kernels import workloads
 from ldm_image_generator_tpu_torch.kernels.ffn_block import norm_film
 
 torch.set_num_threads(1)
@@ -403,3 +410,199 @@ def test_tf32_backward_route_arithmetic_matches_jax(kernel, shape, pallas):
         assert len(ref) == len(got)
         for i, (a, b) in enumerate(zip(got, ref)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=str(i), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The forward routes of ffn_tf32_fwd.cuh with their split-K plans: ffn_block
+# in fp32 (three passes, no conv) and block_core and ffn_block with int8 FFN
+# weights (two passes on the towers, three on the conv)
+
+
+def _ktile_q(acc: torch.Tensor, a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """acc + a @ q for one k-tile, q int8 values (exact in TF32), as
+    warp_mma_f32q sums it: per m16n8k8 step the two passes (tail*q,
+    head*q) into a zeroed partial with truncation, then one rounded fp32
+    add into acc."""
+    ah, al = _split(a)
+    qd = q.double()
+    part = torch.zeros(acc.shape, dtype=torch.float64)
+    for s in range(0, a.shape[-1], 8):
+        for x in (al, ah):
+            part = _truncated(part + x[..., s:s + 8].double() @ qd[s:s + 8])
+    return acc + part.float()
+
+
+def _fma(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """fmaf(y, scale, bias): the product and the sum rounded once to fp32."""
+    return (y.double() * scale.double() + bias.double()).float()
+
+
+def _ffn_fwd_tc(x, mul, bias, towers, q, conv=None, hw=None):
+    """ffn_block's (conv None) or block_core's forward route on rows x [N, C]
+    (film rows [N, C]): towers = [(wa, ba, wb, bb, wc, bc)] x 3, with q
+    their matrices int8 values (float tensors) and their biases [2, out]
+    rows [scale; bias]. Gate and output products over 64-deep k-tiles,
+    split over blocks as fwd_plan splits them on 132 SMs; with q each
+    tower's output sum scaled at its last k-tile of a split. conv: (taps
+    [3, 3, 32, C], bias [C]) on the maps (B, H, W) = hw, after the towers'
+    k-tiles, as 9 more k-tiles. Returns (out without the residual, h)."""
+    n, c = x.shape
+    m = towers[0][0].shape[1]
+    h = norm_film(x, mul, bias)
+    rt = -(-n // 64)
+    ktile = _ktile_q if q else _ktile
+    gate_per = _split_per(3 * rt * (m // 64), c // 64)
+
+    def gate_product(w_):
+        acc = torch.zeros((n, m))
+        for k0 in range(0, c, 64 * gate_per):
+            part = torch.zeros((n, m))
+            for k1 in range(k0, min(c, k0 + 64 * gate_per), 64):
+                part = ktile(part, h[:, k1:k1 + 64], w_[k1:k1 + 64])
+            acc = acc + part
+        return acc
+
+    gs = []
+    for wa_, ba_, wb_, bb_, _, _ in towers:
+        a, b = gate_product(wa_), gate_product(wb_)
+        if q:
+            a, b = _fma(a, ba_[0], ba_[1]), _fma(b, bb_[0], bb_[1])
+        else:
+            a, b = a + ba_, b + bb_
+        gs.append(a * torch.relu(b))
+    # the output product's k-tiles: (tower, k0) for the towers, then taps
+    tiles = [(t, k0) for t in range(3) for k0 in range(0, m, 64)]
+    tiles += [(None, tap) for tap in range(9)] if conv is not None else []
+    out_per = _split_per(rt * (c // 64), len(tiles))
+    if conv is not None:
+        (b_, hh, ww), (ck, _) = hw, conv
+        hp = F.pad(h.reshape(b_, hh, ww, c), (0, 0, 1, 1, 1, 1))
+    out = torch.zeros((n, c))
+    for s0 in range(0, len(tiles), out_per):
+        split = tiles[s0:s0 + out_per]
+        acc, total = torch.zeros((n, c)), torch.zeros((n, c))
+        for i, (t, k0) in enumerate(split):
+            if t is None:
+                ky, kx = divmod(k0, 3)
+                shifted = hp[:, ky:ky + hh, kx:kx + ww].reshape(-1, c)
+                for g0 in range(0, c, 32):
+                    cols = slice(g0, g0 + 32)
+                    total[:, cols] = _ktile(total[:, cols], shifted[:, cols],
+                                            ck[ky, kx, :, cols])
+                continue
+            acc = ktile(acc, gs[t][:, k0:k0 + 64], towers[t][4][k0:k0 + 64])
+            last = i + 1 == len(split) or split[i + 1][0] != t
+            if last:
+                total = total + (acc * towers[t][5][0] if q else acc)
+                acc = torch.zeros((n, c))
+        out = out + total
+    bias_of = lambda t: t[5][1] if q else t[5]
+    out_bias = bias_of(towers[0]) + bias_of(towers[1]) + bias_of(towers[2])
+    if conv is not None:
+        out_bias = out_bias + conv[1]
+    return out + out_bias, h
+
+
+# (route, shape, whether the Pallas kernel runs too): the int8 routes and
+# fp32 ffn_block; block_core (B, map side, C), ffn_block (rows, C). The
+# deep cases at C = M = 1024: block_core's output product 3M + 288 = 3360
+# deep, split into 12 blocks of 5 k-tiles, some across two towers (the
+# per-tower scaling inside a split) or a tower and the conv taps; ffn_block's
+# 3M deep, 12 blocks of 4 k-tiles
+FWD_CASES = [
+    ("block_core_int8", (1, 8, 128), True),
+    ("block_core_int8", (1, 4, 1024), False),
+    ("ffn_block_int8", (40, 128), True),
+    ("ffn_block_int8", (16, 1024), False),
+    ("ffn_block", (40, 128), True),
+    ("ffn_block", (16, 1024), False),
+]
+
+
+@pytest.mark.parametrize("route,shape,pallas", FWD_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}" for k, s, _ in FWD_CASES])
+def test_tf32_ffn_forward_routes_match_jax(route, shape, pallas):
+    """The emulated fp32 ffn_block route and the int8 routes of block_core
+    and ffn_block against the JAX package at 1e-4: its XLA function (on
+    fake_quantize'd weights for int8) and, where `pallas`, its Pallas
+    kernel in interpret mode (quantized=True for int8, which quantizes as
+    the emulation does)."""
+    t = lambda a: torch.from_numpy(np.array(a))
+    q = route.endswith("_int8")
+    ids = (1, 3)
+    ids_j = jnp.asarray(ids, jnp.int32)
+    if route.startswith("block_core"):
+        x, mul, bias, w, ck, cb = _block_case(*shape, seed=sum(shape) + 7)
+        b_, hw, c = shape
+        rows = lambda a: a.reshape(-1, c)
+        film = lambda a: np.broadcast_to(a, x.shape)
+    else:
+        n, c = shape
+        rng = np.random.default_rng(n + c)
+        r = lambda *s, scale=0.05: (rng.normal(size=s) * scale).astype(np.float32)
+        x, mul, bias = r(n, c, scale=1.0), r(n, c, scale=0.2) + 1.0, r(n, c, scale=0.2)
+        w = (r(c, c), r(c), r(c, c), r(c), r(c, c), r(c),
+             r(4, c, c), r(4, c), r(4, c, c), r(4, c), r(4, c, c), r(4, c))
+        rows = film = lambda a: a
+    jw = [jnp.asarray(a) for a in w]
+    if q:
+        # the int8 values and [scale; bias] rows, as the Pallas kernels make them
+        qw = [jffn.quantize_cols(m_, b_) for m_, b_ in zip(jw[0::2], jw[1::2])]
+        mats = [t(m_).float() for m_, _ in qw]
+        sbs = [t(sb) for _, sb in qw]
+        # fake_quantize: the XLA reference's weights
+        jref = [v for m_, b_ in zip(jw[0::2], jw[1::2]) for v in jffn.fake_quantize(m_, b_)]
+    else:
+        mats, sbs = [t(a) for a in w[0::2]], [t(a) for a in w[1::2]]
+        jref = jw
+    towers = [tuple(v for k in range(3) for v in (mats[k], sbs[k]))] + [
+        tuple(v for k in range(3) for v in (mats[3 + k][e], sbs[3 + k][e])) for e in ids]
+    if route.startswith("block_core"):
+        conv = (t(ck), t(cb))
+        out, h = _ffn_fwd_tc(t(rows(x)), t(rows(film(mul))), t(rows(film(bias))), towers, q,
+                             conv=conv, hw=(b_, hw, hw))
+        out = (out + t(rows(x))).reshape(x.shape)
+        h = h.reshape(x.shape)
+        args = [jnp.asarray(a) for a in (x, mul, bias)]
+        refs = [jbc.block_core_xla(*args, *jref, jnp.asarray(ck), jnp.asarray(cb), *ids)]
+        if pallas:
+            refs.append(jbc.block_core_pallas(*args, *jw, jnp.asarray(ck), jnp.asarray(cb),
+                                              ids_j, quantized=q, interpret=True))
+    else:
+        out, h = _ffn_fwd_tc(t(x), t(mul), t(bias), towers, q)
+        args = [jnp.asarray(a) for a in (x, mul, bias)]
+        refs = [jffn.ffn_block_xla(*args, *jref, *ids)]
+        if pallas:
+            refs.append(jffn.ffn_block_pallas(*args, *jw, ids_j, quantized=q, interpret=True))
+    for ref_out, ref_h in refs:
+        np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), **TOL)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+
+
+@pytest.mark.parametrize("kernel,towers_on,conv_passes", [
+    ("block_core", ("tf32", 3), 3), ("ffn_block", ("tf32", 3), 0),
+    ("block_core_int8", (torch.bfloat16, 3), 3), ("ffn_block_int8", (torch.bfloat16, 3), 0)])
+def test_tf32_bound_counts_each_routes_passes(kernel, towers_on, conv_passes):
+    """workloads.work for an fp32 call of the forward FFN routes: every
+    product at the least-cost fp32-accurate rate on the tensor cores,
+    three TF32 passes with fp32 weights (and on block_core's conv), three
+    bf16 passes on the int8 towers (q exact in bf16; three bf16 passes at
+    989 TFLOP/s beat two TF32 ones at 495); the bound adds the tensor
+    cores' TF32 and bf16 times; the bytes those of fp32 activations and
+    of the weights' type."""
+    call = workloads.Call(kernel, 1, 64, 256, 36)
+    nbytes, ops = workloads.work(call, torch.float32)
+    rows, c = 64 * 64, 256
+    towers, conv = 18 * rows * c * c, 2 * rows * c * 9 * 32
+    unit, passes = towers_on
+    want = {unit: passes * towers}
+    if conv_passes:
+        want["tf32"] = want.get("tf32", 0) + conv_passes * conv
+    assert ops == want
+    bf16_bytes, bf16_ops = workloads.work(call, torch.bfloat16)
+    assert bf16_ops == {torch.bfloat16: towers + (conv if conv_passes else 0)}
+    assert nbytes > bf16_bytes
+    assert 2 / workloads.PEAK_FLOPS["tf32"] > 3 / workloads.PEAK_FLOPS[torch.bfloat16]
+    bound, by = workloads.bound_ms(call, torch.float32)
+    assert by == "operations" and bound == pytest.approx(
+        sum(n / workloads.PEAK_FLOPS[u] for u, n in want.items()) * 1e3)
