@@ -1,0 +1,8 @@
+"""Share of the traced window in which no operation ran on the device, in
+% (the union of the profiler's device ops)."""
+
+
+def read(run, out, rest):
+    if out.trace is None or out.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - out.trace.busy_s() / out.trace.window_s)
