@@ -142,13 +142,18 @@ def make_variants(pipe, sizes, num_steps: int = 20, sampler: str = "ddim",
     import torch
 
     from ldm_image_generator_tpu_torch.serving import Variant
+    from ldm_image_generator_tpu_torch.utils.profiling import span
 
     dev = pipe.device
     down = pipe.decoder.cfg.downscale
     channels = pipe.unet.cfg.input_channels
     noise_shape = lambda size: (size // down, size // down, channels)
-    rows = lambda seeds, size: torch.stack(
-        [draw_noise(s, noise_shape(size)) for s in seeds]).to(dev)
+
+    def rows(seeds, size):
+        # each row's noise drawn on the host, then one copy to the device
+        with span("serve.noise", rows=len(seeds)):
+            return torch.stack([draw_noise(s, noise_shape(size)) for s in seeds]).to(dev)
+
     routing = lambda: torch.Generator(device=dev).manual_seed(0)
 
     def make_for_size(size: int, n: int = num_steps):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ldm_image_generator_tpu_torch.config import DDPMConfig
+from ldm_image_generator_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,26 +213,27 @@ def ddim_sample(
     one = np.float32(1.0)
     deep = None
     for i, (t, t_next) in enumerate(zip(ts.tolist(), ts_next.tolist())):
-        pred, deep = model_step(denoise_fn, deep_cache, x, t, i, deep)
-        eps_hat, x0 = pred_to_eps_x0(pred, x, ab[t], prediction)
-        if t == 0:
-            x = x0.to(dtype)
-        else:
-            a_t, a_n = ab[t], ab[t_next]
-            sigma = np.float32(eta) * np.sqrt((one - a_n) / (one - a_t)) * np.sqrt(
-                np.maximum(one - a_t / a_n, np.float32(0.0)))
-            c_eps = np.sqrt(np.maximum(one - a_n - sigma * sigma, np.float32(0.0)))
-            x_new = float(np.sqrt(a_n)) * x0 + float(c_eps) * eps_hat
-            if sigma != 0.0:
-                noise = torch.randn(x_shape, generator=generator, device=x.device,
-                                    dtype=torch.float32)
-                x_new = x_new + float(sigma) * noise
-            x = x_new.to(dtype)
-        if project_fn is not None:
-            noise = None
-            if t != 0:
-                noise = (project_noise[i].to(x.device) if project_noise is not None
-                         else torch.randn(x_shape, generator=generator,
-                                          device=x.device, dtype=torch.float32))
-            x = project_fn(x, int(t_next), t == 0, noise).to(dtype)
+        with span("pipeline.step", i=i, t=t):
+            pred, deep = model_step(denoise_fn, deep_cache, x, t, i, deep)
+            eps_hat, x0 = pred_to_eps_x0(pred, x, ab[t], prediction)
+            if t == 0:
+                x = x0.to(dtype)
+            else:
+                a_t, a_n = ab[t], ab[t_next]
+                sigma = np.float32(eta) * np.sqrt((one - a_n) / (one - a_t)) * np.sqrt(
+                    np.maximum(one - a_t / a_n, np.float32(0.0)))
+                c_eps = np.sqrt(np.maximum(one - a_n - sigma * sigma, np.float32(0.0)))
+                x_new = float(np.sqrt(a_n)) * x0 + float(c_eps) * eps_hat
+                if sigma != 0.0:
+                    noise = torch.randn(x_shape, generator=generator, device=x.device,
+                                        dtype=torch.float32)
+                    x_new = x_new + float(sigma) * noise
+                x = x_new.to(dtype)
+            if project_fn is not None:
+                noise = None
+                if t != 0:
+                    noise = (project_noise[i].to(x.device) if project_noise is not None
+                             else torch.randn(x_shape, generator=generator,
+                                              device=x.device, dtype=torch.float32))
+                x = project_fn(x, int(t_next), t == 0, noise).to(dtype)
     return x

@@ -28,6 +28,7 @@ from ldm_image_generator_tpu_torch.diffusion.ddpm import (
     model_step,
     pred_to_eps_x0,
 )
+from ldm_image_generator_tpu_torch.utils.profiling import span
 
 
 def dpm_solver_sample(
@@ -74,19 +75,25 @@ def dpm_solver_sample(
         c_d = alpha[t_cur] * (np.exp(-h) - np.float32(1.0))
         return float(c_x) * x - float(c_d) * d
 
-    x0_prev = x0_of(x, ts[0], 0)
+    # one span pipeline.step per timestep: its model call and the update
+    # that follows it
+    with span("pipeline.step", i=0, t=ts[0]):
+        x0_prev = x0_of(x, ts[0], 0)
+        if len(ts) > 1:
+            x = update(x, ts[0], ts[1], x0_prev)  # first step: first order
     if len(ts) == 1:
         return x0_prev.to(dtype)
-    x = update(x, ts[0], ts[1], x0_prev)  # first step: first order
     h_prev = lam[ts[1]] - lam[ts[0]]
     one, two = np.float32(1.0), np.float32(2.0)
     for i in range(len(ts) - 2):
         t_cur, t_next = ts[i + 1], ts[i + 2]
-        x0_cur = x0_of(x, t_cur, i + 1)
-        h = lam[t_next] - lam[t_cur]
-        r = h_prev / h
-        c_cur, c_prev = one + one / (two * r), one / (two * r)
-        d = float(c_cur) * x0_cur - float(c_prev) * x0_prev
-        x = update(x, t_cur, t_next, d)
+        with span("pipeline.step", i=i + 1, t=t_cur):
+            x0_cur = x0_of(x, t_cur, i + 1)
+            h = lam[t_next] - lam[t_cur]
+            r = h_prev / h
+            c_cur, c_prev = one + one / (two * r), one / (two * r)
+            d = float(c_cur) * x0_cur - float(c_prev) * x0_prev
+            x = update(x, t_cur, t_next, d)
         x0_prev, h_prev = x0_cur, h
-    return x0_of(x, ts[-1], len(ts) - 1).to(dtype)
+    with span("pipeline.step", i=len(ts) - 1, t=ts[-1]):
+        return x0_of(x, ts[-1], len(ts) - 1).to(dtype)

@@ -43,6 +43,7 @@ from ldm_image_generator_tpu_torch.diffusion.ddpm import (
 from ldm_image_generator_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
 from ldm_image_generator_tpu_torch.models.unet import UNet
 from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
+from ldm_image_generator_tpu_torch.utils.profiling import span
 
 SAMPLERS = ("ddim", "dpm++2m")
 # FiLM schedules kept per weight version (the JAX package's _PREP_FILM_MAX)
@@ -181,16 +182,23 @@ class _Pipeline:
         return hit
 
     def _base_fn(self, latent: int, num_steps: int, steps, film_cache: bool):
-        """base(x, t, plan, condition=None, deep=None, with_deep=False) ->
-        the UNet's fp32 output (and deep features) at the integer timestep
-        t under the routing plan. With film_cache each step replays its
-        slice of the FiLM schedule; a timestep outside it raises."""
+        """base(x, t, plan, condition=None, deep=None, with_deep=False,
+        branch="plain") -> the UNet's fp32 output (and deep features) at
+        the integer timestep t under the routing plan, in a span
+        pipeline.unet (attrs rows, branch: plain, or CFG's cond / uncond).
+        With film_cache each step replays its slice of the FiLM schedule; a
+        timestep outside it raises."""
         self._prepare()
         unet, dev = self.unet, self.device
         index, films = (self.film_schedule(latent, num_steps, steps)
                         if film_cache else (None, None))
 
-        def base(x, t, plan, condition=None, deep=None, with_deep=False):
+        def base(x, t, plan, condition=None, deep=None, with_deep=False,
+                 branch="plain"):
+            with span("pipeline.unet", rows=x.shape[0], branch=branch):
+                return call(x, t, plan, condition, deep, with_deep)
+
+        def call(x, t, plan, condition, deep, with_deep):
             film = None
             if films is not None:
                 i = index.get(int(t))
@@ -257,8 +265,8 @@ class _Pipeline:
 
         def denoise(x, t):
             plan = draw()
-            pred_c = base(x, t, plan, condition)
-            pred_u = base(x, t, plan, baseline)
+            pred_c = base(x, t, plan, condition, branch="cond")
+            pred_u = base(x, t, plan, baseline, branch="uncond")
             return guide(pred_c, pred_u, scale, rescale)
         return denoise, step, True
 
@@ -375,23 +383,34 @@ class LDMPipeline(_Pipeline):
             if guidance_scales is None and guidance_scale == 1.0:
                 raise ValueError("negative_condition has no effect at guidance "
                                  "1.0: pass guidance_scale != 1 or guidance_scales")
-        latent = image_size // self.decoder.cfg.downscale
-        shape = (batch, latent, latent, self.unet.cfg.input_channels)
-        denoise, step, use_cfg = self._denoise_fns(
-            latent, num_steps, steps, film_cache, generator, condition,
-            guidance_scale if guidance_scales is None else guidance_scales,
-            cfg_rescale if cfg_rescales is None else cfg_rescales,
-            negative_condition)
-        if cache_interval > 1 and use_cfg:
-            raise ValueError("cache_interval > 1 is not supported with "
-                             "classifier-free guidance")
-        deep_cache = self._deep_cache(
-            step, cache_interval, None if condition is None else condition.to(self.device))
-        z = self._run(sampler, denoise, shape, eta, generator=generator,
-                      num_steps=num_steps, steps=steps, init_noise=init_noise,
-                      deep_cache=deep_cache)
-        img = to_uint8(self.decoder(z))
+        with span("pipeline.sample", batch=batch,
+                  steps=num_steps if steps is None else len(steps)) as s:
+            latent = image_size // self.decoder.cfg.downscale
+            shape = (batch, latent, latent, self.unet.cfg.input_channels)
+            denoise, step, use_cfg = self._denoise_fns(
+                latent, num_steps, steps, film_cache, generator, condition,
+                guidance_scale if guidance_scales is None else guidance_scales,
+                cfg_rescale if cfg_rescales is None else cfg_rescales,
+                negative_condition)
+            if s is not None:
+                s.attrs["guided"] = use_cfg
+            if cache_interval > 1 and use_cfg:
+                raise ValueError("cache_interval > 1 is not supported with "
+                                 "classifier-free guidance")
+            deep_cache = self._deep_cache(
+                step, cache_interval,
+                None if condition is None else condition.to(self.device))
+            z = self._run(sampler, denoise, shape, eta, generator=generator,
+                          num_steps=num_steps, steps=steps, init_noise=init_noise,
+                          deep_cache=deep_cache)
+            img = self._decode(z)
         return (img, z) if return_latent else img
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """uint8 images of latents z (the decoder, clamp, uint8), in a
+        span pipeline.decode."""
+        with span("pipeline.decode", rows=z.shape[0]):
+            return to_uint8(self.decoder(z))
 
     @torch.no_grad()
     def img2img(self, image: torch.Tensor,
@@ -433,30 +452,33 @@ class LDMPipeline(_Pipeline):
                 raise ValueError("negative_condition has no effect at guidance "
                                  "1.0: pass guidance_scale != 1 or guidance_scales")
         check_sampler(sampler)
-        self._prepare()
-        if self.encoder is None:
-            raise ValueError("img2img needs a pipeline built with an encoder")
-        sub_steps = img2img_steps(self.schedule.num_timesteps, strength, num_steps)
-        dev = self.device
-        z0 = self.encoder(image.to(dev)).float()
-        b, latent = z0.shape[0], z0.shape[1]
-        eps = (torch.randn(z0.shape, generator=generator, device=dev)
-               if fwd_noise is None else fwd_noise.to(dev, torch.float32))
-        x_init = q_sample(self.schedule, z0, torch.full(
-            (b,), sub_steps[-1], dtype=torch.int32, device=dev), eps)
-        denoise, _, _ = self._denoise_fns(
-            latent, num_steps, sub_steps, film_cache, generator, condition,
-            guidance_scale if guidance_scales is None else guidance_scales,
-            cfg_rescale if cfg_rescales is None else cfg_rescales,
-            negative_condition)
-        project_fn = None
-        if mask is not None:
-            project_fn = inpaint_projection(
-                self.schedule, z0, resize_mask(mask.to(dev), latent))
-        z = self._run(sampler, denoise, z0.shape, eta, project_fn, project_noise,
-                      generator=generator, num_steps=num_steps, steps=sub_steps,
-                      init_noise=x_init)
-        img = to_uint8(self.decoder(z))
+        with span("pipeline.sample", batch=image.shape[0]) as s:
+            self._prepare()
+            if self.encoder is None:
+                raise ValueError("img2img needs a pipeline built with an encoder")
+            sub_steps = img2img_steps(self.schedule.num_timesteps, strength, num_steps)
+            dev = self.device
+            z0 = self.encoder(image.to(dev)).float()
+            b, latent = z0.shape[0], z0.shape[1]
+            eps = (torch.randn(z0.shape, generator=generator, device=dev)
+                   if fwd_noise is None else fwd_noise.to(dev, torch.float32))
+            x_init = q_sample(self.schedule, z0, torch.full(
+                (b,), sub_steps[-1], dtype=torch.int32, device=dev), eps)
+            denoise, _, use_cfg = self._denoise_fns(
+                latent, num_steps, sub_steps, film_cache, generator, condition,
+                guidance_scale if guidance_scales is None else guidance_scales,
+                cfg_rescale if cfg_rescales is None else cfg_rescales,
+                negative_condition)
+            if s is not None:
+                s.attrs.update(steps=len(sub_steps), guided=use_cfg)
+            project_fn = None
+            if mask is not None:
+                project_fn = inpaint_projection(
+                    self.schedule, z0, resize_mask(mask.to(dev), latent))
+            z = self._run(sampler, denoise, z0.shape, eta, project_fn, project_noise,
+                          generator=generator, num_steps=num_steps, steps=sub_steps,
+                          init_noise=x_init)
+            img = self._decode(z)
         return (img, z) if return_latent else img
 
 
@@ -495,10 +517,12 @@ class DDPMPipeline(_Pipeline):
         routing unless the config fixes it. cache_interval > 1: DeepCache
         (see LDMPipeline.sample)."""
         check_sampler(sampler)
-        shape = (batch, image_size, image_size, self.unet.cfg.input_channels)
-        denoise, step, _ = self._denoise_fns(image_size, num_steps, steps,
-                                             film_cache, generator)
-        x = self._run(sampler, denoise, shape, eta, generator=generator,
-                      num_steps=num_steps, steps=steps, init_noise=init_noise,
-                      deep_cache=self._deep_cache(step, cache_interval))
-        return to_uint8(x)
+        with span("pipeline.sample", batch=batch,
+                  steps=num_steps if steps is None else len(steps), guided=False):
+            shape = (batch, image_size, image_size, self.unet.cfg.input_channels)
+            denoise, step, _ = self._denoise_fns(image_size, num_steps, steps,
+                                                 film_cache, generator)
+            x = self._run(sampler, denoise, shape, eta, generator=generator,
+                          num_steps=num_steps, steps=steps, init_noise=init_noise,
+                          deep_cache=self._deep_cache(step, cache_interval))
+            return to_uint8(x)

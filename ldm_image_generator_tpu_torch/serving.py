@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -63,6 +64,7 @@ import numpy as np
 import torch
 
 from ldm_image_generator_tpu_torch.config import resolve_device
+from ldm_image_generator_tpu_torch.utils import profiling
 
 
 def as_numpy(imgs) -> np.ndarray:
@@ -129,6 +131,8 @@ class _Request:
     negative: Optional[int] = None    # takes_negative variants only
     rescale: Optional[float] = None   # takes_rescale variants only
     priority: int = 1          # 0 = interactive .. 2 = background
+    id: int = 0                # request number, for the spans
+    queued_ns: int = 0         # profiling.now_ns() at submit, while recording
 
 
 # Log-spaced latency bucket upper bounds (milliseconds). The last bucket
@@ -345,6 +349,8 @@ class SamplerServer:
         self._worker: Optional[threading.Thread] = None
         self.stats = ServerStats()
         self.device = resolve_device(device)
+        self._request_ids = itertools.count(1)
+        self._dispatches = 0  # the worker's own count, for the spans
 
     # -- lifecycle ---------------------------------------------------------
     def warmup(self) -> None:
@@ -517,12 +523,16 @@ class SamplerServer:
             )
         fut: Future = Future()
         ttl = ttl_s if ttl_s is not None else self.default_ttl
+        # stamped before the monotonic clock: a queue span is never
+        # shorter than the wait _take_group measured
+        queued_ns = profiling.now_ns() if profiling.recording() else 0
         now = time.monotonic()
         req = _Request(int(seed), variant, fut, now,
                        now + ttl if ttl is not None else None,
                        class_id=class_id, payload=payload,
                        guidance=guidance, negative=negative_class,
-                       rescale=cfg_rescale, priority=priority)
+                       rescale=cfg_rescale, priority=priority,
+                       id=next(self._request_ids), queued_ns=queued_ns)
         try:
             self._q.put_nowait(req)
         except queue.Full:
@@ -631,7 +641,8 @@ class SamplerServer:
             have_pending = any(pending.values())
             if self._stop.is_set() and not have_pending and self._q.empty():
                 break
-            variant = self._take_group(pending)
+            with profiling.span("serve.take"):
+                variant = self._take_group(pending)
             if variant is _NO_WORK:
                 continue
             reqs = self._reap(pending[variant])
@@ -645,58 +656,83 @@ class SamplerServer:
             reqs.sort(key=lambda r: (r.priority, r.enqueued_at))
             bucket = self._bucket_for(len(reqs))
             group, pending[variant] = reqs[:bucket], reqs[bucket:]
-            pad = bucket - len(group)
-            dispatch_at = time.monotonic()
-            seeds = [r.seed for r in group] + [0] * pad
-            v = self._pipelines[variant]
-            try:
-                ids = None
-                if self.num_classes is not None:
-                    # None / padding -> the null (unconditional) id
-                    null = self.num_classes
-                    ids = self._row(
-                        [null if r.class_id is None else r.class_id
-                         for r in group] + [null] * pad, torch.int32)
-                payload = None
-                if v.payload_shape is not None:
-                    zero = np.zeros(tuple(v.payload_shape),
-                                    v.payload_dtype)
-                    payload = np.stack(
-                        [r.payload for r in group] + [zero] * pad
-                    )
-                guidance = None
-                if v.takes_guidance:
-                    # per-request scales ride as a row; None and padding
-                    # are 1.0 (plain conditional sampling)
-                    guidance = self._row(
-                        [1.0 if r.guidance is None else r.guidance
-                         for r in group] + [1.0] * pad, torch.float32)
-                negative = None
-                if v.takes_negative:
-                    # None / padding -> the null id (plain CFG baseline)
-                    null = self.num_classes
-                    negative = self._row(
-                        [null if r.negative is None else r.negative
-                         for r in group] + [null] * pad, torch.int32)
-                rescale = None
-                if v.takes_rescale:
-                    # None / padding -> phi 0.0 (exact plain CFG)
-                    rescale = self._row(
-                        [0.0 if r.rescale is None else r.rescale
-                         for r in group] + [0.0] * pad, torch.float32)
-                imgs = as_numpy(
-                    self._dispatch(v, seeds, bucket, ids, payload,
-                                   guidance, negative, rescale)
-                )
+            self._dispatches += 1
+            self._serve(variant, group, bucket, self._dispatches)
+
+    def _serve(self, variant, group: list, bucket: int, n: int) -> None:
+        """Dispatch one group (padded to `bucket`) and resolve its futures;
+        n numbers the dispatch in the spans: serve.dispatch (children
+        serve.rows, serve.to_host, serve.resolve), and per request
+        serve.queue (submit to dispatch) and serve.service (dispatch to its
+        result)."""
+        pad = bucket - len(group)
+        dispatch_at = time.monotonic()
+        traced = profiling.recording()
+        dispatch_ns = profiling.now_ns() if traced else 0
+        seeds = [r.seed for r in group] + [0] * pad
+        v = self._pipelines[variant]
+        try:
+            with profiling.span("serve.dispatch", dispatch=n, bucket=bucket,
+                                real=len(group), variant=variant):
+                with profiling.span("serve.rows"):
+                    ids = None
+                    if self.num_classes is not None:
+                        # None / padding -> the null (unconditional) id
+                        null = self.num_classes
+                        ids = self._row(
+                            [null if r.class_id is None else r.class_id
+                             for r in group] + [null] * pad, torch.int32)
+                    payload = None
+                    if v.payload_shape is not None:
+                        zero = np.zeros(tuple(v.payload_shape),
+                                        v.payload_dtype)
+                        payload = np.stack(
+                            [r.payload for r in group] + [zero] * pad
+                        )
+                    guidance = None
+                    if v.takes_guidance:
+                        # per-request scales ride as a row; None and
+                        # padding are 1.0 (plain conditional sampling)
+                        guidance = self._row(
+                            [1.0 if r.guidance is None else r.guidance
+                             for r in group] + [1.0] * pad, torch.float32)
+                    negative = None
+                    if v.takes_negative:
+                        # None / padding -> the null id (plain CFG baseline)
+                        null = self.num_classes
+                        negative = self._row(
+                            [null if r.negative is None else r.negative
+                             for r in group] + [null] * pad, torch.int32)
+                    rescale = None
+                    if v.takes_rescale:
+                        # None / padding -> phi 0.0 (exact plain CFG)
+                        rescale = self._row(
+                            [0.0 if r.rescale is None else r.rescale
+                             for r in group] + [0.0] * pad, torch.float32)
+                out = self._dispatch(v, seeds, bucket, ids, payload,
+                                     guidance, negative, rescale)
+                with profiling.span("serve.to_host"):
+                    imgs = as_numpy(out)
                 self.stats.add(batches=1, images=len(group),
                                padded_images=pad)
                 done = time.monotonic()
-                for r, img in zip(group, imgs):
-                    r.future.set_result(img)
-                    self.stats.observe(
-                        (done - r.enqueued_at) * 1e3,
-                        (dispatch_at - r.enqueued_at) * 1e3,
-                    )
-            except Exception as e:  # pragma: no cover - propagate to callers
+                with profiling.span("serve.resolve"):
+                    for r, img in zip(group, imgs):
+                        r.future.set_result(img)
+                        self.stats.observe(
+                            (done - r.enqueued_at) * 1e3,
+                            (dispatch_at - r.enqueued_at) * 1e3,
+                        )
+                        if traced:
+                            profiling.record("serve.service", dispatch_ns,
+                                             profiling.now_ns(), request=r.id,
+                                             dispatch=n)
+        except Exception as e:  # pragma: no cover - propagate to callers
+            for r in group:
+                r.future.set_exception(e)
+        finally:
+            if traced:
                 for r in group:
-                    r.future.set_exception(e)
+                    if r.queued_ns:
+                        profiling.record("serve.queue", r.queued_ns, dispatch_ns,
+                                         request=r.id, dispatch=n)
