@@ -502,6 +502,7 @@ def phase_kernels(dev, reps: int) -> dict:
     """Check and time every kernel at the paths' call shapes."""
     import torch.nn.functional as F
 
+    from ldm_image_generator_tpu_torch.kernels import _build
     from ldm_image_generator_tpu_torch.kernels import block_core as tbc
     from ldm_image_generator_tpu_torch.kernels.block_core import grouped_conv3x3
     from ldm_image_generator_tpu_torch.kernels import ffn_block as tffn
@@ -657,7 +658,12 @@ def phase_kernels(dev, reps: int) -> dict:
         # phase 20
         (c, "b4-64") for c in path_calls(4, latent=64)] + [
         (c, "train64") for c in per_sample_film(train_calls(TRAIN_BATCH, latent=64))] + [
-        (c, "train64_b1") for c in train64_b1]
+        (c, "train64_b1") for c in train64_b1] + [
+        # the benchmark's cells: ffn_block at a CFG call of B=256 (latent
+        # 32) and a served bucket of 32 (latent 64), the bf16 wgmma route's
+        (c, tag) for tag, (batch, lat) in CELL_TAGS.items()
+        for c in path_calls(batch, latent=lat) if c.kernel == "ffn_block"]
+    ffn_lib = _build.load("ffn_block")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, rows32 = [], []  # the timed bf16 and fp32 calls
@@ -712,6 +718,12 @@ def phase_kernels(dev, reps: int) -> dict:
                        max_abs_err_fp32=err_fp32, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                        bound_by=by)
+            if call.kernel == "ffn_block" and dtype == torch.bfloat16:
+                rows_n = call.batch * call.hw * call.hw
+                # (a tree without the wgmma route: mma.sync)
+                wg = hasattr(ffn_lib, "ffn_wgmma_route") and ffn_lib.ffn_wgmma_route(
+                    1, 0, rows_n, call.c, call.c)
+                row["route"] = "wgmma" if wg else "mma.sync"
             if lib_ms is not None:
                 row["kernel_over_library"] = ms / lib_ms
                 row["bound_over_kernel"] = bms / ms
@@ -747,7 +759,7 @@ def phase_kernels(dev, reps: int) -> dict:
     # kernel, library (where there is one), bound
     for name in ("window_mha", "window_mha_bwd", "ffn_block", "ffn_block_bwd"):
         for tag in ("b1", "b4", "train", "ddpm_train", "int8_train", "int8_train_b2",
-                    *PARALLEL_TAGS, *LATENT64_TAGS):
+                    *PARALLEL_TAGS, *LATENT64_TAGS, *CELL_TAGS):
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if not rs:
                 continue
@@ -757,8 +769,10 @@ def phase_kernels(dev, reps: int) -> dict:
             if rs[0]["library_ms"] is not None:
                 lib_ms = step("library_ms")
                 lib = f", library {lib_ms:.4f} ms (kernel/library {ms / lib_ms:.3f})"
+            routes = sorted({r["route"] for r in rs if "route" in r})
             log(f"{name} {tag} per step: kernel {ms:.4f} ms{lib}, bound "
-                f"{bms:.5f} ms (bound/kernel {bms / ms:.4f})")
+                f"{bms:.5f} ms (bound/kernel {bms / ms:.4f})"
+                + (f", plain {step('plain_ms'):.4f} ms, route {'/'.join(routes)}" if routes else ""))
     # block_core per B=1 step (latent 32 and 64) beside ffn_block plus the
     # plain grouped conv at the same shapes, the two calls a SwinBlock
     # would make without it
@@ -832,7 +846,8 @@ def phase_kernels(dev, reps: int) -> dict:
                 max_abs_err_fp32=max(r["max_abs_err_fp32"] for r in rs))
             if name == "ffn_block_bwd":
                 summary[name][tag + "_step"]["weights"] = "the int8 round trip of bf16 weights"
-        for tag, batch in {**PARALLEL_TAGS, **LATENT64_TAGS}.items():
+        cells = {tag: batch for tag, (batch, _) in CELL_TAGS.items()}
+        for tag, batch in {**PARALLEL_TAGS, **LATENT64_TAGS, **cells}.items():
             rs = [r for r in rows if r["kernel"] == name and r["tag"] == tag]
             if rs:
                 summary[name][tag + "_step"] = dict(
@@ -879,7 +894,9 @@ _TF32 = "tensor cores, three TF32 passes"
 _TF32_Q = "tensor cores, two TF32 passes on int8 weight tiles"
 ROUTES = {
     "block_core": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
-    "ffn_block": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
+    "ffn_block": {"bf16": "tensor cores (wgmma, csrc/ffn_wg_fwd.cuh, where ffn_wgmma_route "
+                          "takes the call; else mma.sync)",
+                  "fp32": _TF32 + " (csrc/ffn_tf32_fwd.cuh)"},
     "window_mha": {"bf16": "tensor cores", "fp32": _TF32 + " (window_attention.cu wtf)"},
     "ffn_block_bwd": {"bf16": "tensor cores", "fp32": _TF32 + " (csrc/ffn_tf32_bwd.cuh)"},
     "window_mha_bwd": {"bf16": "tensor cores",
@@ -4363,6 +4380,10 @@ P512_TRAIN_STEPS = 3
 P512_OBJECTIVE = ("v", True, 5.0)
 # phase 2's tags of the 512px paths' kernel calls and the batch of each
 LATENT64_TAGS = {"b1-64": 1, "b4-64": 4, "train64": TRAIN_BATCH, "train64_b1": 1}
+# the benchmark's cells' ffn_block calls, {tag: (batch, latent side)}:
+# cin256-cfg-b256's B=256 CFG call at 256px, ldm512-serve-poisson's bucket
+# 32 at 512px
+CELL_TAGS = {"cfg256": (256, 32), "serve32-64": (32, 64)}
 
 
 def in_dir(path: str, fn):

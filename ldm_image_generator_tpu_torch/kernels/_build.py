@@ -124,6 +124,7 @@ _SIGNATURES = {
     },
     "ffn_block": {
         "ffn_tensor_cores": ([_I] * 4, _I),
+        "ffn_wgmma_route": ([_I] * 5, _I),
         "ffn_block_forward": ([_I, _I, _P, _P, _P, _I] + [_P] * 12 + [_I, _P]
                               + [_I] * 3 + [_P] * 6, _I),
         "ffn_block_scratch_floats": ([_I] * 4, _LL),

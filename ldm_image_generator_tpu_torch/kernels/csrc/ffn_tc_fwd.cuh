@@ -40,6 +40,17 @@
 namespace ldm {
 namespace ftc {
 
+// A TMA tensor map (CUtensorMap's size and alignment), encoded on the host.
+struct alignas(64) TmaMap {
+  unsigned long long opaque[16];
+};
+// The tensor maps of the bf16 wgmma route (ffn_wg_fwd.cuh; zero elsewhere):
+// the activations h [N, C] and g [3, N, M], the output [N, C], and the
+// weights, the stacked experts' [E, rows, cols] as one 3-D map each.
+struct WgMaps {
+  TmaMap h, gwa, gwb, wa, wb, g, gwc, wc, out;
+};
+
 struct FwdArgs {
   FfnArgs f;
   Split gate, out;
@@ -47,6 +58,7 @@ struct FwdArgs {
   int *gate_counters, *out_counters;
   ConvArgs conv;                    // CONV: taps [3, 3, 32, C], bias [C], map H x W
   const void* residual;             // CONV: x, or null
+  WgMaps tma;
 };
 
 using OutTile = Gemm<64, 64, 2, 2, 4>;

@@ -7,7 +7,11 @@
 // rows per block (one window, or a 16-row map at batch 1); wgmma needs
 // 64-row warpgroup tiles, mma.sync takes 16. What bounds the small-row
 // products is the weight stream from device memory, so the ring's depth
-// (bytes in flight per SM), not the instruction, sets their speed.
+// (bytes in flight per SM), not the instruction, sets their speed. That
+// holds for window attention and for the FFN kernels at small row counts;
+// ffn_block's bf16 forward at thousands of rows, bound by its FLOP, runs
+// on wgmma (ffn_wg_fwd.cuh), its bf16 weights fed as they lie (wgmma takes
+// a 16-bit B operand MN-major; only tf32, fp8 and int8 need K-major).
 //
 // Gemm and gemm_tile below are the block-tile products of the weight
 // projections (window MHA's output projection and backward tail, the FFN

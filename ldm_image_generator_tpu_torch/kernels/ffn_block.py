@@ -22,8 +22,10 @@ At widths that are multiples of 64 with C <= 1024 (every UNet shape;
 the route depends on dtype and shape alone, ``ffn_tensor_cores``) every
 product runs on the tensor cores in three launches: norm/FiLM, the gate
 (a and b of a tile in one block) and the output product over the three
-towers with the biases in its epilogue; bfloat16 as mma.sync
-(csrc/ffn_tc.cuh), float32 as TF32 passes, fp32 accurate
+towers with the biases in its epilogue; bfloat16 as wgmma on 128-row
+tiles fed by TMA where the gate's tiles fill the card (bf16 weights,
+``ffn_wgmma_route``, counted in ``wgmma_launches``; csrc/ffn_wg_fwd.cuh),
+else as mma.sync (csrc/ffn_tc.cuh), float32 as TF32 passes, fp32 accurate
 (csrc/ffn_tf32_fwd.cuh: three per product with float32 weights, two
 with int8 ones, whose tiles stay int8 until the fragment load);
 k is split over blocks where the grid has fewer than two blocks per SM,
@@ -76,6 +78,9 @@ from ldm_image_generator_tpu_torch.ops.norm import channel_norm
 # calls of ffn_block (full-precision and int8 weights) and of
 # ffn_block_bwd that launched their CUDA chains
 launches = 0
+# of those full-precision calls, the ones that took the bf16 wgmma route
+# (the C side's ffn_wgmma_route decides)
+wgmma_launches = 0
 int8_launches = 0
 bwd_launches = 0
 # weight tensors quantize_cols has quantized
@@ -286,11 +291,12 @@ def _ffn_block_forward(x, film_mul, film_bias, gwa, gba, gwb, gbb, gwc, gbc,
         p[15], n, c, m, *p[16:], _build.current_stream(),
     )
     _build.check(lib, rc, "ffn_block")
-    global launches, int8_launches
+    global launches, int8_launches, wgmma_launches
     if q:
         int8_launches += 1
     else:
         launches += 1
+        wgmma_launches += lib.ffn_wgmma_route(code, 0, n, c, m)
     return out, h
 
 

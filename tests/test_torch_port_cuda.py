@@ -421,6 +421,86 @@ def test_ffn_route_depends_on_shape_alone(card):
                for name in ("gate_grad_kernel_f32", "tail_kernel_f32")), chain
 
 
+# ffn_block's bf16 wgmma route (csrc/ffn_wg_fwd.cuh) at the benchmark's
+# call shapes: served bucket 32 at C=128 (131,072 rows) and C=1024 (2,048),
+# bucket 4 at C=1024 (256 rows, below the route's rule: mma.sync with split
+# k), the B=256 CFG call at C=128 (262,144 rows) and C=512 (16,384); the
+# B=8 train forward at latent 64, C=256 (8,192 rows); a ragged row count
+# (1,875, not a multiple of 128)
+WGMMA_CALLS = [Call("ffn_block", 32, 64, 128, 1), Call("ffn_block", 32, 8, 1024, 1),
+               Call("ffn_block", 4, 8, 1024, 1), Call("ffn_block", 256, 32, 128, 1),
+               Call("ffn_block", 256, 8, 512, 1), Call("ffn_block", 8, 32, 256, 1),
+               Call("ffn_block", 3, 25, 512, 1)]
+
+
+def _wgmma_takes(n: int, c: int) -> bool:
+    """The route's rule as the test reads it: bf16 weights, C = M a
+    multiple of 128, and the gate's tiles (128 rows by 128 hidden columns,
+    three towers) fill the card's SMs once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return c % 128 == 0 and 3 * -(-n // 128) * (c // 128) >= sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", [None, (2, 0), (3, 3)], ids=["ids13", "ids20", "ids33"])
+@pytest.mark.parametrize("call", WGMMA_CALLS, ids=lambda c: c.label)
+def test_ffn_wgmma_route_matches_plain_and_reruns_bitwise(card, call, ids):
+    """bf16 ffn_block at the route's shapes against its plain version (the
+    routed experts (1, 3) as make_inputs gives them, (2, 0) and (3, 3)),
+    two calls bitwise equal, launches counting both calls and
+    wgmma_launches exactly those the rule sends to the route."""
+    lib = _build.load("ffn_block")
+    n = call.batch * call.hw * call.hw
+    takes = _wgmma_takes(n, call.c)
+    assert lib.ffn_wgmma_route(1, 0, n, call.c, call.c) == takes
+    gen = torch.Generator(device=card).manual_seed(31)
+    args = list(make_inputs(call, torch.bfloat16, card, gen))
+    if ids is not None:
+        args[-1] = torch.tensor(ids, dtype=torch.int32, device=card)
+    before = (tffn.launches, tffn.wgmma_launches)
+    with torch.no_grad():
+        got = tffn.ffn_block(*args)
+        again = tffn.ffn_block(*args)
+    assert (tffn.launches, tffn.wgmma_launches) == (before[0] + 2, before[1] + 2 * takes)
+    want = tffn.ffn_block_plain(*args)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_ffn_wgmma_route_rule_and_launch_chain(card):
+    """The route takes every ffn_block call of the CFG cell (B=256, latent
+    32) and of served buckets 16 and 32 (latent 64), and bf16 calls only:
+    never int8 weights, float32 or C, M not multiples of 128; a call on it
+    launches norm/FiLM, the wgmma gate and output kernels and nothing else,
+    the output kernel's name ending as the benchmark's roofline reader
+    closes a call."""
+    lib = _build.load("ffn_block")
+    channels, stages = (128, 256, 512, 1024), range(4)
+    for batch, side in ((256, 32), (32, 64), (16, 64), (8, 64), (4, 64)):
+        for i, c in zip(stages, channels):
+            n = batch * (side >> i) ** 2
+            takes = lib.ffn_wgmma_route(1, 0, n, c, c)
+            assert takes == _wgmma_takes(n, c), (batch, c)
+            if batch >= 16:
+                assert takes, (batch, c)
+            assert lib.ffn_wgmma_route(1, 1, n, c, c) == 0  # int8 weights
+            assert lib.ffn_wgmma_route(0, 0, n, c, c) == 0  # float32
+    assert lib.ffn_wgmma_route(1, 0, 1 << 16, 192, 192) == 0
+    assert lib.ffn_wgmma_route(1, 0, 1 << 16, 128, 192) == 0
+    gen = torch.Generator(device=card).manual_seed(27)
+    args = make_inputs(Call("ffn_block", 32, 16, 512, 1), torch.bfloat16, card, gen)
+    with torch.no_grad():
+        chain = _device_kernels(lambda: tffn.ffn_block(*args))
+    assert sum(chain.values()) == 3, chain
+    assert any("norm_film_rows_kernel<__nv_bfloat16>" in k for k in chain), chain
+    assert any("ftc::gate_kernel<ldm::ftc::WgGate" in k for k in chain), chain
+    assert any("ftc::out_kernel<ldm::ftc::WgOut" in k
+               and k.endswith("false>(ldm::ftc::FwdArgs)") for k in chain), chain
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("call", [c for c in FFN_SHAPES if c.batch == 8] + FFN_FMA_ONLY,
