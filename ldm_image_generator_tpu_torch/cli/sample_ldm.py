@@ -12,7 +12,12 @@ with the JAX CLI's message. --sampler ddim | dpm++2m; --cache-interval
 N > 1 (DeepCache); --num-classes with --class-id, --guidance-scale,
 --negative-class and --cfg-rescale for class-conditional models;
 --prediction and --zero-snr select the schedule; --quant int8 samples
-with per-output-column int8 FFN weights (UNetConfig.ffn_quant). Writes
+with per-output-column int8 FFN weights (UNetConfig.ffn_quant).
+--config dit-xl-2 (dit-tiny: its test scale) samples a DiT in the
+UNet's place, class-conditional with DiTConfig's classes unless
+--num-classes is given, on a 4-channel latent of -s / 8 (-s / 2 tiny);
+-dp is then a DiT state_dict file (facebookresearch/DiT's), loaded
+with strict=True where it exists. Writes
 <outdir>/<i>.png. --init-image (with -encp the VAE encoder's file and
 --strength) samples img2img from that image, tiled over -n; --mask (a
 grayscale image, white = regenerate, black = keep) inpaints, DDIM only.
@@ -30,6 +35,21 @@ import struct
 import zlib
 
 from ldm_image_generator_tpu_torch.cli.common import add_diffusion_args, add_launch_args
+
+# --config's presets: the UNet's, then the DiT's
+CONFIGS = ["default", "tiny", "dit-xl-2", "dit-tiny"]
+
+
+def dit_config(name: str, latent: int = 64, num_classes: int = 0):
+    """The DiTConfig of a --config dit-* preset at a latent side, with
+    num_classes where it is > 0 (else the preset's)."""
+    from ldm_image_generator_tpu_torch.config import DiTConfig
+
+    cfg = DiTConfig.xl_2() if name == "dit-xl-2" else DiTConfig().tiny()
+    return dataclasses.replace(cfg, input_size=latent,
+                               num_classes=num_classes if num_classes > 0
+                               else cfg.num_classes)
+
 
 def str2bool(v: str) -> bool:
     if v.lower() in ("true", "1", "yes", "y", "t"):
@@ -82,8 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--outdir", default="./ddpm_outputs/")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="print the per-step DDIM sigma schedule")
-    p.add_argument("--config", default="default", choices=["default", "tiny"],
-                   help="model size preset (tiny = test/debug scale)")
+    p.add_argument("--config", default="default", choices=CONFIGS,
+                   help="model size preset (tiny = test/debug scale; dit-xl-2: "
+                        "DiT-XL/2, dit-tiny its test scale)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
                    help="int8: per-output-column quantized FFN weights")
     p.add_argument("--num-classes", default=0, type=int,
@@ -113,7 +134,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """The JAX CLI's argument checks, in its order, then its pipeline's
-    img2img checks (here before any model is built)."""
+    img2img checks (here before any model is built). A DiT preset takes
+    its own class count where --num-classes is not given."""
+    if args.config.startswith("dit"):
+        if args.quant != "none":
+            raise SystemExit("--quant int8 quantizes a UNet's FFN weights; a DiT has none")
+        args.num_classes = dit_config(args.config, num_classes=args.num_classes).num_classes
     if args.mask is not None and args.init_image is None:
         raise SystemExit("--mask requires --init-image")
     if args.class_id is not None and args.num_classes <= 0:
@@ -177,10 +203,10 @@ def read_mask(path, size: int, n: int, device):
 
 def build_pipeline(args, seed: int, with_encoder: bool):
     """The LDMPipeline of a sampling CLI's args (--config, --quant,
-    --num-classes, -fp16, --prediction, --zero-snr, -d): weights seeded
-    with `seed` (the UNet, the decoder, then the encoder when
-    with_encoder), then the parameter files of -dp, -decp and -encp that
-    exist."""
+    --num-classes, -fp16, --prediction, --zero-snr, -d, and -s for a
+    DiT's latent): weights seeded with `seed` (the denoiser, then the
+    decoder, then the encoder when with_encoder), each followed by its
+    parameter file (-dp, -decp, -encp) where it exists."""
     import torch
 
     from ldm_image_generator_tpu_torch.cli.common import setup_device
@@ -191,30 +217,64 @@ def build_pipeline(args, seed: int, with_encoder: bool):
         UNetConfig,
         VAEConfig,
     )
-    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.models.dit import DiT
     from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
     from ldm_image_generator_tpu_torch.pipelines import LDMPipeline
     from ldm_image_generator_tpu_torch.utils import torch_import as ti
 
     device = setup_device(args)[0]
     ucfg, vcfg = UNetConfig(), VAEConfig()
-    if args.config == "tiny":
+    if args.config in ("tiny", "dit-tiny"):
         ucfg, vcfg = ucfg.tiny(), vcfg.tiny()
-    ucfg = dataclasses.replace(ucfg, ffn_quant=args.quant,
-                               num_classes=max(args.num_classes, 0))
     dtype = (DEFAULT_PRECISION if args.fp16 else FULL_PRECISION).compute_dtype
     dcfg = DDPMConfig(prediction=args.prediction, zero_terminal_snr=args.zero_snr)
-    # seeded weights as LDMPipeline.random makes them, then the files
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet = UNet(ucfg, device=device, generator=gen)
+    if args.config.startswith("dit"):
+        # DiT's latent: 4 channels (its KL-f8's), decoded by the VQ Decoder
+        vcfg = dataclasses.replace(vcfg, latent_channels=4, embedding_dim=4)
+        cfg = dit_config(args.config, args.size // vcfg.downscale, args.num_classes)
+        denoiser = DiT(cfg, device=device, generator=gen)
+        load_dit_file(denoiser, args.ddpmpath)
+    else:
+        denoiser = unet_with_file(args, ucfg, device, gen)
     decoder = Decoder(vcfg, device=device, generator=gen)
-    maybe_load(unet, args.ddpmpath, lambda sd: ti.convert_ddpm(sd, ucfg))
     maybe_load(decoder, args.decpath, lambda sd: ti.convert_decoder(sd, vcfg))
     encoder = None
     if with_encoder:
         encoder = Encoder(vcfg, device=device, generator=gen)
         maybe_load(encoder, args.encpath, lambda sd: ti.convert_encoder(sd, vcfg))
-    return LDMPipeline(unet, decoder, dcfg, dtype=dtype, encoder=encoder)
+    return LDMPipeline(denoiser, decoder, dcfg, dtype=dtype, encoder=encoder)
+
+
+def unet_with_file(args, ucfg, device, gen):
+    """The UNet of --quant and --num-classes, seeded from `gen`, then -dp's
+    file where it exists."""
+    from ldm_image_generator_tpu_torch.models.unet import UNet
+    from ldm_image_generator_tpu_torch.utils import torch_import as ti
+
+    ucfg = dataclasses.replace(ucfg, ffn_quant=args.quant,
+                               num_classes=max(args.num_classes, 0))
+    # seeded weights as LDMPipeline.random makes them, then the file
+    unet = UNet(ucfg, device=device, generator=gen)
+    maybe_load(unet, args.ddpmpath, lambda sd: ti.convert_ddpm(sd, ucfg))
+    return unet
+
+
+def load_dit_file(dit, path: str) -> bool:
+    """Load a DiT state_dict file (facebookresearch/DiT's, or torch.save of
+    the module's state_dict) into `dit` with strict=True if `path`
+    exists; a file of another shape exits with torch's message."""
+    if not os.path.exists(path):
+        return False
+    import torch
+
+    try:
+        sd = torch.load(path, map_location=dit.pos_embed.device, weights_only=True)
+        dit.load_state_dict(sd, strict=True)
+    except (RuntimeError, OSError) as e:
+        raise SystemExit(f"{path}: not a state_dict of this DiT config: {e}") from e
+    print(f"Loaded checkpoint: {path}")
+    return True
 
 
 def main(argv=None):

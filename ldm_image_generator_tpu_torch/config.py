@@ -56,6 +56,44 @@ class UNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """Diffusion transformer (facebookresearch/DiT ``DiT``; the fields are
+    its constructor's). Defaults: DiT-XL/2 at 512px, a 64x64x4 latent."""
+
+    input_size: int = 64
+    patch_size: int = 2
+    in_channels: int = 4
+    hidden_size: int = 1152
+    depth: int = 28
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_classes: int = 1000
+    learn_sigma: bool = True
+
+    @property
+    def input_channels(self) -> int:
+        """The latent's channels (the name the pipelines ask the UNet's
+        config for)."""
+        return self.in_channels
+
+    @property
+    def out_channels(self) -> int:
+        """The eps prediction, then with learn_sigma as many variance
+        channels."""
+        return self.in_channels * (2 if self.learn_sigma else 1)
+
+    @staticmethod
+    def xl_2(input_size: int = 64) -> "DiTConfig":
+        """DiT-XL/2 (models.py ``DiT_XL_2``) on an input_size^2 latent."""
+        return DiTConfig(input_size=input_size, patch_size=2, hidden_size=1152,
+                         depth=28, num_heads=16)
+
+    def tiny(self) -> "DiTConfig":
+        return dataclasses.replace(self, input_size=8, hidden_size=64, depth=2,
+                                   num_heads=4, num_classes=10)
+
+
+@dataclasses.dataclass(frozen=True)
 class VAEConfig:
     """VQ autoencoder."""
 

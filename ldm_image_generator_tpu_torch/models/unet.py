@@ -50,8 +50,8 @@ only) is not rematerialized.
 int8 FFN weights (``ffn_quant='int8'``, as the JAX package's UNetConfig):
 every block's MoE FFN runs the kernels' int8 routes; a training forward
 takes the backward at the dequantized weights with straight-through
-gradients to the fp32 parameters (layers.RandomMoE); ``prepare_ffn``
-makes the int8 weights ahead of a sampling run.
+gradients to the fp32 parameters (layers.RandomMoE); ``prepare`` makes
+the int8 weights ahead of a sampling run.
 
 ablate_branches (SwinBlock branch names to skip; parameters are still
 created, so files and trees are unchanged) reaches every block.
@@ -157,6 +157,14 @@ class ClassEmbed(nn.Module):
 
 
 class UNet(nn.Module):
+    """What LDMPipeline asks of a denoiser (models/dit.py's DiT answers the
+    same): cfg.input_channels and cfg.num_classes, prepare(dtype),
+    draw_fn(generator), tokens(latent) and takes_film."""
+
+    # the pipeline hands each call one step's slice of its FiLM memo, the
+    # step's routing plan and DeepCache's deep features
+    takes_film = True
+
     def __init__(self, cfg: UNetConfig = UNetConfig(), device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -206,7 +214,7 @@ class UNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.encoder_first.kernel.dtype
 
-    def prepare_ffn(self, dtype: torch.dtype) -> None:
+    def prepare(self, dtype: torch.dtype) -> None:
         """Make every block's FFN weights for compute dtype now: with
         ffn_quant='int8' the int8 weights a forward would otherwise make
         at its first call (a no-op otherwise)."""
@@ -214,6 +222,19 @@ class UNet(nn.Module):
             for m in self.modules():
                 if isinstance(m, RandomMoE):
                     m.ffn_weights(dtype)
+
+    def draw_fn(self, generator: Optional[torch.Generator]):
+        """draw() -> one step's routing plan from `generator`, or None
+        when the config fixes the experts."""
+        if self.cfg.fixed_expert_indices is not None:
+            return lambda: None
+        if generator is None:
+            raise ValueError("sampling with drawn MoE routing needs a generator")
+        return lambda: self.draw_plan(generator)
+
+    def tokens(self, latent: int) -> int:
+        """Tokens per row at a latent of side `latent` (the stem's map)."""
+        return (latent // self.cfg.stem_size) ** 2
 
     def stage_names(self) -> list:
         """Stack names in routing-plan order."""

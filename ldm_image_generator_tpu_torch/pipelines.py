@@ -2,10 +2,11 @@
 LDMPipeline.img2img and DDPMPipeline.sample in
 ldm_image_generator_tpu/pipelines.py.
 
-LDMPipeline: init noise -> DDIM or DPM-Solver++(2M) over the UNet in
-latent space -> VAE decode -> clamp -> uint8; optionally class-conditional
-with classifier-free guidance (per-sample scales and rescale, a negative
-class) or with DeepCache deep-feature reuse. img2img encodes an image
+LDMPipeline: init noise -> DDIM or DPM-Solver++(2M) over the denoiser (a
+UNet, or a DiT in its place) in latent space -> VAE decode -> clamp ->
+uint8; optionally class-conditional with classifier-free guidance
+(per-sample scales and rescale, a negative class) or with DeepCache
+deep-feature reuse (UNet only). img2img encodes an image
 with the VAE encoder, diffuses it part of the way and samples over the
 rest of the schedule, optionally keeping a masked region (inpainting).
 DDPMPipeline: the same samplers and DeepCache over a 3-channel UNet in
@@ -41,6 +42,7 @@ from ldm_image_generator_tpu_torch.diffusion.ddpm import (
     q_sample,
 )
 from ldm_image_generator_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
+from ldm_image_generator_tpu_torch.models.dit import DiT
 from ldm_image_generator_tpu_torch.models.unet import UNet
 from ldm_image_generator_tpu_torch.models.vae import Decoder, Encoder
 from ldm_image_generator_tpu_torch.utils.profiling import span
@@ -126,11 +128,23 @@ def inpaint_projection(schedule, z0: torch.Tensor, m: torch.Tensor):
 
 class _Pipeline:
     """What the pipelines share: the schedule, cast copies of the caller's
-    modules (the UNet first) made once per weight version, the FiLM
-    schedule memo, the UNet call at a timestep under a routing plan
+    modules (the denoiser first) made once per weight version, the FiLM
+    schedule memo, the denoiser call at a timestep under a routing plan
     (_base_fn), the plan draw (_plan_fn), the sampler's model call, plain
     or guided (_denoise_fns), DeepCache's pair of calls and the sampler
-    run. A subclass takes the copies in _adopt."""
+    run. A subclass takes the copies in _adopt.
+
+    The denoiser (`self.unet`: a UNet, or for LDMPipeline a DiT) gives the
+    pipeline cfg.input_channels and cfg.num_classes (the null class id of
+    CFG), prepare(dtype) (what a sampling run derives once per weight
+    version: the UNet's int8 FFN weights), draw_fn(generator) (a step's
+    routing plan, or None), tokens(latent) (per row, for the spans) and
+    takes_film. takes_film True: each call gets one step's slice of the
+    FiLM memo (collect_film), the routing plan and DeepCache's features;
+    False: the call is denoiser(x, t, condition) and the prediction is
+    its first cfg.input_channels channels (a DiT's learned variance is
+    dropped: DDIM and DPM-Solver++ take the eps alone), no FiLM memo and
+    no DeepCache. Each is read once per sampler run, never per call."""
 
     def __init__(self, modules: tuple, ddpm_cfg: DDPMConfig, dtype: torch.dtype):
         self.schedule = make_schedule(ddpm_cfg)
@@ -152,14 +166,11 @@ class _Pipeline:
         if version == self._version:
             return
         self._adopt([cast_copy(m, self.dtype) for m in self._src])
-        self.unet.prepare_ffn(self.dtype)
+        self.unet.prepare(self.dtype)
+        self.device = next(self.unet.parameters()).device
         self._version = version
         # a version counter only grows: the old weights' schedules never hit
         self._films.clear()
-
-    @property
-    def device(self) -> torch.device:
-        return self.unet.encoder_first.kernel.device
 
     def film_schedule(self, latent: int, num_steps: int, steps=None) -> tuple:
         """({timestep: row}, {stage: {block: (mul, bias)}} of [S, h, w, c])
@@ -183,22 +194,23 @@ class _Pipeline:
 
     def _base_fn(self, latent: int, num_steps: int, steps, film_cache: bool):
         """base(x, t, plan, condition=None, deep=None, with_deep=False,
-        branch="plain") -> the UNet's fp32 output (and deep features) at
-        the integer timestep t under the routing plan, in a span
-        pipeline.unet (attrs rows, branch: plain, or CFG's cond / uncond).
-        With film_cache each step replays its slice of the FiLM schedule; a
-        timestep outside it raises."""
+        branch="plain") -> the denoiser's fp32 prediction (and deep
+        features) at the integer timestep t under the routing plan, in a
+        span pipeline.unet (attrs rows, tokens per row, branch: plain, or
+        CFG's cond / uncond). With film_cache each UNet step replays its
+        slice of the FiLM schedule; a timestep outside it raises."""
         self._prepare()
         unet, dev = self.unet, self.device
+        tokens = unet.tokens(latent)
         index, films = (self.film_schedule(latent, num_steps, steps)
-                        if film_cache else (None, None))
+                        if film_cache and unet.takes_film else (None, None))
 
         def base(x, t, plan, condition=None, deep=None, with_deep=False,
                  branch="plain"):
-            with span("pipeline.unet", rows=x.shape[0], branch=branch):
+            with span("pipeline.unet", rows=x.shape[0], tokens=tokens, branch=branch):
                 return call(x, t, plan, condition, deep, with_deep)
 
-        def call(x, t, plan, condition, deep, with_deep):
+        def call_unet(x, t, plan, condition, deep, with_deep):
             film = None
             if films is not None:
                 i = index.get(int(t))
@@ -212,16 +224,20 @@ class _Pipeline:
             out = unet(x, t_vec, condition, film=film, moe_plan=plan, deep=deep,
                        with_deep=with_deep)
             return (out[0].float(), out[1]) if with_deep else out.float()
+
+        eps = unet.cfg.input_channels
+
+        def call_eps(x, t, plan, condition, deep, with_deep):
+            t_vec = torch.full((1,), t, dtype=torch.int32, device=dev)
+            return unet(x, t_vec, condition)[..., :eps].float()
+
+        call = call_unet if unet.takes_film else call_eps
         return base
 
     def _plan_fn(self, generator: Optional[torch.Generator]):
         """draw() -> one step's routing plan from `generator`, or None
-        when the config fixes the experts."""
-        if self.unet.cfg.fixed_expert_indices is not None:
-            return lambda: None
-        if generator is None:
-            raise ValueError("sampling with drawn MoE routing needs a generator")
-        return lambda: self.unet.draw_plan(generator)
+        (the config fixes the experts, or the denoiser routes nothing)."""
+        return self.unet.draw_fn(generator)
 
     def _denoise_fns(self, latent: int, num_steps: int, steps=None,
                     film_cache: bool = True,
@@ -285,6 +301,9 @@ class _Pipeline:
             raise ValueError(f"cache_interval {cache_interval}: 1 (off) or more")
         if cache_interval == 1:
             return None
+        if not self.unet.takes_film:
+            raise ValueError(f"cache_interval > 1 (DeepCache) needs a UNet: a "
+                             f"{type(self.unet).__name__} has no deep core to reuse")
         if len(self.unet.cfg.stages) < 2:
             raise ValueError("cache_interval > 1 needs a UNet with >= 2 stages")
         return (lambda x, t: step(x, t, condition, with_deep=True),
@@ -308,9 +327,10 @@ def check_sampler(sampler: str) -> None:
 
 
 class LDMPipeline(_Pipeline):
-    """Latent diffusion sampler over a UNet and a VAE Decoder: DDIM or
-    DPM-Solver++(2M), unconditional or class-conditional (with CFG), and
-    DeepCache. The caller's modules are not changed: the pipeline samples
+    """Latent diffusion sampler over a UNet (or a DiT) and a VAE Decoder:
+    DDIM or DPM-Solver++(2M), unconditional or class-conditional (with
+    CFG), and DeepCache (UNet only). The caller's modules are not
+    changed: the pipeline samples
     with copies cast to `dtype` (the modules themselves where they already
     are in it) and, with the UNet's ffn_quant='int8', their int8 FFN
     weights, all made here and made again only when the modules' weights
@@ -324,7 +344,7 @@ class LDMPipeline(_Pipeline):
     to both. `encoder` (a VAE Encoder) is needed by img2img only; its cast
     copy is memoized with the others'."""
 
-    def __init__(self, unet: UNet, decoder: Decoder,
+    def __init__(self, unet: "UNet | DiT", decoder: Decoder,
                  ddpm_cfg: DDPMConfig = DDPMConfig(),
                  dtype: torch.dtype = torch.bfloat16,
                  encoder: Optional[Encoder] = None):
